@@ -1,0 +1,36 @@
+"""Where the port runs: the counterpart of ``parallel/mesh.py:29``
+``make_mesh``, reduced to one device.
+
+Every entry point resolves its ``device`` argument here. With none it
+takes ``cuda:0``; where CUDA is absent that is an error, never a quiet
+move to the CPU. The CPU runs only when the caller names it (the tests
+do). The device list for multi-GPU training comes with that slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ytk_mp4j_tpu_torch.exceptions import Mp4jError
+
+
+def make_device(device=None) -> torch.device:
+    """``None`` -> ``cuda:0``; ``"cpu"``, ``"cuda"`` or ``"cuda:k"`` (or a
+    ``torch.device``) as given. Raises Mp4jError for a CUDA device when
+    CUDA is absent, and for any other device type."""
+    if device is None:
+        device = "cuda"
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return dev
+    if dev.type != "cuda":
+        raise Mp4jError(f"the port runs on cuda or cpu, not {dev}")
+    if not torch.cuda.is_available():
+        raise Mp4jError(
+            "no CUDA device is available; pass device='cpu' to run on the "
+            "CPU")
+    index = 0 if dev.index is None else dev.index
+    if index >= torch.cuda.device_count():
+        raise Mp4jError(
+            f"cuda:{index} requested, {torch.cuda.device_count()} visible")
+    return torch.device("cuda", index)

@@ -1,0 +1,59 @@
+"""Library-wide exception types (a copy of ``ytk_mp4j_tpu.exceptions``;
+the port imports nothing of the JAX package).
+
+Mirrors the reference's single checked exception ``Mp4jException``
+(SURVEY.md section 2, expected path ``exception/Mp4jException.java`` [U]),
+refined into a small hierarchy for the resilience subsystem:
+recovery must retry a torn socket but never a caller mistake, so the
+two kinds are distinct types, not string matches.
+"""
+
+
+class Mp4jError(Exception):
+    """Raised for any mp4j-level failure (rendezvous, transport, shape/type
+    mismatches, collective misuse)."""
+
+
+class Mp4jTransportError(Mp4jError):
+    """A wire/socket-level failure (timeout, reset, torn frame, failed
+    dial). The RECOVERABLE class: the epoch-fenced abort/retry engine
+    (``resilience/recovery.py``) may re-run the collective after one of
+    these. Validation and protocol-misuse failures stay plain
+    :class:`Mp4jError` — retrying a duplicate gather key or an
+    out-of-range root would re-fail deterministically while dragging
+    every healthy rank through a pointless abort round."""
+
+
+class Mp4jAbortError(Mp4jTransportError):
+    """The epoch fence tripped: a job-wide abort round targeting a
+    newer epoch is in flight, so this rank must stop touching the torn
+    data plane and join the round. Always recoverable — raised *by* the
+    recovery machinery to reroute a collective attempt, never a final
+    verdict."""
+
+
+class Mp4jFatalError(Mp4jError):
+    """A terminal, cluster-wide abort: the master has declared the job
+    unrecoverable (dead rank, exhausted retry budget, stalled recovery
+    round) and fanned the SAME message out to every surviving rank.
+    Deliberately not a transport error — nothing retries it."""
+
+
+class Mp4jEvicted(Mp4jFatalError):
+    """This rank was PROACTIVELY evicted by the elastic autoscaler
+   : the health plane recommended replacing it, the
+    controller quiesced the job at a collective boundary, a warm spare
+    was adopted into this rank's id, and the job continues without this
+    process. A clean release, not a failure — the hosting process
+    should treat it like :class:`Mp4jSpareReleased` (exit 0). Subclass
+    of :class:`Mp4jFatalError` so every wait that a terminal abort
+    breaks also breaks for an eviction, and nothing ever retries it."""
+
+
+class Mp4jSpareReleased(Mp4jError):
+    """A warm spare (``ProcessCommSlave(spare=True)``) was
+    released without ever being adopted: the job completed (or died)
+    while the spare idled. Not a defect — the spare existing unused is
+    the success case of elastic provisioning — but the blocked
+    constructor has nothing to return, so it raises this distinct type
+    for the hosting process to treat as a clean exit."""

@@ -1,0 +1,615 @@
+"""GBDT on one device: the histogram boosting round of
+``ytk_mp4j_tpu/models/gbdt.py`` in PyTorch.
+
+ytk-mp4j's flagship consumer is ytk-learn's distributed GBDT. Each tree
+level does four things: build (node x feature x bin) gradient/hessian
+histograms (:func:`build_histograms`, which reaches the hand-written CUDA
+kernel behind ``ops.hist_kernel.histograms``), allreduce them across the
+data-parallel workers, choose the best split per node
+(:func:`best_splits`) and route every sample to its child node
+(:func:`_route_samples`). On one device the allreduce is the identity;
+it comes back with the multi-GPU slice.
+
+Functions take tensors on an explicit device; :class:`GBDTTrainer` runs
+on ``cuda:0`` unless given ``device="cpu"``. Trees are tuples of tensors
+``(feat, bin, dir, leaf)`` in level-order heap layout, as in the
+reference, and a C-tuple of them per round for softmax.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ytk_mp4j_tpu_torch.exceptions import Mp4jError
+from ytk_mp4j_tpu_torch.models._base import (DataParallelTrainer,
+                                             EarlyStopper, per_example_loss,
+                                             stage_softmax_labels)
+from ytk_mp4j_tpu_torch.device import make_device
+from ytk_mp4j_tpu_torch.ops import hist_kernel
+
+
+@dataclass(frozen=True)
+class GBDTConfig:
+    n_features: int = 28
+    n_bins: int = 256           # byte-binned, like ytk-learn's 256-bin hists
+    depth: int = 6
+    # "squared": regression (g = pred - y, h = 1); "logistic": binary
+    # classification on {0,1} labels with second-order (Newton) leaf
+    # values; "softmax": multiclass on integer labels -- one tree per
+    # class per round against the diagonal softmax gradient/hessian
+    loss: str = "squared"
+    n_classes: int = 2          # used by loss="softmax" only
+    # stochastic boosting (ytk-learn's sample_rate / feature_sample_rate):
+    # per tree, each sample is kept with prob ``subsample`` (dropped
+    # samples get weight 0; kept ones are scaled 1/subsample so
+    # gradient sums stay unbiased) and each feature is kept with prob
+    # ``colsample`` (masked features never win a split)
+    subsample: float = 1.0
+    colsample: float = 1.0
+    # split regularization (ytk-learn's min-gain / min-child thresholds):
+    # a node whose best gain < min_split_gain stops splitting (routes all
+    # samples left, equivalent to keeping the node a leaf); candidate
+    # splits whose left or right hessian sum < min_child_hessian are
+    # disqualified
+    min_split_gain: float = 0.0
+    min_child_hessian: float = 0.0
+    learning_rate: float = 0.1
+    reg_lambda: float = 1.0
+    n_trees: int = 10
+    # "pallas" (default): the hand-written CUDA histogram kernel on a
+    # CUDA tensor (the name is the reference's, whose kernel is Pallas;
+    # on a CPU tensor the kernel's plain version runs). "matmul", "pair"
+    # and "flat": the plain PyTorch histogram on any device -- explicit
+    # user choices, never a fallback
+    hist_mode: str = "pallas"
+    # Missing-value handling (ytk-learn routes missing by a learned
+    # per-split default direction): when True, bin 0 is the RESERVED
+    # missing bucket across all features and every split evaluates both
+    # "missing goes left" and "missing goes right", keeping the better
+    # gain; the chosen direction is stored per node and replayed at
+    # predict time.
+    missing_bin: bool = False
+    # Categorical features (ytk-learn's one-hot split type): listed
+    # feature indices split by EQUALITY -- "bin == b goes right, rest
+    # left" -- instead of the ordered "bin <= b" rule. Bin B-1 cannot be
+    # a split category (it doubles as the node-freeze sentinel); bin
+    # categorical values into [0, B-2] (and into [1, B-2] under
+    # missing_bin, where 0 is the missing bucket).
+    categorical_features: tuple = ()
+
+    def __post_init__(self):
+        if self.hist_mode not in ("pallas", "matmul", "pair", "flat"):
+            raise Mp4jError(
+                f"hist_mode must be 'pallas', 'matmul', 'pair' or "
+                f"'flat', got {self.hist_mode!r}")
+        if self.loss not in ("squared", "logistic", "softmax"):
+            raise Mp4jError(
+                f"loss must be 'squared', 'logistic' or 'softmax', "
+                f"got {self.loss!r}")
+        if self.loss == "softmax" and self.n_classes < 2:
+            raise Mp4jError(
+                f"softmax needs n_classes >= 2, got {self.n_classes}")
+        if not (0.0 < self.subsample <= 1.0
+                and 0.0 < self.colsample <= 1.0):
+            raise Mp4jError(
+                f"subsample/colsample must be in (0, 1], got "
+                f"{self.subsample}/{self.colsample}")
+        cats = []
+        for f in self.categorical_features:
+            if isinstance(f, bool) or not isinstance(f, (int, np.integer)):
+                raise Mp4jError(
+                    f"categorical_features must be int feature indices, "
+                    f"got {f!r}")
+            if not 0 <= f < self.n_features:
+                raise Mp4jError(
+                    f"categorical_features must be indices in [0, "
+                    f"{self.n_features}), got {f}")
+            cats.append(int(f))
+        object.__setattr__(self, "categorical_features", tuple(cats))
+
+    def _cat_mask(self) -> np.ndarray | None:
+        """[F] bool mask of equality-split features (None when there are
+        none)."""
+        if not self.categorical_features:
+            return None
+        m = np.zeros(self.n_features, bool)
+        m[list(self.categorical_features)] = True
+        return m
+
+
+# ----------------------------------------------------------------------
+# one tree level: histograms, splits, routing
+# ----------------------------------------------------------------------
+def build_histograms(bins, g, h, node_ids, n_nodes: int, cfg: GBDTConfig):
+    """Per-(node, feature, bin) gradient/hessian sums.
+
+    bins: [N, F] int32 (values in [0, B)); g, h: [N] f32; node_ids: [N]
+    int32 -- ids outside [0, n_nodes) contribute nothing (the sibling
+    subtraction in :func:`_build_tree` passes a sentinel id for
+    right-child samples and depends on this). Returns (hist_g, hist_h):
+    [n_nodes, F, B] f32. ``hist_mode="pallas"`` goes through
+    ``ops.hist_kernel.histograms`` (the CUDA kernel on a CUDA tensor);
+    the other modes take its plain version on any device.
+    """
+    F, B = cfg.n_features, cfg.n_bins
+    if cfg.hist_mode == "pallas":
+        return hist_kernel.histograms(bins, g, h, node_ids, n_nodes, F, B)
+    return hist_kernel.histograms_reference(bins, g, h, node_ids, n_nodes,
+                                            F, B)
+
+
+def _route_samples(bins, node_ids, feat, bin_, dir_=None, cat_mask=None,
+                   missing_bin: bool = False, n_bins: int | None = None):
+    """One level of sample routing: ``node_ids*2 + go_right``, where
+    ``go_right`` is ``bins[i, feat[n]] > bin_[n]`` for numeric features,
+    ``== bin_[n]`` for categorical ones (never at the freeze sentinel
+    B-1), and the node's learned default direction ``dir_`` for the
+    missing bucket (bin 0) under ``missing_bin``. node_ids must lie in
+    [0, len(feat)). The gathers are exact, and a non-finite table entry
+    reaches only the rows that select it."""
+    idx = node_ids.long()
+    nf = feat[idx]
+    nb = bin_[idx]
+    v = bins.gather(1, nf.long().unsqueeze(1)).squeeze(1)
+    go_right = v > nb
+    if missing_bin:
+        go_right = torch.where(v == 0, dir_[idx] > 0, go_right)
+    if cat_mask is not None:
+        # is this sample's node split on a categorical feature?
+        node_cat = torch.as_tensor(cat_mask, device=bins.device)[feat.long()]
+        go_right = torch.where(node_cat[idx], (v == nb) & (nb != n_bins - 1),
+                               go_right)
+    return node_ids * 2 + go_right.to(torch.int32)
+
+
+def split_gains(hist_g, hist_h, reg_lambda: float, feat_mask=None,
+                min_child_hessian: float = 0.0, cat_mask=None,
+                missing_bin: bool = False):
+    """Regularized gain of every candidate split.
+
+    hist_*: [n_nodes, F, B]. Returns (gain [n_nodes, F, B], dir
+    [n_nodes, F, B] bool): candidate (f, b) is "bin <= b goes left" for
+    numeric features and "bin == b goes right" for features flagged in
+    ``cat_mask`` ([F] bool). ``dir`` is the missing bucket's default
+    direction (True = right; all False unless ``missing_bin``): with
+    ``missing_bin`` every numeric candidate is scored with bin 0's G/H on
+    the left AND on the right, and the better variant wins. Disqualified
+    candidates have gain -inf: the last bin, features masked out by
+    ``feat_mask`` ([F] bool), children with hessian sum <
+    ``min_child_hessian``, and NaN gains (0/0 at reg_lambda == 0).
+    """
+    cg = torch.cumsum(hist_g, dim=-1)       # G_left for split at bin b
+    ch = torch.cumsum(hist_h, dim=-1)
+    Gt = cg[..., -1:]
+    Ht = ch[..., -1:]
+    lam = reg_lambda
+    mch = min_child_hessian
+    neg_inf = float("-inf")
+
+    def score(G, H):
+        return (G * G) / (H + lam)
+
+    def variant_gain(GL, HL):
+        """Gain of a (left, right) partition given the left sums. A NaN
+        is disqualified per variant: it would otherwise propagate
+        through the maximum of the missing-left/right variants and win
+        the argmax."""
+        g = score(GL, HL) + score(Gt - GL, Ht - HL) - score(Gt, Ht)
+        if mch > 0.0:
+            ok = (HL >= mch) & (Ht - HL >= mch)
+            g = torch.where(ok, g, neg_inf)
+        return torch.where(torch.isnan(g), neg_inf, g)
+
+    gain = variant_gain(cg, ch)             # missing (bin 0) left
+    direction = torch.zeros(gain.shape, dtype=torch.bool,
+                            device=gain.device)
+    if missing_bin:
+        # move bin 0 (the reserved missing bucket) to the right child
+        gain_r = variant_gain(cg - hist_g[..., :1], ch - hist_h[..., :1])
+        # at b=0 the right variant's left child is empty by construction
+        gain_r[..., 0] = neg_inf
+        direction = gain_r > gain
+        gain = torch.maximum(gain, gain_r)
+    if cat_mask is not None:
+        # equality split: category b alone goes right
+        cat_gain = variant_gain(Gt - hist_g, Ht - hist_h)
+        cat = torch.as_tensor(cat_mask, device=gain.device)[None, :, None]
+        gain = torch.where(cat, cat_gain, gain)
+        direction = direction & ~cat
+    # splitting at the last bin sends everything left (numeric) /
+    # doubles as the freeze sentinel (categorical) -- never a candidate
+    gain[..., -1] = neg_inf
+    if feat_mask is not None:
+        gain = torch.where(feat_mask[None, :, None], gain, neg_inf)
+    return gain, direction
+
+
+def best_splits(hist_g, hist_h, reg_lambda: float, feat_mask=None,
+                min_child_hessian: float = 0.0, cat_mask=None,
+                missing_bin: bool = False):
+    """Regularized best split per node, over :func:`split_gains`.
+
+    Returns (feat [n_nodes] int32, bin [n_nodes] int32, gain [n_nodes],
+    dir [n_nodes] int32). Ties go to the first maximum in (feature, bin)
+    order, as ``jnp.argmax`` gives them in the reference."""
+    gain, direction = split_gains(hist_g, hist_h, reg_lambda, feat_mask,
+                                  min_child_hessian, cat_mask, missing_bin)
+    n = gain.shape[0]
+    B = hist_g.shape[-1]
+    flat = gain.reshape(n, -1)
+    best = torch.argmax(flat, dim=-1)
+    best_dir = direction.reshape(n, -1).gather(1, best[:, None])[:, 0]
+    return ((best // B).to(torch.int32), (best % B).to(torch.int32),
+            flat.gather(1, best[:, None])[:, 0], best_dir.to(torch.int32))
+
+
+def _segment_sum2(val_a, val_b, seg_ids, n_segments: int):
+    """Per-segment f32 sums of two value vectors (the leaf G/H)."""
+    idx = seg_ids.long()
+    zeros = torch.zeros(n_segments, dtype=torch.float32,
+                        device=val_a.device)
+    return (zeros.index_add(0, idx, val_a), zeros.index_add(0, idx, val_b))
+
+
+# ----------------------------------------------------------------------
+# one boosting round (tree build)
+# ----------------------------------------------------------------------
+def _build_tree(bins, g, h, cfg: GBDTConfig, feat_mask=None):
+    """Grow one tree from per-sample gradients/hessians. Returns (delta
+    [N] -- the learning-rate-scaled leaf value each sample receives --
+    and the tree)."""
+    N = bins.shape[0]
+    dev = bins.device
+    F, B = cfg.n_features, cfg.n_bins
+    node_ids = torch.zeros(N, dtype=torch.int32, device=dev)
+    n_internal = 2 ** cfg.depth - 1
+    tree_feat = torch.zeros(n_internal, dtype=torch.int32, device=dev)
+    tree_bin = torch.zeros(n_internal, dtype=torch.int32, device=dev)
+    tree_dir = torch.zeros(n_internal, dtype=torch.int32, device=dev)
+    cat_mask = cfg._cat_mask()
+
+    level_start = 0
+    prev_hg = prev_hh = None
+    for d in range(cfg.depth):
+        n_nodes = 2 ** d
+        if d == 0:
+            hg, hh = build_histograms(bins, g, h, node_ids, n_nodes, cfg)
+        else:
+            # sibling subtraction, hist(parent) = hist(left) +
+            # hist(right): build only the LEFT children -- samples in
+            # right nodes map to the out-of-range sentinel id n_half and
+            # contribute nothing -- and derive the right siblings from the
+            # previous level. A derived right child inherits error relative
+            # to its parent's magnitude; the hessian clamp keeps that
+            # noise from producing negative hessian sums.
+            n_half = n_nodes // 2
+            left_ids = torch.where(node_ids % 2 == 0, node_ids // 2, n_half)
+            hl_g, hl_h = build_histograms(bins, g, h, left_ids, n_half, cfg)
+            hg = torch.stack([hl_g, prev_hg - hl_g],
+                             dim=1).reshape(n_nodes, F, B)
+            hh = torch.stack([hl_h, torch.clamp(prev_hh - hl_h, min=0.0)],
+                             dim=1).reshape(n_nodes, F, B)
+        prev_hg, prev_hh = hg, hh
+        feat, bin_, gain, dir_ = best_splits(
+            hg, hh, cfg.reg_lambda, feat_mask, cfg.min_child_hessian,
+            cat_mask, cfg.missing_bin)
+        # freeze any node whose best gain does not clear the threshold:
+        # bin B-1 routes every sample left, keeping the node whole. The
+        # ~(gain > thr) form also freezes gain == 0, gain == -inf and NaN.
+        freeze = ~(gain > cfg.min_split_gain)
+        bin_ = torch.where(freeze, cfg.n_bins - 1, bin_)
+        dir_ = torch.where(freeze, 0, dir_)   # frozen: missing stays left
+        tree_feat[level_start:level_start + n_nodes] = feat
+        tree_bin[level_start:level_start + n_nodes] = bin_
+        tree_dir[level_start:level_start + n_nodes] = dir_
+        node_ids = _route_samples(bins, node_ids, feat, bin_, dir_, cat_mask,
+                                  cfg.missing_bin, cfg.n_bins)
+        level_start += n_nodes
+
+    n_leaves = 2 ** cfg.depth
+    leaf_g, leaf_h = _segment_sum2(g, h, node_ids, n_leaves)
+    leaf_val = -leaf_g / (leaf_h + cfg.reg_lambda)
+    delta = cfg.learning_rate * leaf_val[node_ids.long()]
+    return delta, (tree_feat, tree_bin, tree_dir, leaf_val)
+
+
+def _sampling_masks(generator, cfg: GBDTConfig, N: int, device):
+    """Per-tree stochastic-boosting masks drawn from ``generator`` (a
+    ``torch.Generator`` on ``device``; None -> no masks).
+
+    Returns (sample_scale [N] f32 | None, feat_mask [F] bool | None).
+    Kept samples are scaled 1/subsample to keep gradient sums unbiased;
+    at least one feature always survives (an all-dropped draw keeps one
+    uniformly random feature)."""
+    sample_scale = None
+    feat_mask = None
+    if generator is None:
+        return sample_scale, feat_mask
+    if cfg.colsample < 1.0:
+        F = cfg.n_features
+        keep = (torch.rand(F, generator=generator, device=device)
+                < cfg.colsample)
+        rescue = torch.randint(0, F, (), generator=generator, device=device)
+        fallback = (torch.arange(F, device=device) == rescue) & ~keep.any()
+        feat_mask = keep | fallback
+    if cfg.subsample < 1.0:
+        keep = (torch.rand(N, generator=generator, device=device)
+                < cfg.subsample)
+        sample_scale = keep.to(torch.float32) / cfg.subsample
+    return sample_scale, feat_mask
+
+
+def train_tree_shard(bins, y, preds, cfg: GBDTConfig, weights=None,
+                     generator=None, masks=None):
+    """One boosting round on these samples. Returns (new_preds, tree).
+
+    ``weights`` ([N] f32, default all-ones) scales each sample's
+    gradient/hessian contribution. ``generator`` draws the per-tree
+    stochastic-boosting masks when cfg.subsample/colsample < 1;
+    ``masks=(sample_scale | None, feat_mask | None)`` hands them in
+    ready-made instead (no generator and no masks -> full-data trees).
+
+    Scalar objectives ("squared", "logistic"): preds/y are [N]; one tree
+    is grown; tree = (feat, bin, dir, leaf) in level-order heap layout.
+    "softmax": preds are margins [N, C], y is integer class labels [N];
+    one tree is grown PER CLASS against the diagonal softmax g/h
+    (g_c = p_c - 1[y=c], h_c = p_c (1 - p_c)); tree = a C-tuple.
+    """
+    if masks is None:
+        masks = _sampling_masks(generator, cfg, bins.shape[0], bins.device)
+    sample_scale, feat_mask = masks
+    if sample_scale is not None:
+        weights = (sample_scale if weights is None
+                   else weights * sample_scale)
+
+    if cfg.loss == "softmax":
+        p = torch.softmax(preds, dim=1)            # [N, C]
+        trees = []
+        deltas = []
+        for c in range(cfg.n_classes):
+            onehot_y = (y.to(torch.int32) == c).to(torch.float32)
+            g = p[:, c] - onehot_y
+            h = p[:, c] * (1.0 - p[:, c])
+            if weights is not None:
+                g = g * weights
+                h = h * weights
+            delta, tree = _build_tree(bins, g, h, cfg, feat_mask)
+            deltas.append(delta)
+            trees.append(tree)
+        return preds + torch.stack(deltas, dim=1), tuple(trees)
+
+    if cfg.loss == "logistic":
+        p = torch.sigmoid(preds)
+        g = p - y
+        h = p * (1.0 - p)
+    else:  # squared error: g = pred - y, h = 1
+        g = preds - y
+        h = torch.ones_like(preds)
+    if weights is not None:
+        g = g * weights
+        h = h * weights
+    delta, tree = _build_tree(bins, g, h, cfg, feat_mask)
+    return preds + delta, tree
+
+
+def predict_tree(bins, tree, cfg: GBDTConfig):
+    """Route samples through one tree (level-order heap layout); returns
+    each sample's leaf value."""
+    tree_feat, tree_bin, tree_dir, leaf_val = tree
+    cat_mask = cfg._cat_mask()
+    node = torch.zeros(bins.shape[0], dtype=torch.int32, device=bins.device)
+    level_start = 0
+    for d in range(cfg.depth):
+        level = slice(level_start, level_start + 2 ** d)
+        node = _route_samples(bins, node, tree_feat[level], tree_bin[level],
+                              tree_dir[level], cat_mask, cfg.missing_bin,
+                              cfg.n_bins)
+        level_start += 2 ** d
+    return leaf_val[node.long()]
+
+
+def _as_tensor(a, dtype, device):
+    """A contiguous tensor of ``dtype`` on ``device``; numpy input is
+    copied (no copy for a tensor already in place)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype).contiguous()
+    np_dtype = {torch.int32: np.int32, torch.float32: np.float32}[dtype]
+    return torch.from_numpy(np.array(a, dtype=np_dtype)).to(device)
+
+
+def _as_numpy(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+# ----------------------------------------------------------------------
+# the trainer
+# ----------------------------------------------------------------------
+class GBDTTrainer(DataParallelTrainer):
+    """GBDT on one device: ``cuda:0`` unless ``device`` says otherwise
+    (no CUDA and no ``device`` raises Mp4jError)."""
+
+    def __init__(self, cfg: GBDTConfig, device=None):
+        super().__init__(device)
+        self.cfg = cfg
+        self.eval_history_: list[float] = []
+
+    def train(self, bins, y, n_trees: int | None = None, seed: int = 0,
+              sample_weight: np.ndarray | None = None,
+              eval_set=None, early_stopping_rounds: int | None = None):
+        """Full boosting run; returns (trees, final margins) -- the
+        margins a tensor on the trainer's device, [N] for scalar
+        objectives and [N, n_classes] for softmax. ``bins`` and ``y`` may
+        be numpy arrays or tensors (a tensor already on the device is
+        used without a copy). ``seed`` seeds the ``torch.Generator`` of
+        the stochastic-boosting masks when cfg.subsample/colsample < 1
+        (same seed -> same trees); ``sample_weight`` ([N], numpy) scales
+        per-instance g/h contributions.
+
+        ``eval_set=(bins_va, y_va)`` evaluates the objective's metric on
+        held-out data after every round (margins updated incrementally,
+        one tree per round); with ``early_stopping_rounds=k`` training
+        stops after k rounds without improvement and the returned
+        ensemble is truncated to the best round. The per-round metric
+        history is ``self.eval_history_`` afterwards.
+        """
+        cfg = self.cfg
+        dev = self.device
+        dbins = _as_tensor(bins, torch.int32, dev)
+        self._check_bins_width(dbins)
+        N = dbins.shape[0]
+        if cfg.loss == "softmax":
+            dy = torch.from_numpy(stage_softmax_labels(
+                _as_numpy(y), cfg.n_classes)).to(dev)
+            dpreds = torch.zeros((N, cfg.n_classes), dtype=torch.float32,
+                                 device=dev)
+        else:
+            dy = _as_tensor(y, torch.float32, dev)
+            dpreds = torch.zeros(N, dtype=torch.float32, device=dev)
+        if tuple(dy.shape) != (N,):
+            raise Mp4jError(f"y must be [N={N}], got {tuple(dy.shape)}")
+        dw = None
+        if sample_weight is not None:
+            dw = torch.from_numpy(
+                self._stage_weights(sample_weight, N)).to(dev)
+
+        if early_stopping_rounds is not None and eval_set is None:
+            raise Mp4jError("early_stopping_rounds requires an eval_set")
+        va = None
+        if eval_set is not None:
+            va = (_as_tensor(eval_set[0], torch.int32, dev),
+                  _as_numpy(eval_set[1]))
+            self._check_bins_width(va[0], "eval_set bins")
+            va_margins = None
+        stopper = EarlyStopper(early_stopping_rounds)
+        self.eval_history_ = stopper.history
+
+        generator = None
+        if cfg.subsample < 1.0 or cfg.colsample < 1.0:
+            generator = torch.Generator(device=dev)
+            generator.manual_seed(seed)
+        trees = []
+        for i in range(n_trees if n_trees is not None else cfg.n_trees):
+            dpreds, tree = train_tree_shard(dbins, dy, dpreds, cfg,
+                                            weights=dw, generator=generator)
+            trees.append(tree)
+            if va is not None:
+                va_margins = self._update_margins(va[0], tree, va_margins)
+                metric = self._eval_metric(_as_numpy(va_margins), va[1])
+                # state: the margin snapshot matching the kept ensemble
+                if stopper.update(metric, i, state=dpreds):
+                    if stopper.best_state is not None:
+                        trees = trees[:stopper.best_round + 1]
+                        dpreds = stopper.best_state
+                    break
+        return trees, dpreds
+
+    def _check_bins_width(self, bins, what: str = "bins") -> None:
+        """A bin matrix narrower/wider than cfg.n_features would route
+        by the wrong columns, so wrong widths must be an error, not
+        plausible-looking margins."""
+        if bins.ndim != 2 or bins.shape[1] != self.cfg.n_features:
+            raise Mp4jError(
+                f"{what} must be [N, n_features={self.cfg.n_features}], "
+                f"got {tuple(bins.shape)}")
+
+    def _add_tree(self, margins, bins, tree):
+        """margins + learning_rate * one round's tree output (the same
+        arithmetic as training, so predict reproduces its margins)."""
+        cfg = self.cfg
+        if cfg.loss == "softmax":
+            delta = torch.stack([predict_tree(bins, t, cfg) for t in tree],
+                                dim=1)
+        else:
+            delta = predict_tree(bins, tree, cfg)
+        return margins + cfg.learning_rate * delta
+
+    def _update_margins(self, bins, tree, margins):
+        """Incrementally add one round's tree output to held-out
+        margins."""
+        if margins is None:
+            shape = ((bins.shape[0], self.cfg.n_classes)
+                     if self.cfg.loss == "softmax" else (bins.shape[0],))
+            margins = torch.zeros(shape, dtype=torch.float32,
+                                  device=bins.device)
+        return self._add_tree(margins, bins, tree)
+
+    def _eval_metric(self, margins: np.ndarray, y: np.ndarray) -> float:
+        """The objective's validation metric (lower is better):
+        squared -> mse, logistic -> logloss, softmax -> logloss."""
+        if self.cfg.loss == "squared":
+            return float(np.mean((margins - y) ** 2))
+        if self.cfg.loss == "logistic":
+            return float(np.mean(per_example_loss(
+                torch.from_numpy(margins),
+                torch.from_numpy(np.asarray(y, margins.dtype)),
+                "logistic").numpy()))
+        z = margins - margins.max(axis=1, keepdims=True)
+        logp = z - np.log(np.exp(z).sum(axis=1, keepdims=True))
+        return float(-np.mean(logp[np.arange(len(y)), y.astype(int)]))
+
+    def predict(self, bins, trees, proba: bool = False):
+        """Ensemble prediction: the sum of learning-rate-scaled tree
+        outputs, one tree after another. Returns margins as a tensor on
+        the trainer's device ([N], or [N, n_classes] for softmax);
+        ``proba=True`` applies the sigmoid (logistic) or softmax."""
+        cfg = self.cfg
+        bins = _as_tensor(bins, torch.int32, self.device)
+        self._check_bins_width(bins)
+        shape = ((bins.shape[0], cfg.n_classes) if cfg.loss == "softmax"
+                 else (bins.shape[0],))
+        out = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        for tree in trees:
+            out = self._add_tree(out, bins, tree)
+        if not proba:
+            return out
+        if cfg.loss == "softmax":
+            return torch.softmax(out, dim=1)
+        return torch.sigmoid(out)
+
+    def feature_importance(self, trees) -> np.ndarray:
+        """Split-count feature importance over the ensemble: how many
+        internal nodes split on each feature, normalized to sum to 1.
+        Frozen nodes (split bin B-1 routes everything left -- no real
+        split) are excluded."""
+        counts = np.zeros(self.cfg.n_features, np.int64)
+        for round_trees in trees:
+            per_class = (round_trees if self.cfg.loss == "softmax"
+                         else (round_trees,))
+            for tf, tb, _td, _lv in per_class:
+                real = _as_numpy(tb) != self.cfg.n_bins - 1
+                np.add.at(counts, _as_numpy(tf)[real], 1)
+        total = counts.sum()
+        return (counts / total if total else
+                np.zeros(self.cfg.n_features)).astype(np.float64)
+
+
+def trees_from_numpy(trees, cfg: GBDTConfig, device=None):
+    """Trees in the reference's layout -- a list of ``(feat, bin, dir,
+    leaf)`` arrays per round, a per-class tuple of them for softmax, as
+    ``ytk_mp4j_tpu`` trains and saves them -- as the port's trees on
+    ``device`` (default ``cuda:0``), ready for :meth:`GBDTTrainer.predict`.
+    """
+    dev = make_device(device)
+    n_internal = 2 ** cfg.depth - 1
+
+    def one(tree):
+        tf, tb, td, lv = (np.asarray(a) for a in tree)
+        if (tf.shape != (n_internal,) or tb.shape != (n_internal,)
+                or td.shape != (n_internal,)
+                or lv.shape != (n_internal + 1,)):
+            raise Mp4jError(
+                f"a depth-{cfg.depth} tree has {n_internal} internal nodes "
+                f"and {n_internal + 1} leaves, got feat {tf.shape}, bin "
+                f"{tb.shape}, dir {td.shape}, leaf {lv.shape}")
+        ints = (torch.from_numpy(np.array(a, np.int32)).to(dev)
+                for a in (tf, tb, td))
+        return (*ints, torch.from_numpy(np.array(lv, np.float32)).to(dev))
+
+    if cfg.loss == "softmax":
+        return [tuple(one(t) for t in rnd) for rnd in trees]
+    return [one(t) for t in trees]
