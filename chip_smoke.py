@@ -1,25 +1,50 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port (``ytk_mp4j_tpu_torch``) on one card.
 
-Drives the port's main path -- ``GBDTTrainer.train`` on N = 11,000,000
-rows x 28 features x 256 bins, depth 6 (the Higgs row count of
-BASELINE.json's GBDT configuration, and bench.py's headline leg) --
-through the hand-written CUDA histogram kernel, and holds that kernel
-against its plain PyTorch version on the card. Phases:
+Drives the port's two main paths through its hand-written CUDA kernels
+and holds each kernel against its plain PyTorch version on the card.
+
+Slice 1, GBDT: ``GBDTTrainer.train`` on N = 11,000,000 rows x 28
+features x 256 bins, depth 6 (the Higgs row count of BASELINE.json's
+GBDT configuration, and bench.py's headline leg), through the histogram
+kernel.
+
+Slice 2, the dense collective plane, through the ring kernels
+(``ring_kernel`` one direction, ``ring_kernel_bidir`` two): BASELINE.json
+configs[0] -- ``GpuCommCluster(4).allreduce_array`` of 1M f32 SUM with
+``algo="rdma"`` through the numpy host API; the GBDT histogram payload
+(2 x 16 x 28 x 256 f32, the deepest level of the depth-6 tree) allreduced
+over 4 members by the bidirectional kernel; configs[1] -- reduce-scatter
+then allgather of 256M f64 over 8 members on device tensors.
+
+Phases:
 
 1. build the kernels from the sources in this checkout (one ``nvcc``
    per source, all started together) and print the card's name and
    power limit;
-2. the kernel against its plain version and an f64 sum at the main
-   path's shapes: n_nodes 1 and 16, sentinel ids, zero rows, N = 0,
+2. the histogram kernel against its plain version and an f64 sum at the
+   main path's shapes: n_nodes 1 and 16, sentinel ids, zero rows, N = 0,
    bitwise equality of two launches;
-3. the slice: 1 warm-up tree, then 3 timed trees with every launch
+3. the GBDT slice: 1 warm-up tree, then 3 timed trees with every launch
    count set to 0 just before and read just after; trees/s, GB/s
    (bench.py's ``scanned_bytes``), per-level kernel, plain and
    ``torch.bincount`` times beside the bound; ``predict`` must return
    the training margins, and one tree through the kernel must equal
    the same tree through the plain histogram;
-4. one JSON line of kernels, then the card's ``nvidia-smi`` line, then
+4. both ring kernels against their plain versions, BITWISE (NaN as NaN):
+   both directions x three modes x {SUM, PROD, MAX, MIN} x {f32, f64,
+   i64, i32, i16, i8, bf16} x n in {1 (force_kernel), 2, 3, 5, 8}, odd
+   allreduce lengths (padding), NaN under MAX/MIN; then 200 launches of
+   each kernel at n = 8 on a multi-block chunk, each checked; the
+   largest difference from the plain version (0 where bitwise) is what
+   the kernels line reports;
+5. the collective slice: every launch count set to 0, the three
+   configurations above driven once, the counts read; each result must
+   equal its plain version bitwise (configs[0] also under
+   ``algo="ring"``); per call, kernel ms (CUDA events around each
+   launch, mean of 5), plain ms, the one-card ATen yardstick's ms and
+   the bound;
+6. one JSON line of kernels, then the card's ``nvidia-smi`` line, then
    the ``{"ok": true, ...}`` line last.
 
 Any failed check raises, and the script exits non-zero without the ok
@@ -38,16 +63,28 @@ import time
 import numpy as np
 import torch
 
-from ytk_mp4j_tpu_torch import GBDTConfig, GBDTTrainer
+from ytk_mp4j_tpu_torch import (GBDTConfig, GBDTTrainer, GpuCommCluster,
+                                Operands, Operators)
 from ytk_mp4j_tpu_torch.models import gbdt
+from ytk_mp4j_tpu_torch.operands import to_tensor
 from ytk_mp4j_tpu_torch.ops import _build
 from ytk_mp4j_tpu_torch.ops import hist_kernel as hk
+from ytk_mp4j_tpu_torch.ops import ring_kernel as rk
 
 ROWS = 11_000_000
 F, B, DEPTH = 28, 256, 6
 TIMED_TREES = 3
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 F32_OPS_PER_S = 67e12              # f32 outside the tensor cores
+F64_OPS_PER_S = 34e12              # f64 outside the tensor cores (data sheet)
+RING_DTYPES = (torch.float32, torch.float64, torch.int64, torch.int32,
+               torch.int16, torch.int8, torch.bfloat16)
+RING_MEMBERS = (1, 2, 3, 5, 8)
+RING_REPEATS = 200
+TIMING_REPS = 5
+CONFIG0_LEN = 1 << 20              # BASELINE.json configs[0]: 1M f32, 4 ranks
+CONFIG1_LEN = 256 << 20            # configs[1]: 256M f64, 8 ranks
+HIST_PAYLOAD = 2 * 16 * F * B      # g and h planes of 16 nodes
 KERNEL_REL_TOL = 1e-5              # vs an f64 sum, relative to its max
 
 
@@ -203,23 +240,9 @@ def phase_levels(dbins, calls):
     return rows
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    t0 = time.perf_counter()
-    built = _build.build()
-    print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s "
-          f"(torch {torch.__version__}, CUDA {torch.version.cuda})",
-          flush=True)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    dev = torch.device("cuda", 0)
-    kind = torch.cuda.get_device_name(0)
-    print(f"device: {kind}; nvidia-smi: {smi}", flush=True)
-
+def run_gbdt(dev):
+    """Slice 1: kernel checks, the timed trees, per-level times. Returns
+    the hist_kernel line and the record."""
     n = ROWS
     t0 = time.perf_counter()
     bins, y = make_data(n, F, B)
@@ -236,7 +259,7 @@ def main():
     calls = record_levels(trainer, dbins, dy)        # warm-up tree
     check(len(calls) == DEPTH, f"{len(calls)} histogram calls in a tree")
 
-    hk.histograms.launches = 0
+    zero_counts()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -245,12 +268,13 @@ def main():
     end.record()
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
-    launches = hk.histograms.launches
+    counts = read_counts()
+    launches = counts["hist_kernel"]
     tree_s = start.elapsed_time(end) / 1e3 / TIMED_TREES
     gbs = scanned_bytes(n, F, DEPTH) / tree_s / 1e9
     print(f"slice: {TIMED_TREES} trees, {1 / tree_s:.3f} trees/s, "
           f"{gbs:.3f} GB/s scanned (host clock {host_s:.3f} s), "
-          f"hist launches {launches}", flush=True)
+          f"launches {counts}", flush=True)
     check(launches == DEPTH * TIMED_TREES,
           f"{launches} kernel launches, want {DEPTH * TIMED_TREES}")
     check(margins.shape == (n,) and bool(torch.isfinite(margins).all()),
@@ -279,7 +303,7 @@ def main():
     rows = phase_levels(dbins, calls)
     mean = {k: sum(r[k] for r in rows) / len(rows)
             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    kernels = [{
+    entry = {
         "name": "hist_kernel", "route": "cuda",
         "source": "ytk_mp4j_tpu_torch/ops/csrc/hist_kernel.cu",
         "replaces": "ytk_mp4j_tpu/ops/hist_kernel.py:106",
@@ -287,14 +311,320 @@ def main():
         "ms": mean["ms"], "plain_ms": mean["plain_ms"],
         "bound_ms": mean["bound_ms"], "bound_by": "bytes",
         "library_ms": mean["library_ms"],
-    }]
+    }
+    return entry, {"rows": n, "trees_per_s": 1 / tree_s, "gb_per_s": gbs,
+                   "levels": rows}
+
+
+# ----------------------------------------------------------------------
+# slice 2: the ring kernels
+# ----------------------------------------------------------------------
+COUNTERS = {"hist_kernel": hk.histograms, "ring_kernel": rk.ring_kernel,
+            "ring_kernel_bidir": rk.ring_kernel_bidir}
+
+
+def zero_counts():
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+def same(a, b):
+    """Bitwise equal, NaN equal to NaN at the same places (the NaN-aware
+    pass, which allocates, runs only when plain equality fails)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if torch.equal(a, b):
+        return True
+    if a.is_floating_point():
+        na, nb = a.isnan(), b.isnan()
+        if not torch.equal(na, nb):
+            return False
+        a, b = torch.where(na, 0, a), torch.where(nb, 0, b)
+    return torch.equal(a, b)
+
+
+def max_abs_diff(a, b):
+    """Largest |a - b| in float64, 0 where both are NaN and inf where only
+    one is; row by row, so a 256M-element row is the most it allocates."""
+    err = 0.0
+    for ra, rb in zip(a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)):
+        d = ra.double() - rb.double()
+        d.abs_()
+        if ra.is_floating_point():
+            d.masked_fill_(ra.isnan() & rb.isnan(), 0)
+        err = max(err, d.nan_to_num_(nan=float("inf")).max().item())
+    return err
+
+
+RING_ERR = {"ring_kernel": 0.0, "ring_kernel_bidir": 0.0}
+
+
+def held(name, a, b, what):
+    """Kernel ``name``'s result ``a`` against the plain version's ``b``:
+    must be bitwise equal; the difference goes into ``RING_ERR``."""
+    check(a.shape == b.shape and a.dtype == b.dtype, f"{what}: shape/dtype")
+    RING_ERR[name] = max(RING_ERR[name], max_abs_diff(a, b))
+    check(same(a, b), f"{what}: kernel != plain")
+
+
+def ring_data(shape, dt, gen, dev):
+    if dt.is_floating_point:
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+    return torch.randint(-100, 100, shape, generator=gen,
+                         device=dev).to(dt)
+
+
+class LaunchTimer:
+    """Device ms of each ring kernel launch: CUDA events recorded just
+    around the C launch call (the wrapper's flag memset and its error-word
+    read stay outside). Installed on the loaded library only here."""
+
+    def __init__(self):
+        lib = rk._library()
+        real = lib.mp4j_ring_launch
+        self.events = []
+
+        def timed(*args):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            rc = real(*args)
+            e.record()
+            self.events.append((s, e))
+            return rc
+
+        lib.mp4j_ring_launch = timed
+
+    def kernel_ms(self, fn, reps=TIMING_REPS):
+        fn()                                       # warm-up
+        self.events.clear()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        check(len(self.events) == reps, "a timed call did not launch once")
+        return sum(s.elapsed_time(e) for s, e in self.events) / reps
+
+
+def ring_bound_ms(mode, n, length, dt):
+    """Least time: every input read once and every output written once
+    at the HBM rate, against the folds at the card's rate for the type."""
+    s = torch.empty((), dtype=dt).element_size()
+    moved = {"allreduce": 2 * n * length,
+             "reduce_scatter": n * length + length,
+             "allgather": n * length + n * n * length}[mode] * s
+    ops = 0 if mode == "allgather" else (n - 1) * length
+    rate = F64_OPS_PER_S if dt == torch.float64 else F32_OPS_PER_S
+    return max(moved / HBM_BYTES_PER_S, ops / rate) * 1e3
+
+
+def phase_ring_checks(dev):
+    """Both kernels against their plain versions, bitwise, over the grid;
+    then RING_REPEATS checked launches of each at n = 8, multi-block."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    ops = (Operators.SUM, Operators.PROD, Operators.MAX, Operators.MIN)
+    cases = 0
+    for dt in RING_DTYPES:
+        c = 2 * rk.granule(dt, dev) * 3     # RS/AG chunk: both halves odd
+        for n in RING_MEMBERS:
+            for bidir in (False, True):
+                name = "ring_kernel_bidir" if bidir else "ring_kernel"
+                for op in ops:
+                    x = ring_data((n, 1001 + 2 * n), dt, gen, dev)
+                    if dt.is_floating_point and op.name in ("MAX", "MIN"):
+                        x[0, 3] = x[n - 1, 700] = float("nan")
+                    a = rk.ring_allreduce_kernel(x, op, bidir,
+                                                 force_kernel=True)
+                    b = rk.ring_allreduce_reference(x, op, bidir,
+                                                    force_kernel=True)
+                    held(name, a, b, f"allreduce {dt} n={n} {op.name}")
+                    x = ring_data((n, n * c), dt, gen, dev)
+                    a = rk.ring_reduce_scatter_kernel(x, op, bidir,
+                                                      force_kernel=True)
+                    b = rk.ring_reduce_scatter_reference(x, op, bidir,
+                                                         force_kernel=True)
+                    held(name, a, b, f"reduce_scatter {dt} n={n} {op.name}")
+                    cases += 2
+                x = ring_data((n, c), dt, gen, dev)
+                a = rk.ring_allgather_kernel(x, bidir, force_kernel=True)
+                b = rk.ring_allgather_reference(x, bidir, force_kernel=True)
+                held(name, a, b, f"allgather {dt} n={n}")
+                cases += 1
+    torch.cuda.synchronize()
+    print(f"ring kernels == plain, bitwise, in {cases} cases "
+          f"(launches {read_counts()})", flush=True)
+    x = ring_data((8, 4_000_003), torch.float32, gen, dev)
+    for bidir in (False, True):
+        name = "ring_kernel_bidir" if bidir else "ring_kernel"
+        ref = rk.ring_allreduce_reference(x, bidirectional=bidir)
+        t0 = time.perf_counter()
+        for i in range(RING_REPEATS):
+            got = rk.ring_allreduce_kernel(x, bidirectional=bidir)
+            held(name, got, ref, f"repeat {i} {name}")
+        print(f"ring {RING_REPEATS} repeats bidir={bidir} at n=8, L=4000003: "
+              f"all bitwise, {time.perf_counter() - t0:.2f} s", flush=True)
+    return cases + 2 * RING_REPEATS
+
+
+def ring_row(name, mode, n, length, dt, kernel, plain, library, timer):
+    """One timed call: kernel, plain, library ms and the bound."""
+    row = dict(call=name, mode=mode, n=n, length=length, dtype=str(dt),
+               ms=timer.kernel_ms(kernel),
+               plain_ms=timed_ms(plain, TIMING_REPS),
+               library_ms=timed_ms(library, TIMING_REPS),
+               bound_ms=ring_bound_ms(mode, n, length, dt))
+    torch.cuda.empty_cache()
+    print(f"{name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+          f"ms, library {row['library_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms (bytes)", flush=True)
+    return row
+
+
+def replicated_sum(x):
+    """The one-card ATen yardstick of an allreduce: one sum over the
+    stacked members, copied into n outputs."""
+    return lambda: x.sum(0).expand(x.shape[0], -1).contiguous()
+
+
+def run_ring(dev):
+    """Slice 2: kernel checks, the collective slice driven once with the
+    counts around it, then per-call checks and times."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    phase_ring_checks(dev)
+    timer = LaunchTimer()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rng = np.random.default_rng(3)
+    host = [rng.standard_normal(CONFIG0_LEN).astype(np.float32)
+            for _ in range(4)]
+    hist = torch.randn((4, HIST_PAYLOAD), generator=gen, device=dev)
+    t0 = time.perf_counter()
+    big = torch.randn((8, CONFIG1_LEN), generator=gen, device=dev,
+                      dtype=torch.float64)
+    torch.cuda.synchronize()
+    print(f"configs[1] input 8 x {CONFIG1_LEN} f64 "
+          f"({big.numel() * 8 / 2**30:.0f} GiB) on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- the main path, driven once between the counts ----------------
+    zero_counts()
+    t0 = time.perf_counter()
+    arrs = [a.copy() for a in host]
+    cluster = GpuCommCluster(4)
+    cluster.allreduce_array(arrs, Operands.FLOAT, Operators.SUM, algo="rdma")
+    hist_out = rk.ring_allreduce_kernel(hist, bidirectional=True)
+    scattered = rk.ring_reduce_scatter_kernel(big)
+    gathered = rk.ring_allgather_kernel(scattered)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"collective slice driven in {host_s:.3f} s (host clock), "
+          f"launches {counts}", flush=True)
+    check(counts["ring_kernel"] == 3 and counts["ring_kernel_bidir"] == 1
+          and counts["hist_kernel"] == 0, f"launch counts {counts}")
+
+    # ---- configs[0]: the host API against the plain version and "ring"
+    stacked = to_tensor(np.stack(host), dev)
+    plain = rk.ring_allreduce_reference(stacked).cpu().numpy()
+    ring = [a.copy() for a in host]
+    cluster.allreduce_array(ring, Operands.FLOAT, Operators.SUM,
+                            algo="ring")
+    held("ring_kernel", torch.from_numpy(np.stack(arrs)),
+         torch.from_numpy(plain), "configs[0] rdma")
+    for r in range(4):
+        check(np.array_equal(arrs[r], ring[r]), "configs[0]: rdma != ring")
+    exact = np.sum(np.stack(host).astype(np.float64), 0)
+    print(f"configs[0] rdma == plain == ring, bitwise; max |err| vs f64 "
+          f"sum {np.abs(arrs[0] - exact).max():.3e}", flush=True)
+    rows = {"ring_kernel": [], "ring_kernel_bidir": []}
+    rows["ring_kernel"].append(ring_row(
+        "configs[0] allreduce 4 x 1M f32", "allreduce", 4, CONFIG0_LEN,
+        torch.float32, lambda: rk.ring_allreduce_kernel(stacked),
+        lambda: rk.ring_allreduce_reference(stacked),
+        replicated_sum(stacked), timer))
+
+    # ---- the histogram payload, bidirectional -------------------------
+    held("ring_kernel_bidir", hist_out,
+         rk.ring_allreduce_reference(hist, bidirectional=True),
+         "histogram payload")
+    rows["ring_kernel_bidir"].append(ring_row(
+        "histogram payload allreduce 4 x 2x16x28x256 f32 bidir", "allreduce",
+        4, HIST_PAYLOAD, torch.float32,
+        lambda: rk.ring_allreduce_kernel(hist, bidirectional=True),
+        lambda: rk.ring_allreduce_reference(hist, bidirectional=True),
+        replicated_sum(hist), timer))
+
+    # ---- configs[1]: one mode at a time, to stay well inside 80 GB ----
+    held("ring_kernel", scattered, rk.ring_reduce_scatter_reference(big),
+         "configs[1] reduce-scatter")
+    torch.cuda.empty_cache()
+    rows["ring_kernel"].append(ring_row(
+        "configs[1] reduce-scatter 8 x 256M f64", "reduce_scatter", 8,
+        CONFIG1_LEN, torch.float64,
+        lambda: rk.ring_reduce_scatter_kernel(big),
+        lambda: rk.ring_reduce_scatter_reference(big),
+        lambda: big.sum(0).view(8, -1), timer))
+    del big
+    torch.cuda.empty_cache()
+    held("ring_kernel", gathered, rk.ring_allgather_reference(scattered),
+         "configs[1] allgather")
+    del gathered
+    torch.cuda.empty_cache()
+    c = scattered.shape[1]
+    rows["ring_kernel"].append(ring_row(
+        "configs[1] allgather 8 x 32M f64", "allgather", 8, c,
+        torch.float64, lambda: rk.ring_allgather_kernel(scattered),
+        lambda: rk.ring_allgather_reference(scattered),
+        lambda: scattered.reshape(-1).expand(8, -1).contiguous(), timer))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"peak device memory of the ring phases {peak:.1f} GiB", flush=True)
+
+    sources = {"ring_kernel": ":244", "ring_kernel_bidir": ":382"}
+    entries = []
+    for name, rs in rows.items():
+        total = {k: sum(r[k] for r in rs)
+                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "ytk_mp4j_tpu_torch/ops/csrc/ring_kernel.cu",
+            "replaces": "ytk_mp4j_tpu/ops/ring_kernel.py" + sources[name],
+            "launches": counts[name], "max_abs_err": RING_ERR[name],
+            "ms": total["ms"], "plain_ms": total["plain_ms"],
+            "bound_ms": total["bound_ms"], "bound_by": "bytes",
+            "library_ms": total["library_ms"]})
+    return entries, {"calls": rows, "host_s": host_s, "peak_gib": peak}
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    built = _build.build()
+    print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s "
+          f"(torch {torch.__version__}, CUDA {torch.version.cuda})",
+          flush=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    print(f"device: {kind}; nvidia-smi: {smi}", flush=True)
+
+    hist_entry, gbdt_record = run_gbdt(dev)
+    torch.cuda.empty_cache()
+    ring_entries, ring_record = run_ring(dev)
+    kernels = [hist_entry] + ring_entries
+
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
-        json.dump({"device": kind, "nvidia_smi": smi, "rows": n,
-                   "trees_per_s": 1 / tree_s, "gb_per_s": gbs,
-                   "levels": rows, "kernels": kernels}, f, indent=1)
+        json.dump({"device": kind, "nvidia_smi": smi, "gbdt": gbdt_record,
+                   "ring": ring_record, "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
-"""The port's CUDA kernel on the card: against its plain version, run to
-run, at the edges of its contract, and through the trainer. Every test
-skips where there is no CUDA device.
+"""The port's CUDA kernels on the card: the histogram kernel and the two
+ring kernels, against their plain versions, run to run, at the edges of
+their contracts (for the rings: co-residency refused, a stuck ring
+raising at the spin bound), and through the trainer and the collective
+driver. Every test skips where there is no CUDA device.
 
 This file imports neither jax nor the JAX package and uses no fixture of
 tests/conftest.py, so it also runs where JAX is not installed:
@@ -8,12 +10,17 @@ tests/conftest.py, so it also runs where JAX is not installed:
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
 
-from ytk_mp4j_tpu_torch import GBDTConfig, GBDTTrainer
+from ytk_mp4j_tpu_torch import (GBDTConfig, GBDTTrainer, GpuCommCluster,
+                                Operands, Operators)
+from ytk_mp4j_tpu_torch.exceptions import Mp4jError
 from ytk_mp4j_tpu_torch.ops import hist_kernel as hk
+from ytk_mp4j_tpu_torch.ops import ring_kernel as rk
 
 pytestmark = pytest.mark.gpu
 
@@ -103,3 +110,127 @@ def test_trainer_through_kernel_matches_plain_histograms(cuda):
         assert torch.equal(tk[0][k], tp[0][k])
     torch.testing.assert_close(tk[0][3], tp[0][3], rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(mk, mp, rtol=1e-5, atol=1e-6)
+
+
+# ---- the ring kernels (ops/csrc/ring_kernel.cu) ---------------------------
+def _same(a, b):
+    """Bitwise, NaN equal to NaN at the same places."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if torch.equal(a, b):
+        return True
+    if a.is_floating_point():
+        na, nb = a.isnan(), b.isnan()
+        return torch.equal(na, nb) and torch.equal(torch.where(na, 0, a),
+                                                   torch.where(nb, 0, b))
+    return torch.equal(a, b)
+
+
+def _ring_data(dev, shape, dt, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if dt.is_floating_point:
+        return torch.randn(shape, generator=g, device=dev).to(dt)
+    return torch.randint(-100, 100, shape, generator=g, device=dev).to(dt)
+
+
+@pytest.mark.parametrize("bidir", [False, True])
+@pytest.mark.parametrize("n", [1, 2, 3, 8])
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64, torch.int64,
+                                torch.int32, torch.int16, torch.int8,
+                                torch.bfloat16], ids=str)
+def test_ring_kernels_match_plain_bitwise(cuda, dt, n, bidir):
+    """Every mode and operator, odd allreduce length (padding), NaN under
+    MAX/MIN: the kernel equals its plain version bit for bit."""
+    c = 2 * rk.granule(dt, cuda) * 5
+    for k, op in enumerate((Operators.SUM, Operators.PROD, Operators.MAX,
+                            Operators.MIN)):
+        x = _ring_data(cuda, (n, 3001), dt, k)
+        if dt.is_floating_point and op.name in ("MAX", "MIN"):
+            x[0, 7] = float("nan")
+        assert _same(rk.ring_allreduce_kernel(x, op, bidir, True),
+                     rk.ring_allreduce_reference(x, op, bidir, True))
+        x = _ring_data(cuda, (n, n * c), dt, k)
+        assert _same(rk.ring_reduce_scatter_kernel(x, op, bidir, True),
+                     rk.ring_reduce_scatter_reference(x, op, bidir, True))
+    x = _ring_data(cuda, (n, c), dt, 9)
+    assert _same(rk.ring_allgather_kernel(x, bidir, True),
+                 rk.ring_allgather_reference(x, bidir, True))
+
+
+@pytest.mark.parametrize("bidir", [False, True])
+def test_ring_kernel_multiblock_repeats(cuda, bidir):
+    """Many blocks per member and several segments per block; repeated
+    launches give the plain version's bits every time."""
+    x = _ring_data(cuda, (8, 2_000_003), torch.float32, 1)
+    ref = rk.ring_allreduce_reference(x, bidirectional=bidir)
+    counter = rk.ring_kernel_bidir if bidir else rk.ring_kernel
+    before = counter.launches
+    for _ in range(30):
+        assert _same(rk.ring_allreduce_kernel(x, bidirectional=bidir), ref)
+    assert counter.launches == before + 30
+
+
+def test_ring_kernel_refuses_a_grid_that_cannot_be_resident(cuda):
+    """One block per member at least: n = capacity members fit (and equal
+    the plain version), n = capacity + 1 are refused before any launch."""
+    cap = rk.capacity(torch.float32, Operators.SUM, 1, cuda)
+    x = _ring_data(cuda, (cap + 1, 64), torch.float32, 3)
+    before = rk.ring_kernel.launches
+    with pytest.raises(Mp4jError, match="co-resident"):
+        rk.ring_allreduce_kernel(x)
+    assert rk.ring_kernel.launches == before
+    assert _same(rk.ring_allreduce_kernel(x[:cap]),
+                 rk.ring_allreduce_reference(x[:cap]))
+    assert rk.ring_kernel.launches == before + 1
+
+
+def test_ring_kernel_keeps_the_callers_current_device(cuda):
+    """A launch on the last card leaves the current device as it was."""
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    current = torch.cuda.current_device()
+    x = _ring_data(dev, (4, 1001), torch.float32, 4)
+    for bidir in (False, True):
+        rk.capacity(x.dtype, Operators.SUM, 1 + bidir, dev)
+        assert _same(rk.ring_allreduce_kernel(x, bidirectional=bidir),
+                     rk.ring_allreduce_reference(x, bidirectional=bidir))
+        assert torch.cuda.current_device() == current
+
+
+def test_ring_kernel_spin_bound_raises_instead_of_hanging(cuda):
+    """A member that never runs: its neighbours' waits hit the bound, the
+    launch ends and the wrapper raises; the next launch is clean."""
+    x = _ring_data(cuda, (4, 100_000), torch.float32, 2)
+    t0 = time.perf_counter()
+    with pytest.raises(Mp4jError, match="spin bound"):
+        rk.ring_allreduce_kernel(x, spin_s=0.5, stall_member=2)
+    assert time.perf_counter() - t0 < 30
+    assert _same(rk.ring_allreduce_kernel(x), rk.ring_allreduce_reference(x))
+
+
+def test_gpu_comm_cluster_on_the_card(cuda):
+    """The driver's default device is the card; rdma, ring and xla agree
+    with the f64 sum, and rdma equals ring bitwise (same chunking)."""
+    rng = np.random.default_rng(0)
+    host = [rng.standard_normal(1 << 16).astype(np.float32)
+            for _ in range(4)]
+    cl = GpuCommCluster(4)
+    assert cl.device == torch.device("cuda", 0)
+    out = {}
+    before = rk.ring_kernel.launches
+    for algo in ("rdma", "ring", "xla"):
+        arrs = [a.copy() for a in host]
+        cl.allreduce_array(arrs, Operands.FLOAT, Operators.SUM, algo=algo)
+        out[algo] = arrs
+    assert rk.ring_kernel.launches == before + 1
+    exact = np.sum(np.stack(host).astype(np.float64), 0)
+    for algo, arrs in out.items():
+        for a in arrs:
+            np.testing.assert_allclose(a, exact, rtol=1e-5, atol=1e-5)
+    for a, b in zip(out["rdma"], out["ring"]):
+        np.testing.assert_array_equal(a, b)
+    arrs = [a.copy() for a in host]
+    cl.reduce_scatter_array(arrs, Operands.FLOAT, algo="rdma")
+    cl.allgather_array(arrs, Operands.FLOAT, algo="rdma")
+    for a in arrs:
+        np.testing.assert_allclose(a, exact, rtol=1e-5, atol=1e-5)
+    cl.barrier()

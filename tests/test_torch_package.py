@@ -52,6 +52,14 @@ def test_imports_and_trains_with_jax_blocked():
         cfg = p.GBDTConfig(n_features=3, n_bins=8, depth=2, n_trees=1)
         trees, m = p.GBDTTrainer(cfg, device="cpu").train(bins, y)
         assert len(trees) == 1 and m.shape == (256,)
+        cl = p.GpuCommCluster(3, device="cpu")
+        for algo in ("xla", "ring", "rdma"):
+            arrs = [np.full(5, r, np.float64) for r in range(3)]
+            cl.allreduce_array(arrs, p.Operands.DOUBLE, algo=algo)
+            assert all((a == 3.0).all() for a in arrs), algo
+        import importlib, pkgutil
+        for mod in pkgutil.walk_packages(p.__path__, "ytk_mp4j_tpu_torch."):
+            importlib.import_module(mod.name)
         bad = [k for k in sys.modules
                if k.split(".")[0] in ("jax", "jaxlib", "ytk_mp4j_tpu")]
         assert not bad, bad
@@ -66,14 +74,20 @@ def test_no_source_imports_jax_or_the_jax_package():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|ytk_mp4j_tpu)\b"
                      r"(?!_torch)", re.M)
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 8
+    assert len(files) >= 15
+    for name in ("operators.py", "operands.py", "meta.py",
+                 "comm/gpu_comm.py", "ops/ring.py", "ops/collectives.py",
+                 "ops/ring_kernel.py"):
+        assert PKG / name in files, name
     for path in files:
         assert not pat.search(path.read_text()), path
 
 
 def test_exports():
     assert sorted(ytk_mp4j_tpu_torch.__all__) == [
-        "GBDTConfig", "GBDTTrainer", "Mp4jError", "trees_from_numpy"]
+        "GBDTConfig", "GBDTTrainer", "GpuCommCluster", "Mp4jError",
+        "Operand", "Operands", "Operator", "Operators", "meta",
+        "trees_from_numpy"]
     for name in ytk_mp4j_tpu_torch.__all__:
         assert getattr(ytk_mp4j_tpu_torch, name)
 
@@ -103,12 +117,13 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_loaded", {})
     with pytest.raises(Mp4jError, match="nvcc not found"):
         _build.find_nvcc()
-    with pytest.raises(Mp4jError, match="nvcc not found"):
-        _build.load("hist_kernel")
+    for name in ("hist_kernel", "ring_kernel"):
+        with pytest.raises(Mp4jError, match="nvcc not found"):
+            _build.load(name)
 
 
 def test_build_flags_and_paths():
-    assert "hist_kernel" in _build.sources()
+    assert {"hist_kernel", "ring_kernel"} <= set(_build.sources())
     path = _build.library_path("hist_kernel")
     assert path.parent == PKG / "csrc" / "build"
     assert re.fullmatch(r"libhist_kernel-[0-9a-f]{12}\.so", path.name)

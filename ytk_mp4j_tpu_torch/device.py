@@ -1,13 +1,18 @@
 """Where the port runs: the counterpart of ``parallel/mesh.py:29``
-``make_mesh``, reduced to one device.
+``make_mesh``, on one device.
 
 Every entry point resolves its ``device`` argument here. With none it
 takes ``cuda:0``; where CUDA is absent that is an error, never a quiet
 move to the CPU. The CPU runs only when the caller names it (the tests
-do). The device list for multi-GPU training comes with that slice.
+do). :func:`make_mesh` places n collective members on that one device;
+rank r is row r of the members' ``[n, ...]`` tensors, the reference's
+``flat_index`` on a flat axis. The device list for multi-GPU training
+and the hierarchical mesh come with later slices.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -34,3 +39,17 @@ def make_device(device=None) -> torch.device:
         raise Mp4jError(
             f"cuda:{index} requested, {torch.cuda.device_count()} visible")
     return torch.device("cuda", index)
+
+
+class Mesh(NamedTuple):
+    """n members on one device."""
+
+    n: int
+    device: torch.device
+
+
+def make_mesh(n: int, device=None) -> Mesh:
+    """n >= 1 members on :func:`make_device` ``(device)``."""
+    if not isinstance(n, int) or n < 1:
+        raise Mp4jError(f"a mesh needs n >= 1 members, got {n!r}")
+    return Mesh(n, make_device(device))
