@@ -10,7 +10,9 @@ GBDT configuration, and bench.py's headline leg), through the histogram
 kernel.
 
 Slice 2, the dense collective plane, through the ring kernels
-(``ring_kernel`` one direction, ``ring_kernel_bidir`` two): BASELINE.json
+(``ring_kernel`` one direction, ``ring_kernel_bidir`` two; each runs on
+the cluster path, ``ops/csrc/ring_cluster.cu``, for n <= 8 members and on
+the global path, ``ops/csrc/ring_kernel.cu``, above): BASELINE.json
 configs[0] -- ``GpuCommCluster(4).allreduce_array`` of 1M f32 SUM with
 ``algo="rdma"`` through the numpy host API; the GBDT histogram payload
 (2 x 16 x 28 x 256 f32, the deepest level of the depth-6 tree) allreduced
@@ -33,17 +35,22 @@ Phases:
    the same tree through the plain histogram;
 4. both ring kernels against their plain versions, BITWISE (NaN as NaN):
    both directions x three modes x {SUM, PROD, MAX, MIN} x {f32, f64,
-   i64, i32, i16, i8, bf16} x n in {1 (force_kernel), 2, 3, 5, 8}, odd
-   allreduce lengths (padding), NaN under MAX/MIN; then 200 launches of
-   each kernel at n = 8 on a multi-block chunk, each checked; the
+   i64, i32, i16, i8, bf16} x n in {1 (force_kernel), 2, 3, 5, 8} on the
+   cluster path and n = 9 on the global path, odd allreduce lengths
+   (padding), NaN under MAX/MIN; then 200 launches of each kernel at
+   n = 8 (cluster path) on a multi-column chunk, each checked; the
    largest difference from the plain version (0 where bitwise) is what
    the kernels line reports;
 5. the collective slice: every launch count set to 0, the three
-   configurations above driven once, the counts read; each result must
-   equal its plain version bitwise (configs[0] also under
-   ``algo="ring"``); per call, kernel ms (CUDA events around each
-   launch, mean of 5), plain ms, the one-card ATen yardstick's ms and
-   the bound;
+   configurations above driven once, the counts read (all through the
+   cluster path); each result must equal its plain version bitwise
+   (configs[0] also under ``algo="ring"``); per call, the kernel's path,
+   its ms and ms per ring step, plain ms, the one-card ATen yardstick's
+   ms, the global path's ms on the same call, and the bound. Every time
+   is the device time of the call's kernels (``torch.profiler``, mean of
+   5 calls), so the host's launch gap counts on no side; the older
+   measure (CUDA events around each launch) is printed beside the
+   kernel's;
 6. one JSON line of kernels, then the card's ``nvidia-smi`` line, then
    the ``{"ok": true, ...}`` line last.
 
@@ -79,7 +86,7 @@ F32_OPS_PER_S = 67e12              # f32 outside the tensor cores
 F64_OPS_PER_S = 34e12              # f64 outside the tensor cores (data sheet)
 RING_DTYPES = (torch.float32, torch.float64, torch.int64, torch.int32,
                torch.int16, torch.int8, torch.bfloat16)
-RING_MEMBERS = (1, 2, 3, 5, 8)
+RING_MEMBERS = (1, 2, 3, 5, 8, 9)  # 9: above the cluster limit
 RING_REPEATS = 200
 TIMING_REPS = 5
 CONFIG0_LEN = 1 << 20              # BASELINE.json configs[0]: 1M f32, 4 ranks
@@ -323,13 +330,23 @@ COUNTERS = {"hist_kernel": hk.histograms, "ring_kernel": rk.ring_kernel,
             "ring_kernel_bidir": rk.ring_kernel_bidir}
 
 
+RING_COUNTERS = ("ring_kernel", "ring_kernel_bidir")
+
+
 def zero_counts():
     for fn in COUNTERS.values():
         fn.launches = 0
+    for name in RING_COUNTERS:
+        COUNTERS[name].cluster_launches = COUNTERS[name].global_launches = 0
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in COUNTERS.items()}
+    counts = {name: fn.launches for name, fn in COUNTERS.items()}
+    for name in RING_COUNTERS:
+        for path in rk.PATHS:
+            counts[f"{name}.{path}"] = getattr(COUNTERS[name],
+                                               f"{path}_launches")
+    return counts
 
 
 def same(a, b):
@@ -378,16 +395,44 @@ def ring_data(shape, dt, gen, dev):
                          device=dev).to(dt)
 
 
+def device_ms(fn, reps=TIMING_REPS, match=None):
+    """Mean device ms of the kernels ``fn`` launches (those whose name
+    holds ``match``, default all; copies and fills excluded), from
+    ``torch.profiler`` over ``reps`` calls after one warm-up: the host's
+    launch latency between calls counts on no side."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us and "Memcpy" not in e.key and "Memset" not in e.key \
+                and (match is None or match in e.key):
+            total += us
+    check(total > 0, "the profiler saw no device time")
+    return total / reps / 1e3
+
+
 class LaunchTimer:
-    """Device ms of each ring kernel launch: CUDA events recorded just
-    around the C launch call (the wrapper's flag memset and its error-word
-    read stay outside). Installed on the loaded library only here."""
+    """The older measure: CUDA events recorded just around each C launch
+    call of either ring library (the wrapper's allocations and its
+    error-word read stay outside, the host's launch latency inside).
+    Installed on the loaded libraries only here."""
 
     def __init__(self):
-        lib = rk._library()
-        real = lib.mp4j_ring_launch
         self.events = []
+        for lib, name in ((rk._library(), "mp4j_ring_launch"),
+                          (rk._cluster_library(),
+                           "mp4j_ring_cluster_launch")):
+            setattr(lib, name, self._timed(getattr(lib, name)))
 
+    def _timed(self, real):
         def timed(*args):
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
@@ -396,8 +441,7 @@ class LaunchTimer:
             e.record()
             self.events.append((s, e))
             return rc
-
-        lib.mp4j_ring_launch = timed
+        return timed
 
     def kernel_ms(self, fn, reps=TIMING_REPS):
         fn()                                       # warm-up
@@ -423,7 +467,7 @@ def ring_bound_ms(mode, n, length, dt):
 
 def phase_ring_checks(dev):
     """Both kernels against their plain versions, bitwise, over the grid;
-    then RING_REPEATS checked launches of each at n = 8, multi-block."""
+    then RING_REPEATS checked launches of each at n = 8, multi-column."""
     gen = torch.Generator(device=dev).manual_seed(2)
     ops = (Operators.SUM, Operators.PROD, Operators.MAX, Operators.MIN)
     cases = 0
@@ -469,17 +513,35 @@ def phase_ring_checks(dev):
     return cases + 2 * RING_REPEATS
 
 
-def ring_row(name, mode, n, length, dt, kernel, plain, library, timer):
-    """One timed call: kernel, plain, library ms and the bound."""
+def chain_steps(counter, mode, n):
+    """Dependent ring steps of the latest launch: segments of its
+    longest column times the exchanges of one segment."""
+    lp = counter.last_plan
+    longest = max(len(lp.segments(c)) for c in range(lp.cols))
+    return lp, longest * rk.RingPlan(n, mode).steps
+
+
+def ring_row(name, mode, n, length, dt, kernel, plain, library, timer,
+             counter, on_global):
+    """One timed call: kernel (its path, ms per ring step, the older
+    event measure), plain, library and global-path ms, and the bound."""
+    ms = device_ms(kernel, match="ring_")
+    lp, steps = chain_steps(counter, mode, n)
     row = dict(call=name, mode=mode, n=n, length=length, dtype=str(dt),
-               ms=timer.kernel_ms(kernel),
-               plain_ms=timed_ms(plain, TIMING_REPS),
-               library_ms=timed_ms(library, TIMING_REPS),
+               path=lp.path, cols=lp.cols, slot_bytes=lp.slot_bytes,
+               steps=steps, ms=ms, ms_per_step=ms / steps,
+               event_ms=timer.kernel_ms(kernel),
+               global_ms=device_ms(on_global, match="ring_"),
+               plain_ms=device_ms(plain),
+               library_ms=device_ms(library),
                bound_ms=ring_bound_ms(mode, n, length, dt))
     torch.cuda.empty_cache()
-    print(f"{name}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} "
-          f"ms, library {row['library_ms']:.4f} ms, bound "
-          f"{row['bound_ms']:.4f} ms (bytes)", flush=True)
+    print(f"{name}: {row['path']} path, kernel {row['ms']:.4f} ms "
+          f"({row['steps']} ring steps, {row['ms_per_step'] * 1e3:.3f} us "
+          f"a step; CUDA events around the launch: {row['event_ms']:.4f} "
+          f"ms), global path {row['global_ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
+          f"bound {row['bound_ms']:.4f} ms (bytes)", flush=True)
     return row
 
 
@@ -524,6 +586,9 @@ def run_ring(dev):
           f"launches {counts}", flush=True)
     check(counts["ring_kernel"] == 3 and counts["ring_kernel_bidir"] == 1
           and counts["hist_kernel"] == 0, f"launch counts {counts}")
+    check(counts["ring_kernel.cluster"] == 3
+          and counts["ring_kernel_bidir.cluster"] == 1,
+          f"the main path left the cluster kernel: {counts}")
 
     # ---- configs[0]: the host API against the plain version and "ring"
     stacked = to_tensor(np.stack(host), dev)
@@ -543,7 +608,8 @@ def run_ring(dev):
         "configs[0] allreduce 4 x 1M f32", "allreduce", 4, CONFIG0_LEN,
         torch.float32, lambda: rk.ring_allreduce_kernel(stacked),
         lambda: rk.ring_allreduce_reference(stacked),
-        replicated_sum(stacked), timer))
+        replicated_sum(stacked), timer, rk.ring_kernel,
+        lambda: rk.ring_allreduce_kernel(stacked, path="global")))
 
     # ---- the histogram payload, bidirectional -------------------------
     held("ring_kernel_bidir", hist_out,
@@ -554,7 +620,9 @@ def run_ring(dev):
         4, HIST_PAYLOAD, torch.float32,
         lambda: rk.ring_allreduce_kernel(hist, bidirectional=True),
         lambda: rk.ring_allreduce_reference(hist, bidirectional=True),
-        replicated_sum(hist), timer))
+        replicated_sum(hist), timer, rk.ring_kernel_bidir,
+        lambda: rk.ring_allreduce_kernel(hist, bidirectional=True,
+                                         path="global")))
 
     # ---- configs[1]: one mode at a time, to stay well inside 80 GB ----
     held("ring_kernel", scattered, rk.ring_reduce_scatter_reference(big),
@@ -565,7 +633,8 @@ def run_ring(dev):
         CONFIG1_LEN, torch.float64,
         lambda: rk.ring_reduce_scatter_kernel(big),
         lambda: rk.ring_reduce_scatter_reference(big),
-        lambda: big.sum(0).view(8, -1), timer))
+        lambda: big.sum(0).view(8, -1), timer, rk.ring_kernel,
+        lambda: rk.ring_reduce_scatter_kernel(big, path="global")))
     del big
     torch.cuda.empty_cache()
     held("ring_kernel", gathered, rk.ring_allgather_reference(scattered),
@@ -577,19 +646,25 @@ def run_ring(dev):
         "configs[1] allgather 8 x 32M f64", "allgather", 8, c,
         torch.float64, lambda: rk.ring_allgather_kernel(scattered),
         lambda: rk.ring_allgather_reference(scattered),
-        lambda: scattered.reshape(-1).expand(8, -1).contiguous(), timer))
+        lambda: scattered.reshape(-1).expand(8, -1).contiguous(), timer,
+        rk.ring_kernel,
+        lambda: rk.ring_allgather_kernel(scattered, path="global")))
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     print(f"peak device memory of the ring phases {peak:.1f} GiB", flush=True)
 
     sources = {"ring_kernel": ":244", "ring_kernel_bidir": ":382"}
+    files = {"cluster": "ytk_mp4j_tpu_torch/ops/csrc/ring_cluster.cu",
+             "global": "ytk_mp4j_tpu_torch/ops/csrc/ring_kernel.cu"}
     entries = []
     for name, rs in rows.items():
         total = {k: sum(r[k] for r in rs)
                  for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        paths = sorted({r["path"] for r in rs})
+        check(len(paths) == 1, f"{name}: timed calls on paths {paths}")
         entries.append({
-            "name": name, "route": "cuda",
-            "source": "ytk_mp4j_tpu_torch/ops/csrc/ring_kernel.cu",
+            "name": name, "route": "cuda", "source": files[paths[0]],
             "replaces": "ytk_mp4j_tpu/ops/ring_kernel.py" + sources[name],
+            "path": paths[0],
             "launches": counts[name], "max_abs_err": RING_ERR[name],
             "ms": total["ms"], "plain_ms": total["plain_ms"],
             "bound_ms": total["bound_ms"], "bound_by": "bytes",

@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card: the histogram kernel and the two
-ring kernels, against their plain versions, run to run, at the edges of
-their contracts (for the rings: co-residency refused, a stuck ring
-raising at the spin bound), and through the trainer and the collective
-driver. Every test skips where there is no CUDA device.
+ring kernels on both their paths (thread-block clusters for n <= 8
+members, device-memory slots above), against their plain versions, run
+to run, at the edges of their contracts (for the rings: co-residency
+refused, a stuck ring raising at the spin bound, unaligned inputs), and
+through the trainer and the collective driver. Every test skips where
+there is no CUDA device.
 
 This file imports neither jax nor the JAX package and uses no fixture of
 tests/conftest.py, so it also runs where JAX is not installed:
@@ -112,7 +114,7 @@ def test_trainer_through_kernel_matches_plain_histograms(cuda):
     torch.testing.assert_close(mk, mp, rtol=1e-5, atol=1e-6)
 
 
-# ---- the ring kernels (ops/csrc/ring_kernel.cu) ---------------------------
+# ---- the ring kernels (ops/csrc/ring_cluster.cu, ops/csrc/ring_kernel.cu) --
 def _same(a, b):
     """Bitwise, NaN equal to NaN at the same places."""
     if a.shape != b.shape or a.dtype != b.dtype:
@@ -133,14 +135,21 @@ def _ring_data(dev, shape, dt, seed):
     return torch.randint(-100, 100, shape, generator=g, device=dev).to(dt)
 
 
+def _path_counts(counter):
+    return counter.cluster_launches, counter.global_launches
+
+
 @pytest.mark.parametrize("bidir", [False, True])
-@pytest.mark.parametrize("n", [1, 2, 3, 8])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 8, 9])
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64, torch.int64,
                                 torch.int32, torch.int16, torch.int8,
                                 torch.bfloat16], ids=str)
 def test_ring_kernels_match_plain_bitwise(cuda, dt, n, bidir):
     """Every mode and operator, odd allreduce length (padding), NaN under
-    MAX/MIN: the kernel equals its plain version bit for bit."""
+    MAX/MIN: the kernel equals its plain version bit for bit, on the
+    cluster path for n <= 8 and the global path above."""
+    counter = rk.ring_kernel_bidir if bidir else rk.ring_kernel
+    before = _path_counts(counter)
     c = 2 * rk.granule(dt, cuda) * 5
     for k, op in enumerate((Operators.SUM, Operators.PROD, Operators.MAX,
                             Operators.MIN)):
@@ -155,6 +164,51 @@ def test_ring_kernels_match_plain_bitwise(cuda, dt, n, bidir):
     x = _ring_data(cuda, (n, c), dt, 9)
     assert _same(rk.ring_allgather_kernel(x, bidir, True),
                  rk.ring_allgather_reference(x, bidir, True))
+    cluster, glob = _path_counts(counter)
+    launched = 9                      # 4 allreduces, 4 reduce-scatters, 1
+    if n <= rk.CLUSTER_LIMIT:
+        assert (cluster - before[0], glob - before[1]) == (launched, 0)
+    else:
+        assert (cluster - before[0], glob - before[1]) == (0, launched)
+
+
+@pytest.mark.parametrize("bidir", [False, True])
+def test_ring_kernel_unaligned_view_equals_plain(cuda, bidir):
+    """A contiguous view whose data does not start on 16 bytes (bulk
+    copies need 16): the wrapper copies it first; the result is the
+    plain version's."""
+    base = _ring_data(cuda, (4 * 4097 + 1,), torch.float32, 5)
+    x = base[1:].view(4, 4097)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    assert _same(rk.ring_allreduce_kernel(x, bidirectional=bidir),
+                 rk.ring_allreduce_reference(x, bidirectional=bidir))
+    y = base[1:1 + 4 * 4 * 8].view(4, 32)
+    assert y.data_ptr() % 16
+    assert _same(rk.ring_reduce_scatter_kernel(y, bidirectional=bidir),
+                 rk.ring_reduce_scatter_reference(y, bidirectional=bidir))
+    assert _same(rk.ring_allgather_kernel(y, bidirectional=bidir),
+                 rk.ring_allgather_reference(y, bidirectional=bidir))
+
+
+def test_ring_kernel_path_is_chosen_by_rule(cuda):
+    """n <= 8 takes the cluster path, larger n the global one; forcing the
+    cluster path beyond its limit, or naming no path, raises."""
+    for n in (2, 8, 9):
+        x = _ring_data(cuda, (n, 1000), torch.float32, 6)
+        before = _path_counts(rk.ring_kernel)
+        assert _same(rk.ring_allreduce_kernel(x),
+                     rk.ring_allreduce_reference(x))
+        after = _path_counts(rk.ring_kernel)
+        assert after[n > 8] == before[n > 8] + 1
+        assert after[n <= 8] == before[n <= 8]
+    x = _ring_data(cuda, (4, 1000), torch.float32, 6)
+    assert _same(rk.ring_allreduce_kernel(x, path="global"),
+                 rk.ring_allreduce_reference(x))
+    with pytest.raises(Mp4jError, match="no cluster of 9"):
+        rk.ring_allreduce_kernel(_ring_data(cuda, (9, 64), torch.float32, 6),
+                                 path="cluster")
+    with pytest.raises(Mp4jError, match="path must be one of"):
+        rk.ring_allreduce_kernel(x, path="tpu")
 
 
 @pytest.mark.parametrize("bidir", [False, True])
@@ -171,8 +225,9 @@ def test_ring_kernel_multiblock_repeats(cuda, bidir):
 
 
 def test_ring_kernel_refuses_a_grid_that_cannot_be_resident(cuda):
-    """One block per member at least: n = capacity members fit (and equal
-    the plain version), n = capacity + 1 are refused before any launch."""
+    """The global path (n > 8): one block per member at least; n =
+    capacity members fit (and equal the plain version), n = capacity + 1
+    are refused before any launch."""
     cap = rk.capacity(torch.float32, Operators.SUM, 1, cuda)
     x = _ring_data(cuda, (cap + 1, 64), torch.float32, 3)
     before = rk.ring_kernel.launches
@@ -197,14 +252,29 @@ def test_ring_kernel_keeps_the_callers_current_device(cuda):
 
 
 def test_ring_kernel_spin_bound_raises_instead_of_hanging(cuda):
-    """A member that never runs: its neighbours' waits hit the bound, the
+    """A member that does no work (on the cluster path it still joins its
+    cluster's exit barrier): its neighbours' waits hit the bound, the
     launch ends and the wrapper raises; the next launch is clean."""
     x = _ring_data(cuda, (4, 100_000), torch.float32, 2)
+    before = _path_counts(rk.ring_kernel)
     t0 = time.perf_counter()
     with pytest.raises(Mp4jError, match="spin bound"):
         rk.ring_allreduce_kernel(x, spin_s=0.5, stall_member=2)
     assert time.perf_counter() - t0 < 30
+    assert _path_counts(rk.ring_kernel)[0] == before[0] + 1
     assert _same(rk.ring_allreduce_kernel(x), rk.ring_allreduce_reference(x))
+
+
+@pytest.mark.parametrize("bidir", [False, True])
+def test_ring_kernel_spin_bound_raises_on_the_global_path(cuda, bidir):
+    """The same stall on the global path, and the same clean recovery."""
+    x = _ring_data(cuda, (4, 100_000), torch.float32, 2)
+    with pytest.raises(Mp4jError, match="spin bound"):
+        rk.ring_allreduce_kernel(x, bidirectional=bidir, spin_s=0.5,
+                                 stall_member=1, path="global")
+    assert _same(rk.ring_allreduce_kernel(x, bidirectional=bidir,
+                                          path="global"),
+                 rk.ring_allreduce_reference(x, bidirectional=bidir))
 
 
 def test_gpu_comm_cluster_on_the_card(cuda):

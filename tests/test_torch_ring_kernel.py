@@ -8,10 +8,13 @@ as NaN: its payload is not part of jnp.maximum's contract). The CUDA
 kernels themselves are held against this plain version in
 tests/test_torch_gpu.py and chip_smoke.py.
 
-The port's slot/flag/credit protocol (ring_kernel.PROTOCOL, driven by
-RingPlan: the schedule the CUDA source mirrors) runs here under the
-reference's skew-adversarial scheduler (_RingModel,
-tests/test_ring_kernel.py:203).
+The port's slot/credit protocols (ring_kernel.PROTOCOL for the
+global-memory kernel, ring_kernel.CLUSTER_PROTOCOL for the cluster
+kernel, both driven by RingPlan: the schedule the CUDA sources mirror)
+run here under the reference's skew-adversarial scheduler (_RingModel,
+tests/test_ring_kernel.py:203), and the launch plan that picks the path
+and cuts the chunks is checked for every dtype, n, mode and direction
+count.
 """
 
 import functools
@@ -256,14 +259,19 @@ def test_rejects_bad_inputs():
         rk.ring_allreduce_kernel(torch.ones(2, 4, device="meta"))
 
 
+def _all_counts():
+    return [getattr(fn, k) for fn in (rk.ring_kernel, rk.ring_kernel_bidir)
+            for k in ("launches", "cluster_launches", "global_launches")]
+
+
 def test_cpu_tensors_take_the_plain_version_without_a_launch(rng):
-    before = (rk.ring_kernel.launches, rk.ring_kernel_bidir.launches)
+    before = _all_counts()
     data = rng.standard_normal((4, 33)).astype(np.float32)
     for bidir in (False, True):
         assert_same(_port("allreduce", data, bidir=bidir),
                     _to_numpy(rk.ring_allreduce_reference(
                         torch.from_numpy(data), bidirectional=bidir)))
-    assert (rk.ring_kernel.launches, rk.ring_kernel_bidir.launches) == before
+    assert _all_counts() == before
 
 
 def test_granule_is_defined_once():
@@ -317,17 +325,22 @@ class _PortRingModel(_RingModel):
     can move). Flags hold step numbers and only grow."""
 
     def __init__(self, n, use_credits, seed=0, victim=None,
-                 mode="allreduce", dirs=("R",), segments=1):
+                 mode="allreduce", dirs=("R",), segments=1,
+                 proto=rk.PROTOCOL):
         super().__init__(n, use_credits, seed, victim, mode, dirs)
         self.segments = segments
-        z = lambda: [[0, 0] for _ in range(n)]        # noqa: E731
+        self.proto = proto
+        slots = proto["slots"]
+        z = lambda: [[0] * slots for _ in range(n)]   # noqa: E731
         self.rflag = {d: z() for d in dirs}
         self.cflag = {d: z() for d in dirs}
+        self.rbuf = {d: [[(None, False)] * slots for _ in range(n)]
+                     for d in dirs}
 
     def _member(self, me, chunks):
         n, dirs = self.n, self.dirs
         plan = rk.RingPlan(n, self.mode, len(dirs))
-        proto = rk.PROTOCOL
+        proto = self.proto
         g = 0
 
         def exchange(vals):
@@ -420,6 +433,24 @@ class _PortRingModel(_RingModel):
             assert all(not v[1] for row in self.rbuf[dn] for v in row)
 
 
+def _protocol_safe(n, seed, mode, dirs, segments, proto):
+    rng = np.random.default_rng(seed)
+    data = {d: rng.standard_normal((n, n)).astype(np.float64) for d in dirs}
+    want = _model_wants(mode, data, dirs)
+    for victim in [None, 0, n - 1]:
+        m = _PortRingModel(n, use_credits=True, seed=seed, victim=victim,
+                           mode=mode, dirs=dirs, segments=segments,
+                           proto=proto)
+        m.run(data)
+        m.assert_clean()
+        for r in range(n):
+            assert len(m.out[r]) == segments
+            for res in m.out[r]:
+                for d in dirs:
+                    w = want[d][r] if mode == "reduce_scatter" else want[d]
+                    np.testing.assert_allclose(res[d], w, rtol=1e-12)
+
+
 @pytest.mark.parametrize("segments", [1, 2])
 @pytest.mark.parametrize("dirs", [("R",), ("R", "L")],
                          ids=["unidir", "bidir"])
@@ -429,23 +460,47 @@ class _PortRingModel(_RingModel):
                                   "allgather"])
 def test_port_protocol_safe_under_any_schedule(n, seed, mode, dirs,
                                                segments):
-    """With credits: no slot overwritten before it was consumed, no
-    deadlock, every segment's result right -- for random and
-    victim-stalling schedules (tolerance 1e-12 relative: f64 sums)."""
-    rng = np.random.default_rng(seed)
-    data = {d: rng.standard_normal((n, n)).astype(np.float64) for d in dirs}
-    want = _model_wants(mode, data, dirs)
-    for victim in [None, 0, n - 1]:
-        m = _PortRingModel(n, use_credits=True, seed=seed, victim=victim,
-                           mode=mode, dirs=dirs, segments=segments)
+    """The global kernel's protocol (2 slots), with credits: no slot
+    overwritten before it was consumed, no deadlock, every segment's
+    result right -- for random and victim-stalling schedules (tolerance
+    1e-12 relative: f64 sums)."""
+    _protocol_safe(n, seed, mode, dirs, segments, rk.PROTOCOL)
+
+
+@pytest.mark.parametrize("slots", [2, 3])
+@pytest.mark.parametrize("segments", [1, 2])
+@pytest.mark.parametrize("dirs", [("R",), ("R", "L")],
+                         ids=["unidir", "bidir"])
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("mode", ["allreduce", "reduce_scatter",
+                                  "allgather"])
+def test_port_protocol_safe_under_any_schedule_cluster_slots(
+        n, seed, mode, dirs, segments, slots):
+    """The same for the cluster kernel's protocol, each step waiting the
+    credit of the next step's slot: with its CLUSTER_SLOTS (2) and with
+    one slot more (the source takes any kSlots >= 2)."""
+    _protocol_safe(n, seed, mode, dirs, segments,
+                   rk.protocol(slots, ahead=1))
+
+
+@pytest.mark.parametrize("proto", [rk.CLUSTER_PROTOCOL,
+                                   rk.protocol(3, ahead=1)],
+                         ids=["cluster", "cluster-3-slots"])
+def test_port_protocol_without_credits_overwrites_a_slot_any_slots(proto):
+    """The cluster kernel's protocol, over two segments: without credits
+    the adversary overwrites an unconsumed slot, whatever the slot
+    count; the credits are what keeps it safe."""
+    n = 4
+    rng = np.random.default_rng(0)
+    data = {"R": rng.standard_normal((n, n)).astype(np.float64)}
+    hits = 0
+    for victim in range(n):
+        m = _PortRingModel(n, use_credits=False, seed=1, victim=victim,
+                           segments=2, proto=proto)
         m.run(data)
-        m.assert_clean()
-        for r in range(n):
-            assert len(m.out[r]) == segments
-            for res in m.out[r]:
-                for d in dirs:
-                    w = want[d][r] if mode == "reduce_scatter" else want[d]
-                    np.testing.assert_allclose(res[d], w, rtol=1e-12)
+        hits += m.violations
+    assert hits > 0
 
 
 def test_port_protocol_without_credits_overwrites_a_slot():
@@ -476,3 +531,68 @@ def test_plan_step_counts_and_drain(mode):
     assert rk.PROTOCOL["begin"](1) == [("send", 1, 2)]
     assert rk.PROTOCOL["begin"](2) == [("wait_credit", 0, 1),
                                        ("send", 0, 3)]
+    cp = rk.CLUSTER_PROTOCOL
+    assert cp["slots"] == rk.CLUSTER_SLOTS == 2
+    assert cp["begin"](0) == [("send", 0, 1)]
+    assert cp["begin"](1) == [("wait_credit", 0, 1), ("send", 1, 2)]
+    assert cp["begin"](2) == [("wait_credit", 1, 2), ("send", 0, 3)]
+    assert cp["drain"](5) == [("wait_credit", 0, 5), ("wait_credit", 1, 4)]
+    three = rk.protocol(3, ahead=1)
+    assert three["begin"](1) == [("send", 1, 2)]
+    assert three["begin"](2) == [("wait_credit", 0, 1), ("send", 2, 3)]
+    assert three["drain"](5) == [("wait_credit", 0, 4),
+                                 ("wait_credit", 1, 5),
+                                 ("wait_credit", 2, 3)]
+
+
+# ---- the launch plan: which kernel, and how it cuts the chunks -----------
+def _chunk_width(mode, n, L, dtype, ndir):
+    """Each direction's chunk width, as the entry points lay it out on
+    CUDA (granule 16 bytes; reduce-scatter and allgather chunks are
+    multiples of ndir granules)."""
+    if mode == "allreduce":
+        return rk.round_up_chunk(-(-L // (ndir * n)), dtype, "cuda")
+    c = -(-L // (ndir * rk.granule(dtype, "cuda"))) * ndir * rk.granule(
+        dtype, "cuda")
+    return c // ndir
+
+
+@pytest.mark.parametrize("ndir", [1, 2])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 8, 9])
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64, torch.int32,
+                                torch.int64, torch.int16, torch.int8,
+                                torch.bfloat16], ids=str)
+def test_launch_plan_covers_every_chunk_once(dt, n, ndir):
+    """For every mode: the columns and segments cover [0, w) exactly once,
+    every boundary and length is a multiple of 16 bytes, a slot fits its
+    size, and the path is cluster for n <= 8, global above (or where the
+    card takes no such cluster)."""
+    item = torch.empty((), dtype=dt).element_size()
+    for mode in ("allreduce", "reduce_scatter", "allgather"):
+        for L in (1, 1001, 3 * 4096 + 5, 1 << 20, 37 << 20):
+            w = _chunk_width(mode, n, L, dt, ndir)
+            for clusters, cap in ((16, 528), (1, 2 * n), (0, 396)):
+                lp = rk.launch_plan(n, w, dt, ndir, "cuda",
+                                    clusters=clusters, capacity=cap)
+                cluster = n <= rk.CLUSTER_LIMIT and clusters > 0
+                assert lp.path == ("cluster" if cluster else "global")
+                if cluster:
+                    assert lp.cols <= clusters
+                    assert lp.slots == rk.CLUSTER_SLOTS
+                    assert lp.slot_bytes * ndir <= rk.CLUSTER_SEG_BYTES
+                else:
+                    assert lp.seg == rk.GLOBAL_SEG and lp.slots == 2
+                    assert lp.cols <= max(1, cap // n)
+                covered = []
+                for col in range(lp.cols):
+                    lo, hi = lp.columns()[col]
+                    assert lo * item % 16 == 0 and hi * item % 16 == 0
+                    for s, ln in lp.segments(col):
+                        assert 0 < ln <= lp.seg
+                        assert s * item % 16 == 0 and ln * item % 16 == 0
+                        covered.append((s, ln))
+                pos = 0
+                for s, ln in sorted(covered):
+                    assert s == pos
+                    pos += ln
+                assert pos == w

@@ -5,7 +5,9 @@ reference. Slice 1: data-parallel GBDT on one GPU, whose histogram build
 is a hand-written CUDA kernel for Hopper (``ops/csrc/hist_kernel.cu``).
 Slice 2: the dense device collective plane, ``GpuCommCluster`` with n
 members on one card and the algos ``xla``, ``ring`` and ``rdma`` -- the
-last a hand-written CUDA ring kernel (``ops/csrc/ring_kernel.cu``). It
+last the hand-written CUDA ring kernels (``ops/csrc/ring_cluster.cu``,
+one thread-block cluster per ring, for n <= 8 members;
+``ops/csrc/ring_kernel.cu`` above). It
 imports torch and numpy, never jax and nothing of ``ytk_mp4j_tpu``.
 Entry points run on ``cuda:0`` unless the caller passes ``device="cpu"``.
 """

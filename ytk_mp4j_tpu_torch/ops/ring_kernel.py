@@ -1,12 +1,22 @@
-"""Ring collectives as one hand-written CUDA kernel: the port of
+"""Ring collectives as hand-written CUDA kernels: the port of
 ``ytk_mp4j_tpu/ops/ring_kernel.py`` (the Pallas RDMA ring kernels).
 
 n ring members live on one card as the rows of a ``[n, L]`` tensor, and
-one launch of ``ops/csrc/ring_kernel.cu`` runs all of them: each member
-is a row of thread blocks that writes into its neighbour's receive slots
-in device memory, with the reference's slot, flag and credit protocol
-(``_direction:128``). Entry points, each on a ``[n, ...]`` tensor of
-members:
+one launch runs all of them, on one of two paths that
+:func:`launch_plan` picks from n and the card, never from a failure:
+
+- **cluster** (n <= 8, ``ops/csrc/ring_cluster.cu``): the members of a
+  column are the blocks of one thread-block cluster; receive slots live
+  in the receiver's shared memory, sends are bulk asynchronous copies
+  into it, credits are remote mbarrier arrives, so device memory carries
+  only the input and the output;
+- **global** (larger n, or a cluster size the card refuses;
+  ``ops/csrc/ring_kernel.cu``): each member is a row of blocks writing
+  into its neighbour's receive slots in device memory, in one cooperative
+  launch.
+
+Both follow the reference's slot and credit protocol (``_direction:128``).
+Entry points, each on a ``[n, ...]`` tensor of members:
 
 - :func:`ring_allreduce_kernel` -- reduce-scatter + allgather in one
   launch (2(n-1) steps); any length (padded with the operator's identity
@@ -23,28 +33,32 @@ n = 1 (zero steps).
 
 Each entry has a plain PyTorch version with the same contract, step
 schedule and fold order (:func:`ring_allreduce_reference` and its
-siblings); both follow :class:`RingPlan`, the schedule in Python that
-the CUDA source mirrors, and :data:`PROTOCOL`, its slot/flag/credit
-sequence (the tests run it under the reference's skew-adversarial
-scheduler). On a CPU tensor the entries compute the plain version; on a
-CUDA tensor they launch the kernel or raise. Launches are counted on
+siblings); all follow :class:`RingPlan`, the schedule in Python that
+the CUDA sources mirror, and :func:`protocol`, the slot/credit sequence
+(:data:`PROTOCOL` for the global kernel, :data:`CLUSTER_PROTOCOL` for the
+cluster kernel; the tests run both under the reference's
+skew-adversarial scheduler). On a CPU tensor the entries compute the
+plain version; on a CUDA tensor they launch a kernel or raise, and
+nothing retries on another kernel. Launches are counted on
 ``ring_kernel.launches`` (one direction) and ``ring_kernel_bidir.launches``
-(two).
+(two), and per path on their ``cluster_launches`` / ``global_launches``.
 
 Chunk granule (:func:`granule`), the one place it is defined: 1 element
 on the CPU, as the reference's interpret mode, so the CPU version chunks
 exactly as the reference's interpreted kernel; 16 bytes on CUDA, for
-vector loads. Reduce-scatter and allgather chunks must be multiples of
+vector accesses and bulk copies (every column and segment boundary is a
+multiple of it). Reduce-scatter and allgather chunks must be multiples of
 it (twice it when bidirectional); allreduce pads to it.
 
 Divergences from the reference, intended:
 
 - a custom operator raises :class:`Mp4jError` naming ``algo="ring"``:
   the kernel cannot run a Python function;
-- a member that cannot be co-resident with the others is refused:
-  n x blocks per member over the card's occupancy raises before any
-  launch; every spin is bounded, and a stuck ring raises instead of
-  hanging.
+- on the global path, a member that cannot be co-resident with the
+  others is refused: n x blocks per member over the card's occupancy
+  raises before any launch (a cluster's blocks are co-resident by
+  construction); on both paths every wait is bounded, and a stuck ring
+  raises instead of hanging.
 """
 
 from __future__ import annotations
@@ -59,14 +73,16 @@ from ytk_mp4j_tpu_torch.exceptions import Mp4jError
 from ytk_mp4j_tpu_torch.operators import Operator, Operators
 from ytk_mp4j_tpu_torch.ops import _build
 
-# dtype codes: must match ops/csrc/ring_kernel.cu kernel_for
+# dtype codes: must match kernel_for in ops/csrc/ring_cluster.cu and
+# ops/csrc/ring_kernel.cu
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.int32: 2,
                 torch.int64: 3, torch.int16: 4, torch.int8: 5,
                 torch.bfloat16: 6}
 _MODE_CODES = {"allreduce": 0, "reduce_scatter": 1, "allgather": 2}
 _VECTOR_BYTES = 16
-SPIN_SECONDS = 30.0     # longest wait on one flag before the launch fails
-_WAITS = ("a receive flag", "a credit", "the final credits")
+SPIN_SECONDS = 30.0     # longest single wait before the launch fails
+_WAITS = ("a receive slot", "a credit", "the final credits",
+          "an input load")
 
 
 def granule(dtype: torch.dtype, device) -> int:
@@ -137,33 +153,47 @@ class RingPlan:
         return (me + RingPlan.sign(d)) % n
 
 
-def _begin(g: int):
-    slot = g % 2
-    wait = [("wait_credit", slot, g - 1)] if g >= 2 else []
-    return wait + [("send", slot, g + 1)]
+def protocol(slots: int, ahead: int = 0) -> dict:
+    """The per-direction protocol at global step g with ``slots`` receive
+    slots, as ops on flags that only grow within a launch: ("wait_*",
+    slot, v) waits for flag >= v, "send" writes the neighbour's slot then
+    stores its recv flag = v, "consume" reads our slot, "signal_credit"
+    stores the upstream's credit = v. Every direction's begin runs before
+    any finish; after the last step each direction waits ``drain(steps)``.
+
+    A sender may reuse slot k once the receiver consumed the previous send
+    into k. ``ahead``: begin(g) waits that credit for the slot of step
+    g + ahead (the cluster kernel folds step g into the buffer step g + 1
+    sends, so it waits one step ahead; the global kernel waits at g)."""
+
+    def begin(g: int):
+        h = g + ahead
+        wait = ([("wait_credit", h % slots, h - slots + 1)]
+                if h >= slots else [])
+        return wait + [("send", g % slots, g + 1)]
+
+    def finish(g: int):
+        slot = g % slots
+        return [("wait_recv", slot, g + 1), ("consume", slot),
+                ("signal_credit", slot, g + 1)]
+
+    def drain(steps: int):
+        out = []
+        for slot in range(min(slots, steps)):
+            last = steps - 1 - (steps - 1 - slot) % slots
+            out.append(("wait_credit", slot, last + 1))
+        return out
+
+    return {"begin": begin, "finish": finish, "drain": drain,
+            "slots": slots}
 
 
-def _finish(g: int):
-    slot = g % 2
-    return [("wait_recv", slot, g + 1), ("consume", slot),
-            ("signal_credit", slot, g + 1)]
-
-
-def _drain(steps: int):
-    out = []
-    for slot in range(min(2, steps)):
-        last = steps - 1 if (steps - 1) % 2 == slot else steps - 2
-        out.append(("wait_credit", slot, last + 1))
-    return out
-
-
-# The per-direction protocol at global step g, as ops on flags that only
-# grow within a launch: ("wait_*", slot, v) waits for flag >= v, "send"
-# writes the neighbour's slot then stores its recv flag = v, "consume"
-# reads our slot, "signal_credit" stores the upstream's credit = v.
-# Every direction's begin runs before any finish; after the last step
-# each direction waits ``drain(steps)``.
-PROTOCOL = {"begin": _begin, "finish": _finish, "drain": _drain}
+# the global-memory kernel's protocol (ops/csrc/ring_kernel.cu)
+PROTOCOL = protocol(2)
+CLUSTER_SLOTS = 2           # ring_cluster.cu kSlots
+# the cluster kernel's (ops/csrc/ring_cluster.cu): mbarrier phases take the
+# place of the step-number flags, one phase per use of a slot
+CLUSTER_PROTOCOL = protocol(CLUSTER_SLOTS, ahead=1)
 
 
 @dataclass(frozen=True)
@@ -221,6 +251,80 @@ def _plain(xp, plan: RingPlan, lay: _Layout, operator: Operator):
 
 
 # ----------------------------------------------------------------------
+# the launch plan: which kernel, and how it cuts the chunks
+# ----------------------------------------------------------------------
+CLUSTER_LIMIT = 8           # portable cluster size: ring_cluster.cu kMaxCluster
+CLUSTER_SEG_BYTES = 12288   # a slot over all directions: three 128-thread
+                            # blocks share an SM (ring_cluster.cu takes up
+                            # to 18 KiB, kMaxSegBytes)
+GLOBAL_SEG = 2048           # elements of a slot: ring_kernel.cu kSeg
+PATHS = ("cluster", "global")
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How one launch covers each direction's chunk ``[0, w)``: ``cols``
+    columns of ``col_w`` elements (the last ones may be short or empty),
+    each walked in segments of ``seg`` elements, one slot each.
+
+    ``path`` "cluster": one thread-block cluster of n blocks per column,
+    slots in shared memory (``ops/csrc/ring_cluster.cu``); "global": one
+    block per member and column, slots in device memory
+    (``ops/csrc/ring_kernel.cu``). Both kernels walk exactly
+    :meth:`segments`."""
+
+    path: str
+    n: int
+    ndir: int
+    w: int
+    itemsize: int
+    cols: int
+    col_w: int
+    seg: int
+    slots: int
+
+    @property
+    def slot_bytes(self) -> int:
+        return self.seg * self.itemsize
+
+    def columns(self):
+        """``[lo, hi)`` of every launched column."""
+        return [(min(c * self.col_w, self.w), min((c + 1) * self.col_w, self.w))
+                for c in range(self.cols)]
+
+    def segments(self, col: int):
+        """``(start, length)`` of each segment of column ``col``."""
+        lo, hi = self.columns()[col]
+        return [(s, min(self.seg, hi - s)) for s in range(lo, hi, self.seg)]
+
+
+def launch_plan(n: int, w: int, dtype: torch.dtype, ndir: int, device, *,
+                clusters: int = 0, capacity: int = 0) -> LaunchPlan:
+    """The plan for n members and chunks of ``w`` elements. ``clusters``:
+    clusters of n blocks the card holds at once (0 where it refuses that
+    size); ``capacity``: co-resident blocks of the global kernel. The
+    cluster path takes n <= CLUSTER_LIMIT whenever the card holds such a
+    cluster; the global path takes the rest. Every boundary is a multiple
+    of the granule, so 16-byte aligned on CUDA."""
+    item = torch.empty((), dtype=dtype).element_size()
+    g = granule(dtype, device)
+
+    def up(v):
+        return -(-v // g) * g
+
+    if 1 <= n <= CLUSTER_LIMIT and clusters > 0:
+        cols = max(1, min(clusters, -(-w // g)))
+        col_w = up(-(-w // cols))
+        per_col = -(-col_w // (CLUSTER_SEG_BYTES // ndir // item))
+        seg = max(g, up(-(-col_w // per_col)))     # equal segments
+        return LaunchPlan("cluster", n, ndir, w, item, cols, col_w, seg,
+                          CLUSTER_SLOTS)
+    cols = max(1, min(capacity // n, -(-w // GLOBAL_SEG)))
+    return LaunchPlan("global", n, ndir, w, item, cols, up(-(-w // cols)),
+                      GLOBAL_SEG, PROTOCOL["slots"])
+
+
+# ----------------------------------------------------------------------
 # the CUDA launch
 # ----------------------------------------------------------------------
 @functools.cache
@@ -236,59 +340,135 @@ def _library() -> ctypes.CDLL:
     lib.mp4j_ring_launch.restype = i
     lib.mp4j_error_string.argtypes = [i]
     lib.mp4j_error_string.restype = ctypes.c_char_p
+    if lib.mp4j_ring_seg() != GLOBAL_SEG:
+        raise Mp4jError(f"ring_kernel.cu slots hold {lib.mp4j_ring_seg()} "
+                        f"elements, the launch plan assumes {GLOBAL_SEG}")
     return lib
+
+
+@functools.cache
+def _cluster_library() -> ctypes.CDLL:
+    lib = _build.load("ring_cluster")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.mp4j_ring_cluster_max_clusters.argtypes = [i, i, i, i, i,
+                                                   ctypes.POINTER(i)]
+    lib.mp4j_ring_cluster_max_clusters.restype = i
+    lib.mp4j_ring_cluster_launch.argtypes = [
+        i, i, i, i, i, i, i, ll, ll, ll, ll, ll, ll, ll, ll, ll, p, p, p, ll,
+        i, p]
+    lib.mp4j_ring_cluster_launch.restype = i
+    lib.mp4j_error_string.argtypes = [i]
+    lib.mp4j_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _device_index(device) -> int:
+    dev = torch.device(device)
+    return torch.cuda.current_device() if dev.index is None else dev.index
+
+
+@functools.cache
+def _query(kind: str, dtype_code: int, op_code: int, ndir: int, n: int,
+           index: int, slot_bytes: int = 0) -> int:
+    value = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        if kind == "clusters":
+            lib = _cluster_library()
+            rc = lib.mp4j_ring_cluster_max_clusters(
+                dtype_code, op_code, ndir, n, slot_bytes, ctypes.byref(value))
+        else:
+            lib = _library()
+            rc = lib.mp4j_ring_capacity(dtype_code, op_code, ndir,
+                                        ctypes.byref(value))
+    if rc:
+        raise Mp4jError(f"ring kernel occupancy query ({kind}) failed: "
+                        f"{lib.mp4j_error_string(rc).decode()}")
+    return value.value
 
 
 def capacity(dtype: torch.dtype, operator: Operator, ndir: int,
              device) -> int:
-    """Blocks of the kernel that fit on the card at once."""
-    lib = _library()
-    blocks = ctypes.c_int(0)
-    with torch.cuda.device(torch.device(device)):
-        rc = lib.mp4j_ring_capacity(_DTYPE_CODES[dtype], operator.kernel_code,
-                                    ndir, ctypes.byref(blocks))
-    if rc:
-        raise Mp4jError("ring kernel occupancy query failed: "
-                        f"{lib.mp4j_error_string(rc).decode()}")
-    return blocks.value
+    """Blocks of the global-memory kernel that fit on the card at once
+    (queried once per dtype, operator, directions and card)."""
+    return _query("capacity", _DTYPE_CODES[dtype], operator.kernel_code,
+                  ndir, 0, _device_index(device))
+
+
+def max_clusters(dtype: torch.dtype, operator: Operator, ndir: int, n: int,
+                 device) -> int:
+    """Clusters of n blocks of the cluster kernel resident at once on the
+    card, 0 where the card refuses that size (queried once per dtype,
+    operator, directions, n and card)."""
+    if not 1 <= n <= CLUSTER_LIMIT:
+        return 0
+    return _query("clusters", _DTYPE_CODES[dtype], operator.kernel_code,
+                  ndir, n, _device_index(device), CLUSTER_SEG_BYTES // ndir)
+
+
+def _plan_launch(xp, plan: RingPlan, lay: _Layout, operator: Operator,
+                 path) -> LaunchPlan:
+    n, ndir, dev = plan.n, plan.ndir, xp.device
+    if path not in (None,) + PATHS:
+        raise Mp4jError(f"ring kernel path must be one of {PATHS}, "
+                        f"got {path!r}")
+    clusters = 0
+    if path != "global":
+        clusters = max_clusters(xp.dtype, operator, ndir, n, dev)
+        if path == "cluster" and not clusters:
+            raise Mp4jError(f"ring kernel: the card takes no cluster of {n} "
+                            "blocks for this kernel")
+    cap = 0 if clusters else capacity(xp.dtype, operator, ndir, dev)
+    lp = launch_plan(n, lay.w, xp.dtype, ndir, dev, clusters=clusters,
+                     capacity=cap)
+    if lp.path == "global" and n * lp.cols > cap:
+        raise Mp4jError(
+            f"ring kernel: {n} members x {lp.cols} blocks each need "
+            f"{n * lp.cols} co-resident blocks, the card holds {cap}; every "
+            "member spins on its neighbours, so a grid that does not fit "
+            "would hang")
+    return lp
 
 
 def _launch(xp, plan: RingPlan, lay: _Layout, operator: Operator, spin_s,
-            stall_member):
-    """One cooperative launch on xp's card; the members' blocks are as
-    many per member as fit beside the others, at most one per segment."""
-    lib = _library()
+            stall_member, path):
+    """One launch on xp's card, on the path :func:`launch_plan` picks
+    (``path`` forces one, for tests and measurements). Bulk copies need
+    16-byte-aligned addresses: an input whose data does not start on 16
+    bytes (a view at an odd storage offset) is copied first."""
+    lp = _plan_launch(xp, plan, lay, operator, path)
     dev = xp.device
     n, ndir = plan.n, plan.ndir
-    cap = capacity(xp.dtype, operator, ndir, dev)
-    seg = lib.mp4j_ring_seg()
-    cols = max(1, min(cap // n, -(-lay.w // seg)))
-    if n * cols > cap:
-        raise Mp4jError(
-            f"ring kernel: {n} members x {cols} blocks each need {n * cols} "
-            f"co-resident blocks, the card holds {cap}; every member spins "
-            "on its neighbours, so a grid that does not fit would hang")
-    col_w = -(-lay.w // cols)
-    flags = torch.zeros(2 * ndir * n * cols * 2, dtype=torch.int64,
-                        device=dev)
+    if xp.data_ptr() % _VECTOR_BYTES:
+        xp = xp.clone(memory_format=torch.contiguous_format)
     err = torch.zeros(4, dtype=torch.int64, device=dev)
-    slots = torch.empty(ndir * n * cols * 2 * seg, dtype=xp.dtype, device=dev)
     out = torch.empty((n, lay.out_row), dtype=xp.dtype, device=dev)
     base = tuple(lay.base) + (0,) * (2 - len(lay.base))
     vbase = tuple(lay.vbase) + (0,) * (2 - len(lay.vbase))
+    shape = (lay.w, lay.stride, base[0], base[1], vbase[0], vbase[1],
+             lp.col_w, lay.in_row, lay.out_row)
+    codes = (_DTYPE_CODES[xp.dtype], operator.kernel_code, ndir,
+             _MODE_CODES[plan.mode], n, lp.cols)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.mp4j_ring_launch(
-            _DTYPE_CODES[xp.dtype], operator.kernel_code, ndir,
-            _MODE_CODES[plan.mode], n, cols, lay.w, lay.stride, base[0],
-            base[1], vbase[0], vbase[1], col_w, lay.in_row, lay.out_row,
-            xp.data_ptr(), out.data_ptr(), slots.data_ptr(),
-            flags.data_ptr(), err.data_ptr(), int(spin_s * 1e9),
-            stall_member, stream)
+        if lp.path == "cluster":
+            lib = _cluster_library()
+            rc = lib.mp4j_ring_cluster_launch(
+                *codes, lp.seg, *shape, xp.data_ptr(), out.data_ptr(),
+                err.data_ptr(), int(spin_s * 1e9), stall_member, stream)
+        else:
+            lib = _library()
+            flags = torch.zeros(2 * ndir * n * lp.cols * 2,
+                                dtype=torch.int64, device=dev)
+            slots = torch.empty(ndir * n * lp.cols * 2 * GLOBAL_SEG,
+                                dtype=xp.dtype, device=dev)
+            rc = lib.mp4j_ring_launch(
+                *codes, *shape, xp.data_ptr(), out.data_ptr(),
+                slots.data_ptr(), flags.data_ptr(), err.data_ptr(),
+                int(spin_s * 1e9), stall_member, stream)
     if rc:
-        raise Mp4jError(
-            f"ring kernel launch failed: {lib.mp4j_error_string(rc).decode()}")
-    return out, err
+        raise Mp4jError(f"ring kernel launch ({lp.path} path) failed: "
+                        f"{lib.mp4j_error_string(rc).decode()}")
+    return out, err, lp
 
 
 def _raise_if_stuck(err, spin_s):
@@ -299,29 +479,40 @@ def _raise_if_stuck(err, spin_s):
             f"{step} past the spin bound ({spin_s} s); the ring is stuck")
 
 
-def ring_kernel(xp, plan, lay, operator, spin_s=SPIN_SECONDS,
-                stall_member=-1):
-    """One launch of the unidirectional kernel (row 2 of the TPU table).
-    ``spin_s`` bounds every flag wait; ``stall_member`` (a test hook)
-    names a member whose blocks return at once."""
-    out, err = _launch(xp, plan, lay, operator, spin_s, stall_member)
-    ring_kernel.launches += 1
+def _counted(counter, xp, plan, lay, operator, spin_s, stall_member, path):
+    out, err, lp = _launch(xp, plan, lay, operator, spin_s, stall_member,
+                           path)
+    counter.launches += 1
+    setattr(counter, f"{lp.path}_launches",
+            getattr(counter, f"{lp.path}_launches") + 1)
+    counter.last_plan = lp
     _raise_if_stuck(err, spin_s)
     return out
+
+
+def ring_kernel(xp, plan, lay, operator, spin_s=SPIN_SECONDS,
+                stall_member=-1, path=None):
+    """One launch of the unidirectional kernel (row 2 of the TPU table).
+    ``spin_s`` bounds every wait; ``stall_member`` (a test hook) names a
+    member that does no work; ``path`` forces "cluster" or "global"
+    (tests and measurements). Counts ``launches`` and the path's
+    ``cluster_launches`` / ``global_launches``; ``last_plan`` is the
+    :class:`LaunchPlan` of the latest launch."""
+    return _counted(ring_kernel, xp, plan, lay, operator, spin_s,
+                    stall_member, path)
 
 
 def ring_kernel_bidir(xp, plan, lay, operator, spin_s=SPIN_SECONDS,
-                      stall_member=-1):
+                      stall_member=-1, path=None):
     """One launch of the bidirectional kernel (row 3); as
     :func:`ring_kernel`."""
-    out, err = _launch(xp, plan, lay, operator, spin_s, stall_member)
-    ring_kernel_bidir.launches += 1
-    _raise_if_stuck(err, spin_s)
-    return out
+    return _counted(ring_kernel_bidir, xp, plan, lay, operator, spin_s,
+                    stall_member, path)
 
 
-ring_kernel.launches = 0
-ring_kernel_bidir.launches = 0
+for _fn in (ring_kernel, ring_kernel_bidir):
+    _fn.launches = _fn.cluster_launches = _fn.global_launches = 0
+    _fn.last_plan = None
 
 
 # ----------------------------------------------------------------------
@@ -420,8 +611,9 @@ def ring_allreduce_kernel(x, operator: Operator = Operators.SUM,
                           bidirectional: bool = False,
                           force_kernel: bool = False, **launch):
     """Allreduce of members ``x`` [n, L] (any L): every row becomes the
-    element-wise reduction. ``launch``: ``spin_s`` and the test hook
-    ``stall_member`` (see :func:`ring_kernel`)."""
+    element-wise reduction. ``launch``: ``spin_s`` and the test hooks
+    ``stall_member`` and ``path`` (see :func:`ring_kernel`). A CUDA input
+    whose data does not start on 16 bytes is copied first."""
     return _allreduce(x, operator, bidirectional, force_kernel, False, launch)
 
 
