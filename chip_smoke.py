@@ -25,14 +25,17 @@ Phases:
    per source, all started together) and print the card's name and
    power limit;
 2. the histogram kernel against its plain version and an f64 sum at the
-   main path's shapes: n_nodes 1 and 16, sentinel ids, zero rows, N = 0,
-   bitwise equality of two launches;
+   main path's shapes: n_nodes 1 and 16, sentinel ids, every row in one
+   bin (timed), zero rows, N = 0, bitwise equality of two launches;
 3. the GBDT slice: 1 warm-up tree, then 3 timed trees with every launch
    count set to 0 just before and read just after; trees/s, GB/s
-   (bench.py's ``scanned_bytes``), per-level kernel, plain and
-   ``torch.bincount`` times beside the bound; ``predict`` must return
-   the training margins, and one tree through the kernel must equal
-   the same tree through the plain histogram;
+   (bench.py's ``scanned_bytes``); ``predict`` must return the training
+   margins; one more tree under ``torch.profiler``: device ms by kernel
+   name, the histogram kernel's passes against the rest, and the
+   device's idle share over the tree's window; one tree through the
+   kernel must equal the same tree through the plain histogram; per
+   level, kernel, plain and ``torch.bincount`` times beside the bound
+   (bytes of every node id and of the in-range rows' bins, g and h);
 4. both ring kernels against their plain versions, BITWISE (NaN as NaN):
    both directions x three modes x {SUM, PROD, MAX, MIN} x {f32, f64,
    i64, i32, i16, i8, bf16} x n in {1 (force_kernel), 2, 3, 5, 8} on the
@@ -93,6 +96,10 @@ CONFIG0_LEN = 1 << 20              # BASELINE.json configs[0]: 1M f32, 4 ranks
 CONFIG1_LEN = 256 << 20            # configs[1]: 256M f64, 8 ranks
 HIST_PAYLOAD = 2 * 16 * F * B      # g and h planes of 16 nodes
 KERNEL_REL_TOL = 1e-5              # vs an f64 sum, relative to its max
+HIST_KERNELS = ("absmax_kernel", "scan_kernel", "scatter_kernel",
+                "hist_kernel", "finalize_kernel")   # ops/csrc/hist_kernel.cu
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "chiprun_out")
 
 
 def make_data(n, f, b, seed=0):
@@ -148,11 +155,13 @@ def bincount_call(bins, g, h, ids, n_nodes):
     return lambda: torch.bincount(idx, weights=w, minlength=2 * n_cells)
 
 
-def level_bound_ms(n, n_nodes):
-    """Least time for one histogram call: bytes (each input read once,
-    each output written once) over HBM rate vs adds over the f32 rate."""
-    moved = n * (4 * F + 12) + 2 * n_nodes * F * B * 4
-    ops = 2 * n * F
+def level_bound_ms(n, n_valid, n_nodes):
+    """Least time for one histogram call: bytes (every row's node id, the
+    bins, g and h of the n_valid rows whose id is in range, each read
+    once; each output written once) over HBM rate vs adds over the f32
+    rate. Rows with the sentinel id need no bins."""
+    moved = 4 * n + n_valid * (4 * F + 8) + 2 * n_nodes * F * B * 4
+    ops = 2 * n_valid * F
     return max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
 
 
@@ -189,6 +198,20 @@ def phase_kernel_checks(bins, dev):
             check(rel <= KERNEL_REL_TOL, f"{name}: rel err {rel}")
             check(err <= KERNEL_REL_TOL * plain[k].abs().max().item(),
                   f"{name}: kernel vs plain {err}")
+    # the worst contention: every row and feature in bin 0 of node 0
+    one = torch.zeros_like(bins)
+    ids = cases["root n_nodes=1"][0]
+    a = hk.histograms(one, g, h, ids, 1, F, B)
+    plain = hk.histograms_reference(one, g, h, ids, 1, F, B)
+    for k in range(2):
+        err = (a[k] - plain[k]).abs().max().item()
+        max_abs = max(max_abs, err)
+        check(err <= KERNEL_REL_TOL * plain[k].abs().max().item(),
+              f"one bin: kernel vs plain {err}")
+    ms = timed_ms(lambda: hk.histograms(one, g, h, ids, 1, F, B), 10)
+    print(f"kernel one bin (all {n} rows x {F} features in bin 0): max abs "
+          f"err vs plain {err:.3e}, {ms:.3f} ms a call", flush=True)
+    del one
     # rows with g = h = 0 leave exact zeros: zero every row of node 3
     ids, _ = cases["n_nodes=16"]
     zero = ids == 3
@@ -206,7 +229,59 @@ def phase_kernel_checks(bins, dev):
     check(z[0].shape == (16, F, B) and not z[0].any() and not z[1].any(),
           "N = 0 is not zeros")
     print("kernel zero rows exact, N=0 zeros without a launch", flush=True)
-    return max_abs
+    return max_abs, ms
+
+
+def kernel_name(key):
+    return key.replace("(anonymous namespace)::", "").split("(")[0]
+
+
+def profile_tree(trainer, dbins, dy):
+    """One more tree like the timed ones, under ``torch.profiler`` (CUDA
+    activity): device ms by kernel name, the histogram kernel's passes
+    against everything else, and the device's idle share over the tree's
+    window (first device event's start to the last one's end)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        trainer.train(dbins, dy, n_trees=1)
+        torch.cuda.synchronize()
+    path = os.path.join(OUT_DIR, "tree_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") in
+                  ("kernel", "gpu_memcpy", "gpu_memset")]
+    check(events, "the profiler saw no device event in the tree")
+    by_name = {}
+    for e in events:
+        k = kernel_name(e["name"])
+        by_name[k] = by_name.get(k, 0.0) + e["dur"] / 1e3
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy = (busy + hi - lo) / 1e3
+    window = (max(b for _, b in spans) - spans[0][0]) / 1e3
+    hist = sum(v for k, v in by_name.items() if k in HIST_KERNELS)
+    total = sum(by_name.values())
+    rec = {"window_ms": window, "busy_ms": busy,
+           "idle_share": 1 - busy / window,
+           "device_ms": total, "hist_kernel_ms": hist,
+           "other_ms": total - hist,
+           "by_name_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1]))}
+    top = list(rec["by_name_ms"].items())[:10]
+    print("tree profile, device ms by kernel: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in top), flush=True)
+    print(f"tree profile: histogram kernel {hist:.3f} ms ({hist / total:.0%})"
+          f", everything else {total - hist:.3f} ms, of {total:.3f} ms "
+          f"device time; window {window:.3f} ms, device idle share "
+          f"{rec['idle_share']:.1%}", flush=True)
+    return rec
 
 
 def record_levels(trainer, dbins, dy):
@@ -238,12 +313,15 @@ def phase_levels(dbins, calls):
             dbins, g, h, ids, n_nodes, F, B), 2)
         lib = timed_ms(bincount_call(dbins, g, h, ids, n_nodes), 2)
         torch.cuda.empty_cache()
-        bound = level_bound_ms(n, n_nodes)
-        rows.append(dict(level=d, n_nodes=n_nodes, ms=kern, plain_ms=plain,
-                         library_ms=lib, bound_ms=bound))
-        print(f"level {d} (n_nodes={n_nodes}): kernel {kern:.3f} ms, plain "
-              f"{plain:.3f} ms, bincount {lib:.3f} ms, bound {bound:.3f} ms "
-              f"(bytes)", flush=True)
+        n_valid = int(((ids >= 0) & (ids < n_nodes)).sum())
+        bound = level_bound_ms(n, n_valid, n_nodes)
+        rows.append(dict(level=d, n_nodes=n_nodes, rows_in_range=n_valid,
+                         ms=kern, plain_ms=plain, library_ms=lib,
+                         bound_ms=bound))
+        print(f"level {d} (n_nodes={n_nodes}, {n_valid} rows in range): "
+              f"kernel {kern:.3f} ms, plain {plain:.3f} ms, bincount "
+              f"{lib:.3f} ms, bound {bound:.3f} ms (bytes; "
+              f"{bound / kern:.0%} of it)", flush=True)
     return rows
 
 
@@ -259,7 +337,7 @@ def run_gbdt(dev):
     print(f"data {n} x {F} x {B} on the card in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    max_abs = phase_kernel_checks(dbins, dev)
+    max_abs, one_bin_ms = phase_kernel_checks(dbins, dev)
 
     cfg = GBDTConfig(n_features=F, n_bins=B, depth=DEPTH, loss="squared")
     trainer = GBDTTrainer(cfg)
@@ -293,6 +371,7 @@ def run_gbdt(dev):
           "predict differs from the training margins")
     print(f"predict == training margins; mse {mse0:.5f} -> {mse:.5f}",
           flush=True)
+    profile = profile_tree(trainer, dbins, dy)
 
     # one tree through the kernel against the same tree through the plain
     # histogram, on the same card (the reference the CPU tests tie to JAX)
@@ -320,7 +399,8 @@ def run_gbdt(dev):
         "library_ms": mean["library_ms"],
     }
     return entry, {"rows": n, "trees_per_s": 1 / tree_s, "gb_per_s": gbs,
-                   "levels": rows}
+                   "levels": rows, "tree_profile": profile,
+                   "one_bin_ms": one_bin_ms}
 
 
 # ----------------------------------------------------------------------
@@ -676,6 +756,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    os.makedirs(OUT_DIR, exist_ok=True)
     t0 = time.perf_counter()
     built = _build.build()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f} s "
@@ -694,10 +775,7 @@ def main():
     ring_entries, ring_record = run_ring(dev)
     kernels = [hist_entry] + ring_entries
 
-    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": kind, "nvidia_smi": smi, "gbdt": gbdt_record,
                    "ring": ring_record, "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))

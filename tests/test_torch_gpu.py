@@ -61,14 +61,111 @@ def test_kernel_matches_plain_and_is_deterministic(cuda, n_nodes):
         torch.testing.assert_close(a[k], ref[k], rtol=1e-5, atol=1e-5)
 
 
-def test_kernel_takes_every_shape(cuda):
-    """More (node, bin) cells than one block holds: several cell groups."""
-    N, F, B, n_nodes = 50_000, 3, 4096, 8
+@pytest.mark.parametrize("N,F,B,n_nodes", [
+    (50_000, 3, 4096, 8),      # a node's cells over several groups
+    (40_000, 28, 256, 2500),   # more lists than are counted in smem
+])
+def test_kernel_takes_every_shape(cuda, N, F, B, n_nodes):
+    """More (node, feature, bin) cells than one block holds: several cell
+    groups in a node; and more lists than the absmax and scatter passes
+    count in shared memory (those beyond count in device memory)."""
     bins, g, h, nid = _inputs(cuda, N, F, B, 0, n_nodes)
     a = hk.histograms(bins, g, h, nid, n_nodes, F, B)
     ref = hk.histograms_reference(bins, g, h, nid, n_nodes, F, B)
     for k in range(2):
         torch.testing.assert_close(a[k], ref[k], rtol=1e-5, atol=1e-5)
+
+
+def _level_ids(dev, N, depth, seed=1):
+    """Node ids as the depth-6 tree's level ``depth`` passes them: 0 at the
+    root, else left children 0 .. n_half-1 and the sentinel n_half on
+    about half the rows. Returns (ids, n_nodes)."""
+    if depth == 0:
+        return torch.zeros(N, dtype=torch.int32, device=dev), 1
+    n_half = 2 ** (depth - 1)
+    raw = np.random.default_rng(seed).integers(0, 2 * n_half, N)
+    ids = np.where(raw % 2 == 0, raw // 2, n_half).astype(np.int32)
+    return torch.from_numpy(ids).to(dev), n_half
+
+
+def _assert_kernel_ok(bins, g, h, nid, n_nodes, F, B):
+    """Kernel against the plain version (1e-5 relative to the plane's
+    largest cell: the two differ in the last f32 rounding of near-exact
+    sums) and bitwise against a second launch."""
+    a = hk.histograms(bins, g, h, nid, n_nodes, F, B)
+    b = hk.histograms(bins, g, h, nid, n_nodes, F, B)
+    ref = hk.histograms_reference(bins, g, h, nid, n_nodes, F, B)
+    for k in range(2):
+        assert torch.equal(a[k], b[k])
+        tol = 1e-5 * max(ref[k].abs().max().item(), 1e-30)
+        assert (a[k] - ref[k]).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("depth", range(6))
+def test_kernel_at_each_level_of_the_tree(cuda, depth):
+    """n_nodes 1, 1, 2, 4, 8, 16 with the sentinel id n_half on about half
+    the rows (levels >= 1): rows read in place at level 0, sorted into one
+    run per node at the others."""
+    N, F, B = 300_000, 28, 256
+    bins, g, h, _ = _inputs(cuda, N, F, B, 0, 1)
+    nid, n_nodes = _level_ids(cuda, N, depth)
+    _assert_kernel_ok(bins, g, h, nid, n_nodes, F, B)
+
+
+def test_kernel_all_rows_in_one_bin(cuda):
+    """Every row and feature in bin 0 of node 0: the most contended
+    cells."""
+    N, F, B = 200_000, 28, 256
+    _, g, h, nid = _inputs(cuda, N, F, B, 0, 1)
+    bins = torch.zeros((N, F), dtype=torch.int32, device=cuda)
+    _assert_kernel_ok(bins, g, h, nid, 1, F, B)
+    _assert_kernel_ok(bins, g, h, _level_ids(cuda, N, 5)[0], 16, F, B)
+
+
+@pytest.mark.parametrize("F", [1, 3, 5])
+def test_kernel_rows_not_a_multiple_of_16_bytes(cuda, F):
+    """F * 4 bytes not a multiple of 16: the rows are read element by
+    element."""
+    N, B = 100_003, 256
+    bins, g, h, _ = _inputs(cuda, N, F, B, 0, 1)
+    for depth in (0, 3):
+        nid, n_nodes = _level_ids(cuda, N, depth)
+        _assert_kernel_ok(bins, g, h, nid, n_nodes, F, B)
+
+
+def test_kernel_view_starting_at_row_1(cuda):
+    """A contiguous view whose data does not start on 16 bytes: the
+    wrapper copies it first; g, h and ids are views at offset 1 too."""
+    N, F, B = 50_001, 3, 256
+    bins, g, h, _ = _inputs(cuda, N, F, B, 0, 1)
+    nid, n_nodes = _level_ids(cuda, N, 2)
+    v = (bins[1:], g[1:], h[1:], nid[1:])
+    assert v[0].data_ptr() % 16 and v[0].is_contiguous()
+    _assert_kernel_ok(*v, n_nodes, F, B)
+
+
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+def test_kernel_rows_around_one_block(cuda, delta):
+    """N = one block's threads (THREADS) -1, 0, +1: fewer rows than the
+    grid's blocks, so most blocks' shares are empty; rows in place and
+    sorted into sixteen runs."""
+    N, F, B = hk.THREADS + delta, 28, 256
+    bins, g, h, _ = _inputs(cuda, N, F, B, 0, 1)
+    for depth in (0, 5):
+        nid, n_nodes = _level_ids(cuda, N, depth)
+        _assert_kernel_ok(bins, g, h, nid, n_nodes, F, B)
+
+
+def test_kernel_two_launches_bitwise_equal_at_full_size(cuda):
+    """11M rows at the deepest level: the scatter places records in a
+    different order each launch, the sums are the same bits."""
+    N, F, B = 11_000_000, 28, 256
+    bins, g, h, _ = _inputs(cuda, N, F, B, 0, 1)
+    nid, n_nodes = _level_ids(cuda, N, 5)
+    a = hk.histograms(bins, g, h, nid, n_nodes, F, B)
+    for _ in range(3):
+        b = hk.histograms(bins, g, h, nid, n_nodes, F, B)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def test_kernel_empty_input_and_zero_rows(cuda):
