@@ -1,13 +1,19 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port (``ytk_mp4j_tpu_torch``) on one card.
 
-Drives the port's two main paths through its hand-written CUDA kernels
+Drives the port's main paths through its hand-written CUDA kernels
 and holds each kernel against its plain PyTorch version on the card.
 
 Slice 1, GBDT: ``GBDTTrainer.train`` on N = 11,000,000 rows x 28
 features x 256 bins, depth 6 (the Higgs row count of BASELINE.json's
 GBDT configuration, and bench.py's headline leg), through the histogram
 kernel.
+
+Slice 5, data-parallel GBDT: the same trainer over ``make_mesh(4)``
+(BASELINE.json's "4 local processes" as 4 members on the card, 2.75M rows
+each) on the same data, one histogram launch a level over every member,
+the members' histograms and leaf sums folded in rank order; then
+``train_raw`` on raw f32 features and the port's entry points.
 
 Slice 2, the dense collective plane, through the ring kernels
 (``ring_kernel`` one direction, ``ring_kernel_bidir`` two; each runs on
@@ -34,9 +40,29 @@ Phases:
    name, the histogram kernel's passes against the rest, and the
    device's idle share over the tree's window; one tree through the
    kernel must equal the same tree through the plain histogram; per
-   level, kernel, plain and ``torch.bincount`` times beside the bound
-   (bytes of every node id and of the in-range rows' bins, g and h);
-4. both ring kernels against their plain versions, BITWISE (NaN as NaN):
+   level, the kernel against its plain version on the inputs the tree
+   gave it, and kernel, plain and ``torch.bincount`` times beside the
+   bound (bytes of every node id and of the in-range rows' bins, g and
+   h). The
+   profiled tree reports the members' folds and the leaf sums apart
+   (``torch.profiler`` ranges around ``gbdt._fold`` and
+   ``gbdt._segment_sum2``, CPU and CUDA activity);
+4. the data-parallel slice on the same data: 1 warm-up tree, 3 timed
+   trees between the counts (18 histogram launches: one a level), trees/s
+   and GB/s, ``predict`` == the margins, trees/s in 10 pairs of 3 trees
+   against one member (order alternating), the profiled tree's split beside
+   the one-member tree's, kernel tree == plain tree on 200,000 rows, the
+   (2, 2) mesh's tree and margins bitwise equal to the flat mesh's (the
+   same code path: run-to-run repeatability), and per level the kernel
+   against its plain version and the kernel's, plain and bincount ms at
+   4 x n_nodes nodes beside the bound;
+   ``train_raw`` over 4 members on 11M x 28 raw f32 features (the bins
+   plus uniform noise): the fit (host, 1M-row sample) and the transform
+   (card) timed apart, the card's transform of the first 1M rows bitwise
+   equal to the CPU's, ``predict_raw`` and ``save_model`` ->
+   ``load_model`` -> ``predict`` equal to the margins; ``entry.entry()``
+   and ``entry.dryrun(4)``;
+5. both ring kernels against their plain versions, BITWISE (NaN as NaN):
    both directions x three modes x {SUM, PROD, MAX, MIN} x {f32, f64,
    i64, i32, i16, i8, bf16} x n in {1 (force_kernel), 2, 3, 5, 8} on the
    cluster path and n = 9 on the global path, odd allreduce lengths
@@ -44,7 +70,7 @@ Phases:
    n = 8 (cluster path) on a multi-column chunk, each checked; the
    largest difference from the plain version (0 where bitwise) is what
    the kernels line reports;
-5. the collective slice: every launch count set to 0, the three
+6. the collective slice: every launch count set to 0, the three
    configurations above driven once, the counts read (all through the
    cluster path); each result must equal its plain version bitwise
    (configs[0] also under ``algo="ring"``); per call, the kernel's path,
@@ -54,7 +80,7 @@ Phases:
    5 calls), so the host's launch gap counts on no side; the older
    measure (CUDA events around each launch) is printed beside the
    kernel's;
-6. one JSON line of kernels, then the card's ``nvidia-smi`` line, then
+7. one JSON line of kernels, then the card's ``nvidia-smi`` line, then
    the ``{"ok": true, ...}`` line last.
 
 Any failed check raises, and the script exits non-zero without the ok
@@ -68,14 +94,17 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from ytk_mp4j_tpu_torch import (GBDTConfig, GBDTTrainer, GpuCommCluster,
-                                Operands, Operators)
+                                Operands, Operators, entry)
+from ytk_mp4j_tpu_torch.device import make_hier_mesh, make_mesh
 from ytk_mp4j_tpu_torch.models import gbdt
+from ytk_mp4j_tpu_torch.models.binning import QuantileBinner
 from ytk_mp4j_tpu_torch.operands import to_tensor
 from ytk_mp4j_tpu_torch.ops import _build
 from ytk_mp4j_tpu_torch.ops import hist_kernel as hk
@@ -84,6 +113,11 @@ from ytk_mp4j_tpu_torch.ops import ring_kernel as rk
 ROWS = 11_000_000
 F, B, DEPTH = 28, 256, 6
 TIMED_TREES = 3
+TURN_PAIRS = 10                    # one member vs 4 members, in turns
+MEMBERS = 4                        # BASELINE.json's "4 local processes"
+RAW_TREES = 2
+RAW_FIT_SAMPLE = 1_000_000         # train_raw's default bin_sample
+RAW_CHECK_ROWS = 1_000_000         # card transform == CPU transform on these
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 F32_OPS_PER_S = 67e12              # f32 outside the tensor cores
 F64_OPS_PER_S = 34e12              # f64 outside the tensor cores (data sheet)
@@ -236,27 +270,74 @@ def kernel_name(key):
     return key.replace("(anonymous namespace)::", "").split("(")[0]
 
 
-def profile_tree(trainer, dbins, dy):
+# trainer functions whose device work a profiled tree reports apart:
+# the members' folds in rank order (histograms and leaf sums) and the leaf
+# sums themselves
+TREE_PARTS = {"fold": "_fold", "leaf sums": "_segment_sum2"}
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def labelled(label, fn):
+    def run(*args, **kwargs):
+        with torch.profiler.record_function(f"mp4j::{label}"):
+            return fn(*args, **kwargs)
+    return run
+
+
+def part_of_launch(trace):
+    """{correlation id: label} for device work launched inside one of
+    the ``mp4j::`` ranges of :func:`labelled`."""
+    ranges = [(e["ts"], e["ts"] + e["dur"], e["name"][len("mp4j::"):])
+              for e in trace if e.get("ph") == "X"
+              and e.get("cat") == "user_annotation"
+              and e["name"].startswith("mp4j::")]
+    out = {}
+    for e in trace:
+        corr = e.get("args", {}).get("correlation")
+        if (e.get("ph") != "X" or e.get("cat") in DEVICE_CATS
+                or corr is None):
+            continue
+        for lo, hi, label in ranges:
+            if lo <= e["ts"] <= hi:
+                out[corr] = label
+    return out
+
+
+def profile_tree(trainer, dbins, dy, name="tree_trace.json"):
     """One more tree like the timed ones, under ``torch.profiler`` (CUDA
-    activity): device ms by kernel name, the histogram kernel's passes
-    against everything else, and the device's idle share over the tree's
-    window (first device event's start to the last one's end)."""
+    activity): device ms by kernel name, the histogram kernel's passes,
+    the members' folds and the leaf sums against everything else, and the
+    device's idle share over the tree's window (first device event's
+    start to the last one's end)."""
+    real = {attr: getattr(gbdt, attr) for attr in TREE_PARTS.values()}
+    for label, attr in TREE_PARTS.items():
+        setattr(gbdt, attr, labelled(label, real[attr]))
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        trainer.train(dbins, dy, n_trees=1)
-        torch.cuda.synchronize()
-    path = os.path.join(OUT_DIR, "tree_trace.json")
+    try:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            trainer.train(dbins, dy, n_trees=1)
+            torch.cuda.synchronize()
+    finally:
+        for attr, fn in real.items():
+            setattr(gbdt, attr, fn)
+    path = os.path.join(OUT_DIR, name)
     prof.export_chrome_trace(path)
     with open(path) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("ph") == "X" and e.get("cat") in
-                  ("kernel", "gpu_memcpy", "gpu_memset")]
+        trace = json.load(f)["traceEvents"]
+    events = [e for e in trace
+              if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
     check(events, "the profiler saw no device event in the tree")
+    launched_in = part_of_launch(trace)
+    parts = dict.fromkeys(TREE_PARTS, 0.0)
     by_name = {}
     for e in events:
         k = kernel_name(e["name"])
         by_name[k] = by_name.get(k, 0.0) + e["dur"] / 1e3
+        label = launched_in.get(e.get("args", {}).get("correlation"))
+        if label is not None and k not in HIST_KERNELS:
+            parts[label] += e["dur"] / 1e3
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
     busy, (lo, hi) = 0.0, spans[0]
     for a, b in spans[1:]:
@@ -269,19 +350,29 @@ def profile_tree(trainer, dbins, dy):
     window = (max(b for _, b in spans) - spans[0][0]) / 1e3
     hist = sum(v for k, v in by_name.items() if k in HIST_KERNELS)
     total = sum(by_name.values())
-    rec = {"window_ms": window, "busy_ms": busy,
-           "idle_share": 1 - busy / window,
+    rest = total - hist - sum(parts.values())
+    rec = {"members": trainer.n_shards, "window_ms": window,
+           "busy_ms": busy, "idle_share": 1 - busy / window,
            "device_ms": total, "hist_kernel_ms": hist,
-           "other_ms": total - hist,
+           "fold_ms": parts["fold"], "leaf_sums_ms": parts["leaf sums"],
+           "rest_ms": rest, "other_ms": total - hist,
            "by_name_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1]))}
     top = list(rec["by_name_ms"].items())[:10]
-    print("tree profile, device ms by kernel: " + ", ".join(
-        f"{k} {v:.3f}" for k, v in top), flush=True)
-    print(f"tree profile: histogram kernel {hist:.3f} ms ({hist / total:.0%})"
-          f", everything else {total - hist:.3f} ms, of {total:.3f} ms "
-          f"device time; window {window:.3f} ms, device idle share "
-          f"{rec['idle_share']:.1%}", flush=True)
+    print(f"tree profile ({trainer.n_shards} member(s)), device ms by "
+          "kernel: " + ", ".join(f"{k} {v:.3f}" for k, v in top), flush=True)
+    print(f"tree profile ({trainer.n_shards} member(s)): {split_line(rec)}",
+          flush=True)
     return rec
+
+
+def split_line(rec):
+    total = rec["device_ms"]
+    return (f"histogram kernel {rec['hist_kernel_ms']:.3f} ms "
+            f"({rec['hist_kernel_ms'] / total:.0%}), member folds "
+            f"{rec['fold_ms']:.3f} ms, leaf sums {rec['leaf_sums_ms']:.3f} "
+            f"ms, everything else {rec['rest_ms']:.3f} ms, of {total:.3f} ms "
+            f"device time; window {rec['window_ms']:.3f} ms, device idle "
+            f"share {rec['idle_share']:.1%}")
 
 
 def record_levels(trainer, dbins, dy):
@@ -303,10 +394,23 @@ def record_levels(trainer, dbins, dy):
 
 
 def phase_levels(dbins, calls):
-    """Per-level kernel / plain / bincount ms beside the bound."""
+    """Per level, the kernel against its plain version on the inputs the
+    main path gave it, and kernel / plain / bincount ms beside the bound.
+    Returns (rows, the largest abs error against the plain version)."""
     n = dbins.shape[0]
     rows = []
+    max_abs = 0.0
     for d, (g, h, ids, n_nodes) in enumerate(calls):
+        got = hk.histograms(dbins, g, h, ids, n_nodes, F, B)
+        plain = hk.histograms_reference(dbins, g, h, ids, n_nodes, F, B)
+        errs = [(a - p).abs().max().item() for a, p in zip(got, plain)]
+        for k in range(2):
+            check(errs[k] <= KERNEL_REL_TOL * plain[k].abs().max().item(),
+                  f"level {d} (n_nodes={n_nodes}) {'gh'[k]}: kernel vs "
+                  f"plain {errs[k]}")
+        err = max(errs)
+        max_abs = max(max_abs, err)
+        del got, plain
         kern = timed_ms(lambda: hk.histograms(dbins, g, h, ids, n_nodes,
                                               F, B), 10)
         plain = timed_ms(lambda: hk.histograms_reference(
@@ -316,35 +420,29 @@ def phase_levels(dbins, calls):
         n_valid = int(((ids >= 0) & (ids < n_nodes)).sum())
         bound = level_bound_ms(n, n_valid, n_nodes)
         rows.append(dict(level=d, n_nodes=n_nodes, rows_in_range=n_valid,
-                         ms=kern, plain_ms=plain, library_ms=lib,
-                         bound_ms=bound))
+                         max_abs_err=err, ms=kern, plain_ms=plain,
+                         library_ms=lib, bound_ms=bound))
         print(f"level {d} (n_nodes={n_nodes}, {n_valid} rows in range): "
-              f"kernel {kern:.3f} ms, plain {plain:.3f} ms, bincount "
-              f"{lib:.3f} ms, bound {bound:.3f} ms (bytes; "
-              f"{bound / kern:.0%} of it)", flush=True)
-    return rows
+              f"max abs err vs plain {err:.3e}; kernel {kern:.3f} ms, plain "
+              f"{plain:.3f} ms, bincount {lib:.3f} ms, bound {bound:.3f} ms "
+              f"(bytes; {bound / kern:.0%} of it)", flush=True)
+    return rows, max_abs
 
 
-def run_gbdt(dev):
-    """Slice 1: kernel checks, the timed trees, per-level times. Returns
-    the hist_kernel line and the record."""
-    n = ROWS
+def device_data(dev):
+    """bench.py's synthetic Higgs-shaped rows, on the card."""
     t0 = time.perf_counter()
-    bins, y = make_data(n, F, B)
+    bins, y = make_data(ROWS, F, B)
     dbins = torch.from_numpy(bins).to(dev)
     dy = torch.from_numpy(y).to(dev)
-    del bins
-    print(f"data {n} x {F} x {B} on the card in "
+    print(f"data {ROWS} x {F} x {B} on the card in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return dbins, dy
 
-    max_abs, one_bin_ms = phase_kernel_checks(dbins, dev)
 
-    cfg = GBDTConfig(n_features=F, n_bins=B, depth=DEPTH, loss="squared")
-    trainer = GBDTTrainer(cfg)
-    calls = record_levels(trainer, dbins, dy)        # warm-up tree
-    check(len(calls) == DEPTH, f"{len(calls)} histogram calls in a tree")
-
-    zero_counts()
+def train_timed(trainer, dbins, dy):
+    """TIMED_TREES trees; returns (trees, margins, seconds a tree from CUDA
+    events around them, host seconds)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -352,12 +450,22 @@ def run_gbdt(dev):
     trees, margins = trainer.train(dbins, dy, n_trees=TIMED_TREES)
     end.record()
     torch.cuda.synchronize()
-    host_s = time.perf_counter() - t0
+    return (trees, margins, start.elapsed_time(end) / 1e3 / TIMED_TREES,
+            time.perf_counter() - t0)
+
+
+def timed_trees(trainer, dbins, dy, what):
+    """TIMED_TREES trees with every launch count set to 0 just before and
+    read just after; trees/s and GB/s from CUDA events around them; the
+    margins must be finite, lower the loss and equal ``predict``'s.
+    Returns (trees, margins, record)."""
+    n = dbins.shape[0]
+    zero_counts()
+    trees, margins, tree_s, host_s = train_timed(trainer, dbins, dy)
     counts = read_counts()
     launches = counts["hist_kernel"]
-    tree_s = start.elapsed_time(end) / 1e3 / TIMED_TREES
     gbs = scanned_bytes(n, F, DEPTH) / tree_s / 1e9
-    print(f"slice: {TIMED_TREES} trees, {1 / tree_s:.3f} trees/s, "
+    print(f"{what}: {TIMED_TREES} trees, {1 / tree_s:.3f} trees/s, "
           f"{gbs:.3f} GB/s scanned (host clock {host_s:.3f} s), "
           f"launches {counts}", flush=True)
     check(launches == DEPTH * TIMED_TREES,
@@ -371,36 +479,209 @@ def run_gbdt(dev):
           "predict differs from the training margins")
     print(f"predict == training margins; mse {mse0:.5f} -> {mse:.5f}",
           flush=True)
-    profile = profile_tree(trainer, dbins, dy)
+    return trees, margins, {"trees_per_s": 1 / tree_s, "gb_per_s": gbs,
+                            "host_s": host_s, "launches": launches}
 
-    # one tree through the kernel against the same tree through the plain
-    # histogram, on the same card (the reference the CPU tests tie to JAX)
-    small = min(n, 200_000)
+
+def in_turns(one, many, dbins, dy):
+    """trees/s of the one-member and the many-member trainer in
+    TURN_PAIRS pairs of TIMED_TREES trees each, the order alternating
+    from pair to pair (one, many, many, one, ...) so that a stall of the
+    host or a drift of the card falls on both sides."""
+    pairs = []
+    for p in range(TURN_PAIRS):
+        order = (one, many) if p % 2 == 0 else (many, one)
+        rate = {id(t): 1 / train_timed(t, dbins, dy)[2] for t in order}
+        pairs.append((rate[id(one)], rate[id(many)]))
+    a, b = (np.array([q[k] for q in pairs]) for k in (0, 1))
+    rec = {"pairs": pairs, "one_member_median": float(np.median(a)),
+           "members_median": float(np.median(b)),
+           "one_member_quartiles": np.percentile(a, [25, 75]).tolist(),
+           "members_quartiles": np.percentile(b, [25, 75]).tolist()}
+    rec["ratio"] = rec["members_median"] / rec["one_member_median"]
+    print(f"in turns, {TURN_PAIRS} pairs of {TIMED_TREES} trees: 1 member "
+          f"median {rec['one_member_median']:.3f} trees/s (quartiles "
+          f"{rec['one_member_quartiles'][0]:.3f}-"
+          f"{rec['one_member_quartiles'][1]:.3f}), {many.n_shards} members "
+          f"median {rec['members_median']:.3f} trees/s (quartiles "
+          f"{rec['members_quartiles'][0]:.3f}-"
+          f"{rec['members_quartiles'][1]:.3f}), ratio {rec['ratio']:.3f}",
+          flush=True)
+    return rec
+
+
+def kernel_tree_equals_plain(dbins, dy, mesh=None):
+    """One tree through the kernel against the same tree through the
+    plain histogram on the same card (the reference the CPU tests tie to
+    JAX), on the first 200,000 rows."""
+    small = min(dbins.shape[0], 200_000)
     kw = dict(n_features=F, n_bins=B, depth=DEPTH, n_trees=1)
-    tk, mk = GBDTTrainer(GBDTConfig(**kw)).train(dbins[:small], dy[:small])
-    tp, mp = GBDTTrainer(GBDTConfig(hist_mode="flat", **kw)).train(
-        dbins[:small], dy[:small])
+    tk, mk = GBDTTrainer(GBDTConfig(**kw), mesh=mesh).train(dbins[:small],
+                                                            dy[:small])
+    tp, mp = GBDTTrainer(GBDTConfig(hist_mode="flat", **kw),
+                         mesh=mesh).train(dbins[:small], dy[:small])
     for k in range(3):
         check(torch.equal(tk[0][k], tp[0][k]), "kernel tree != plain tree")
     torch.testing.assert_close(tk[0][3], tp[0][3], rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(mk, mp, rtol=1e-5, atol=1e-6)
-    print(f"kernel tree == plain tree on {small} rows", flush=True)
+    members = 1 if mesh is None else mesh.n
+    print(f"kernel tree == plain tree on {small} rows, {members} member(s)",
+          flush=True)
 
-    rows = phase_levels(dbins, calls)
+
+def run_gbdt(dev, dbins, dy):
+    """Slice 1: kernel checks, the timed trees, per-level times. Returns
+    the hist_kernel line and the record."""
+    max_abs, one_bin_ms = phase_kernel_checks(dbins, dev)
+
+    cfg = GBDTConfig(n_features=F, n_bins=B, depth=DEPTH, loss="squared")
+    trainer = GBDTTrainer(cfg)
+    calls = record_levels(trainer, dbins, dy)        # warm-up tree
+    check(len(calls) == DEPTH, f"{len(calls)} histogram calls in a tree")
+    _, _, rec = timed_trees(trainer, dbins, dy, "slice")
+    profile = profile_tree(trainer, dbins, dy)
+    kernel_tree_equals_plain(dbins, dy)
+
+    rows, level_err = phase_levels(dbins, calls)
     mean = {k: sum(r[k] for r in rows) / len(rows)
             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    entry = {
+    line = {
         "name": "hist_kernel", "route": "cuda",
         "source": "ytk_mp4j_tpu_torch/ops/csrc/hist_kernel.cu",
         "replaces": "ytk_mp4j_tpu/ops/hist_kernel.py:106",
-        "launches": launches, "max_abs_err": max_abs,
+        "launches": rec["launches"], "max_abs_err": max(max_abs, level_err),
         "ms": mean["ms"], "plain_ms": mean["plain_ms"],
         "bound_ms": mean["bound_ms"], "bound_by": "bytes",
         "library_ms": mean["library_ms"],
     }
-    return entry, {"rows": n, "trees_per_s": 1 / tree_s, "gb_per_s": gbs,
-                   "levels": rows, "tree_profile": profile,
-                   "one_bin_ms": one_bin_ms}
+    return line, dict(rec, rows=dbins.shape[0], levels=rows,
+                       tree_profile=profile, one_bin_ms=one_bin_ms)
+
+
+# ----------------------------------------------------------------------
+# slice 5: data-parallel GBDT over members on the card
+# ----------------------------------------------------------------------
+def run_data_parallel(dbins, dy, one_member):
+    """GBDT over MEMBERS members on the slice-1 data: the timed trees
+    between the counts, trees/s in turns with one member, the profiled
+    split beside the one-member tree's,
+    kernel tree == plain tree, the (2, 2) mesh == the flat one, and each
+    level's kernel against its plain version, with kernel, plain and
+    bincount ms at MEMBERS * n_nodes nodes beside its bound."""
+    mesh = make_mesh(MEMBERS)
+    cfg = GBDTConfig(n_features=F, n_bins=B, depth=DEPTH, loss="squared")
+    trainer = GBDTTrainer(cfg, mesh=mesh)
+    calls = record_levels(trainer, dbins, dy)        # warm-up tree
+    want_nodes = [MEMBERS * max(1, 2 ** (d - 1)) for d in range(DEPTH)]
+    check([c[3] for c in calls] == want_nodes,
+          f"histogram calls at {[c[3] for c in calls]} nodes, want "
+          f"{want_nodes}: one call a level over every member")
+    _, _, rec = timed_trees(trainer, dbins, dy,
+                            f"data-parallel slice ({MEMBERS} members)")
+    rec["turns"] = in_turns(GBDTTrainer(cfg), trainer, dbins, dy)
+    profile = profile_tree(trainer, dbins, dy, "tree_trace_members.json")
+    check(profile["fold_ms"] > 0 and profile["leaf_sums_ms"] > 0,
+          "the profile attributed no device time to the folds or leaf sums")
+    print(f"tree split, 1 member: {split_line(one_member['tree_profile'])}",
+          flush=True)
+    print(f"tree split, {MEMBERS} members: {split_line(profile)}",
+          flush=True)
+    kernel_tree_equals_plain(dbins, dy, mesh)
+
+    # the trainer reads only a mesh's member count, so the (2, 2) mesh
+    # runs the flat mesh's code in the same rank order: this shows that a
+    # tree repeats run to run (the kernel's sums repeat bitwise; the leaf
+    # sums' atomic adds land in another order, in float64, each run)
+    th, mh = GBDTTrainer(cfg, mesh=make_hier_mesh(2, MEMBERS // 2)).train(
+        dbins, dy, n_trees=1)
+    tf, mf = GBDTTrainer(cfg, mesh=mesh).train(dbins, dy, n_trees=1)
+    for k in range(3):
+        check(torch.equal(th[0][k], tf[0][k]), "hierarchical tree != flat")
+    check(torch.equal(mh, mf), "hierarchical margins != flat margins")
+    print(f"(2, {MEMBERS // 2}) mesh == flat {MEMBERS}-member mesh, margins "
+          "bitwise (run-to-run repeatability: the same code path)",
+          flush=True)
+
+    rows, level_err = phase_levels(dbins, calls)
+    return dict(rec, members=MEMBERS, levels=rows, max_abs_err=level_err,
+                tree_profile=profile)
+
+
+def run_train_raw(dev, dbins, dy):
+    """``train_raw`` over MEMBERS members on raw f32 features (the bins
+    plus uniform noise in [0, 1), so binning recovers the bins up to the
+    sampled edges): the fit (host) and the transform (card) timed apart,
+    the card's transform of the first RAW_CHECK_ROWS rows bitwise equal to
+    the CPU's, ``predict_raw`` and a ``save_model`` / ``load_model`` round
+    trip equal to the training margins."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    X = dbins.float() + torch.rand(dbins.shape, generator=gen, device=dev)
+    cfg = GBDTConfig(n_features=F, n_bins=B, depth=DEPTH, loss="squared")
+    trainer = GBDTTrainer(cfg, mesh=make_mesh(MEMBERS))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trees, margins = trainer.train_raw(X, dy, n_trees=RAW_TREES,
+                                       bin_sample=RAW_FIT_SAMPLE)
+    torch.cuda.synchronize()
+    train_raw_s = time.perf_counter() - t0
+    binner = trainer.binner_
+
+    t0 = time.perf_counter()
+    refit = QuantileBinner(B).fit(X, sample=RAW_FIT_SAMPLE)
+    fit_s = time.perf_counter() - t0
+    check(np.array_equal(refit.edges, binner.edges), "fit is not repeatable")
+    transform_ms = timed_ms(lambda: binner.transform(X), 2)
+    bins = binner.transform(X)
+    t0 = time.perf_counter()
+    cpu = binner.transform(X[:RAW_CHECK_ROWS].cpu(), device="cpu")
+    cpu_s = time.perf_counter() - t0
+    check(torch.equal(bins[:RAW_CHECK_ROWS].cpu(), cpu),
+          "the card's transform != the CPU's")
+    recovered = float((bins == dbins).double().mean())
+    del bins, cpu
+    print(f"train_raw over {MEMBERS} members, {ROWS} x {F} raw f32, "
+          f"{RAW_TREES} trees: {train_raw_s:.3f} s (host clock); fit on a "
+          f"{RAW_FIT_SAMPLE}-row sample {fit_s:.3f} s (host), transform "
+          f"{transform_ms:.3f} ms (card), CPU transform of {RAW_CHECK_ROWS} "
+          f"rows {cpu_s:.3f} s and bitwise equal; {recovered:.2%} of the "
+          "bins recovered", flush=True)
+
+    check(margins.shape == (ROWS,) and bool(torch.isfinite(margins).all()),
+          "train_raw margins not finite [N]")
+    mse0 = float(dy.double().pow(2).mean())
+    mse = float((margins - dy).double().pow(2).mean())
+    check(mse < mse0, f"train_raw did not reduce the loss ({mse} vs {mse0})")
+    check(torch.equal(trainer.predict_raw(X, trees), margins),
+          "predict_raw differs from the training margins")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.npz")
+        trainer.save_model(path, trees)
+        cfg2, trees2, binner2 = GBDTTrainer.load_model(path)
+    check(cfg2 == cfg and np.array_equal(binner2.edges, binner.edges),
+          "load_model changed the config or the edges")
+    served = GBDTTrainer(cfg2).predict(binner2.transform(X), trees2)
+    check(torch.equal(served, margins),
+          "save_model -> load_model -> predict differs from the margins")
+    print(f"predict_raw == training margins == load_model's predict; mse "
+          f"{mse0:.5f} -> {mse:.5f}", flush=True)
+    return {"train_raw_s": train_raw_s, "fit_s": fit_s,
+            "transform_ms": transform_ms, "cpu_transform_s": cpu_s,
+            "recovered": recovered}
+
+
+def run_entry():
+    """The port's entry points on the card."""
+    t0 = time.perf_counter()
+    fn, args = entry.entry()
+    out = fn(*args)
+    check(out.shape == (2048,) and bool(torch.isfinite(out).all()),
+          "entry() margins")
+    entry.dryrun(MEMBERS)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    print(f"entry.entry() and entry.dryrun({MEMBERS}) ran on the card in "
+          f"{took:.3f} s", flush=True)
+    return {"s": took}
 
 
 # ----------------------------------------------------------------------
@@ -770,14 +1051,24 @@ def main():
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind}; nvidia-smi: {smi}", flush=True)
 
-    hist_entry, gbdt_record = run_gbdt(dev)
+    dbins, dy = device_data(dev)
+    hist_entry, gbdt_record = run_gbdt(dev, dbins, dy)
+    dp_record = run_data_parallel(dbins, dy, gbdt_record)
+    hist_entry["data_parallel_launches"] = dp_record["launches"]
+    hist_entry["max_abs_err"] = max(hist_entry["max_abs_err"],
+                                    dp_record["max_abs_err"])
+    raw_record = run_train_raw(dev, dbins, dy)
+    del dbins, dy
     torch.cuda.empty_cache()
+    entry_record = run_entry()
     ring_entries, ring_record = run_ring(dev)
     kernels = [hist_entry] + ring_entries
 
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": kind, "nvidia_smi": smi, "gbdt": gbdt_record,
-                   "ring": ring_record, "kernels": kernels}, f, indent=1)
+                   "data_parallel": dp_record, "train_raw": raw_record,
+                   "entry": entry_record, "ring": ring_record,
+                   "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -347,7 +347,7 @@ def test_generator_masks_statistics():
     rescued feature is uniform."""
     N, F = 200_000, 10
     cfg = GBDTConfig(n_features=F, subsample=0.3, colsample=0.5)
-    gen = torch.Generator().manual_seed(0)
+    gen = [torch.Generator().manual_seed(0)]
     scale, fmask = T._sampling_masks(gen, cfg, N, "cpu")
     kept = (scale > 0).double().mean().item()
     assert abs(kept - 0.3) < 5 * np.sqrt(0.3 * 0.7 / N)
@@ -369,8 +369,10 @@ def test_generator_masks_statistics():
     sd = np.sqrt(draws * (1 / F) * (1 - 1 / F))
     assert ((rescued - draws / F).abs() < 5 * sd).all()
 
-    a = T._sampling_masks(torch.Generator().manual_seed(7), cfg, 100, "cpu")
-    b = T._sampling_masks(torch.Generator().manual_seed(7), cfg, 100, "cpu")
+    a = T._sampling_masks([torch.Generator().manual_seed(7)], cfg, 100,
+                          "cpu")
+    b = T._sampling_masks([torch.Generator().manual_seed(7)], cfg, 100,
+                          "cpu")
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert T._sampling_masks(None, cfg, 100, "cpu") == (None, None)
 

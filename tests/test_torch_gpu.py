@@ -3,8 +3,9 @@ ring kernels on both their paths (thread-block clusters for n <= 8
 members, device-memory slots above), against their plain versions, run
 to run, at the edges of their contracts (for the rings: co-residency
 refused, a stuck ring raising at the spin bound, unaligned inputs), and
-through the trainer and the collective driver. Every test skips where
-there is no CUDA device.
+through the trainer (one member and a mesh of members, ``train_raw`` and
+the binner's transform) and the collective driver. Every test skips
+where there is no CUDA device.
 
 This file imports neither jax nor the JAX package and uses no fixture of
 tests/conftest.py, so it also runs where JAX is not installed:
@@ -19,8 +20,10 @@ import pytest
 import torch
 
 from ytk_mp4j_tpu_torch import (GBDTConfig, GBDTTrainer, GpuCommCluster,
-                                Operands, Operators)
+                                Operands, Operators, entry)
+from ytk_mp4j_tpu_torch.device import make_hier_mesh, make_mesh
 from ytk_mp4j_tpu_torch.exceptions import Mp4jError
+from ytk_mp4j_tpu_torch.models.binning import QuantileBinner
 from ytk_mp4j_tpu_torch.ops import hist_kernel as hk
 from ytk_mp4j_tpu_torch.ops import ring_kernel as rk
 
@@ -209,6 +212,88 @@ def test_trainer_through_kernel_matches_plain_histograms(cuda):
         assert torch.equal(tk[0][k], tp[0][k])
     torch.testing.assert_close(tk[0][3], tp[0][3], rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(mk, mp, rtol=1e-5, atol=1e-6)
+
+
+# ---- data-parallel GBDT over members on the card ------------------------
+def _gbdt_data(N, F=28, B=256, seed=0):
+    rng = np.random.default_rng(seed)
+    bins = rng.integers(0, B, (N, F)).astype(np.int32)
+    y = (bins[:, 0] / B + 0.1 * rng.standard_normal(N)).astype(np.float32)
+    return torch.from_numpy(bins), torch.from_numpy(y)
+
+
+@pytest.mark.parametrize("members", [2, 4, 8])
+def test_data_parallel_trainer_through_kernel(cuda, members):
+    """One kernel launch a level covers every member (ids member-offset),
+    N = 50,001 pads; the tree equals the same members' tree through the
+    plain histogram."""
+    bins, y = _gbdt_data(50_001)
+    kw = dict(n_features=28, n_bins=256, depth=6, n_trees=1)
+    mesh = make_mesh(members)
+    before = hk.histograms.launches
+    tk, mk = GBDTTrainer(GBDTConfig(**kw), mesh=mesh).train(bins, y)
+    assert hk.histograms.launches == before + 6
+    assert mk.shape == (-(-50_001 // members) * members,)
+    tp, mp = GBDTTrainer(GBDTConfig(hist_mode="flat", **kw),
+                         mesh=mesh).train(bins, y)
+    for k in range(3):
+        assert torch.equal(tk[0][k], tp[0][k])
+    torch.testing.assert_close(tk[0][3], tp[0][3], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(mk, mp, rtol=1e-5, atol=1e-6)
+
+
+def test_hierarchical_mesh_equals_flat_on_the_card(cuda):
+    """The trainer reads only a mesh's member count, so this is a check
+    of run-to-run repeatability on the card: the same fold order, the
+    kernel's repeatable sums, the same per-member streams, and leaf sums whose
+    atomic adds land in float64, give the (2, 2) mesh's trees and margins
+    bitwise equal to the flat mesh's, with stochastic boosting on."""
+    bins, y = _gbdt_data(100_000)
+    cfg = GBDTConfig(n_features=28, n_bins=256, depth=6, n_trees=2,
+                     subsample=0.8, colsample=0.8)
+    th, mh = GBDTTrainer(cfg, mesh=make_hier_mesh(2, 2)).train(bins, y)
+    tf, mf = GBDTTrainer(cfg, mesh=make_mesh(4)).train(bins, y)
+    assert torch.equal(mh, mf)
+    for a, b in zip(th, tf):
+        assert all(torch.equal(a[k], b[k]) for k in range(4))
+
+
+@pytest.mark.parametrize("missing_bucket", [False, True])
+def test_binner_transform_on_the_card_equals_the_cpu(cuda, missing_bucket):
+    rng = np.random.default_rng(3)
+    X = rng.standard_normal((200_000, 28)).astype(np.float32)
+    X[rng.random(X.shape) < 0.05] = np.nan
+    X[::97, 3] = np.inf
+    X[::89, 4] = -np.inf
+    b = QuantileBinner(256, missing_bucket=missing_bucket).fit(X)
+    card = b.transform(torch.from_numpy(X).to(cuda))
+    assert card.device == cuda and card.dtype == torch.int32
+    assert torch.equal(card.cpu(), b.transform(X, device="cpu"))
+
+
+def test_train_raw_save_load_on_the_card(cuda, tmp_path):
+    rng = np.random.default_rng(4)
+    X = torch.from_numpy(rng.standard_normal((60_000, 28)).astype(
+        np.float32)).to(cuda)
+    y = (X[:, 0] > 0).float()
+    cfg = GBDTConfig(n_features=28, n_bins=256, depth=4, loss="logistic")
+    tr = GBDTTrainer(cfg, mesh=make_mesh(4))
+    trees, margins = tr.train_raw(X, y, n_trees=2, bin_sample=20_000)
+    assert margins.device == cuda
+    assert torch.equal(tr.predict_raw(X, trees), margins)
+    path = str(tmp_path / "m.npz")
+    tr.save_model(path, trees)
+    cfg2, trees2, binner2 = GBDTTrainer.load_model(path)
+    assert trees2[0][0].device == cuda
+    assert torch.equal(GBDTTrainer(cfg2).predict(binner2.transform(X),
+                                                 trees2), margins)
+
+
+def test_entry_points_on_the_card(cuda):
+    fn, args = entry.entry()
+    assert all(a.device == cuda for a in args)
+    assert torch.isfinite(fn(*args)).all()
+    entry.dryrun(4)
 
 
 # ---- the ring kernels (ops/csrc/ring_cluster.cu, ops/csrc/ring_kernel.cu) --

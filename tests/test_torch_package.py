@@ -57,6 +57,12 @@ def test_imports_and_trains_with_jax_blocked():
             arrs = [np.full(5, r, np.float64) for r in range(3)]
             cl.allreduce_array(arrs, p.Operands.DOUBLE, algo=algo)
             assert all((a == 3.0).all() for a in arrs), algo
+        from ytk_mp4j_tpu_torch import entry
+        from ytk_mp4j_tpu_torch.models import binning
+        X = rng.standard_normal((256, 3)).astype(np.float32)
+        assert binning.QuantileBinner(8).fit(X).transform(
+            X, device="cpu").shape == (256, 3)
+        entry.dryrun(4, device="cpu")
         import importlib, pkgutil
         for mod in pkgutil.walk_packages(p.__path__, "ytk_mp4j_tpu_torch."):
             importlib.import_module(mod.name)
@@ -77,7 +83,7 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert len(files) >= 15
     for name in ("operators.py", "operands.py", "meta.py",
                  "comm/gpu_comm.py", "ops/ring.py", "ops/collectives.py",
-                 "ops/ring_kernel.py"):
+                 "ops/ring_kernel.py", "models/binning.py", "entry.py"):
         assert PKG / name in files, name
     for path in files:
         assert not pat.search(path.read_text()), path

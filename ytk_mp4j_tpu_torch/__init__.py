@@ -7,9 +7,14 @@ Slice 2: the dense device collective plane, ``GpuCommCluster`` with n
 members on one card and the algos ``xla``, ``ring`` and ``rdma`` -- the
 last the hand-written CUDA ring kernels (``ops/csrc/ring_cluster.cu``,
 one thread-block cluster per ring, for n <= 8 members;
-``ops/csrc/ring_kernel.cu`` above). It
-imports torch and numpy, never jax and nothing of ``ytk_mp4j_tpu``.
-Entry points run on ``cuda:0`` unless the caller passes ``device="cpu"``.
+``ops/csrc/ring_kernel.cu`` above). Slice 5:
+the GBDT trainer over a mesh of members (``device.make_mesh`` /
+``make_hier_mesh``) with zero-weight row padding and rank-order folds of
+the histograms and leaf sums, quantile binning (``models/binning.py``),
+``train_raw`` / ``predict_raw``, model files either package loads, and
+the entry points (``entry.py``). It imports torch and numpy, never jax
+and nothing of ``ytk_mp4j_tpu``. Entry points run on ``cuda:0`` unless
+the caller passes ``device="cpu"``.
 """
 
 from ytk_mp4j_tpu_torch import meta

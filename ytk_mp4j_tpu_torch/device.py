@@ -1,13 +1,17 @@
-"""Where the port runs: the counterpart of ``parallel/mesh.py:29``
-``make_mesh``, on one device.
+"""Where the port runs: the counterpart of ``parallel/mesh.py``
+(``make_mesh:29``, ``make_hier_mesh:46``), on one device.
 
 Every entry point resolves its ``device`` argument here. With none it
 takes ``cuda:0``; where CUDA is absent that is an error, never a quiet
 move to the CPU. The CPU runs only when the caller names it (the tests
 do). :func:`make_mesh` places n collective members on that one device;
 rank r is row r of the members' ``[n, ...]`` tensors, the reference's
-``flat_index`` on a flat axis. The device list for multi-GPU training
-and the hierarchical mesh come with later slices.
+``flat_index`` on a flat axis. :func:`make_hier_mesh` gives the same
+members an ``(inter, intra)`` shape; ranks stay row-major with inter
+outermost, so member ``(i, j)`` is rank ``i * intra + j`` and a
+reduction over every member folds them in that flat order, as the
+reference's ``psum`` over the ``(inter, intra)`` axes tuple. The device
+list for members on several cards comes with a later slice.
 """
 
 from __future__ import annotations
@@ -42,14 +46,29 @@ def make_device(device=None) -> torch.device:
 
 
 class Mesh(NamedTuple):
-    """n members on one device."""
+    """n members on one device, in a flat ``(n,)`` or ``(inter, intra)``
+    shape."""
 
     n: int
     device: torch.device
+    shape: tuple
+
+
+def _check_count(n, what: str, unit: str = "") -> None:
+    if isinstance(n, bool) or not isinstance(n, int) or n < 1:
+        raise Mp4jError(f"a mesh needs {what} >= 1{unit}, got {n!r}")
 
 
 def make_mesh(n: int, device=None) -> Mesh:
     """n >= 1 members on :func:`make_device` ``(device)``."""
-    if not isinstance(n, int) or n < 1:
-        raise Mp4jError(f"a mesh needs n >= 1 members, got {n!r}")
-    return Mesh(n, make_device(device))
+    _check_count(n, "n", " members")
+    return Mesh(n, make_device(device), (n,))
+
+
+def make_hier_mesh(inter: int, intra: int, device=None) -> Mesh:
+    """``inter * intra`` members on :func:`make_device` ``(device)`` in
+    the reference's process x thread nesting; member ``(i, j)`` is rank
+    ``i * intra + j``."""
+    _check_count(inter, "inter")
+    _check_count(intra, "intra")
+    return Mesh(inter * intra, make_device(device), (inter, intra))

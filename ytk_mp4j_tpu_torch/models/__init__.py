@@ -1,1 +1,1 @@
-"""Model families of the port (GBDT so far)."""
+"""Model families of the port (GBDT and its quantile binning so far)."""

@@ -1,9 +1,16 @@
 """Trainer plumbing shared by the model families (the part of
-``ytk_mp4j_tpu/models/_base.py`` the one-device GBDT slice needs).
+``ytk_mp4j_tpu/models/_base.py`` the GBDT slices need): a trainer over
+a mesh of members (``device.make_mesh`` / ``make_hier_mesh``), rows
+padded to a multiple of the member count with zero-weight padding, and
+``.npz`` model persistence in the reference's format.
+
+Member m's shard is rows ``[m * per, (m + 1) * per)`` of one contiguous
+tensor on the mesh's device (the reference's ``_put_sharded:327``).
 
 Not here yet: ``StepStatsExchanger`` and the ``comm=`` argument that
-feeds it (they need the host comm plane), row padding to shard
-multiples (it has no role on one device), and model persistence.
+feeds it (they need the host map plane, ROADMAP queue 1 items 7 and 12).
+``save_npz`` writes unconditionally: the port is one process, so the
+reference's ``jax.process_index()`` gate has no counterpart.
 """
 
 from __future__ import annotations
@@ -11,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ytk_mp4j_tpu_torch.device import make_device
+from ytk_mp4j_tpu_torch.device import make_mesh
 from ytk_mp4j_tpu_torch.exceptions import Mp4jError
 
 
@@ -75,11 +82,63 @@ class EarlyStopper:
                 and round_idx - self.best_round >= self.rounds)
 
 
-class DataParallelTrainer:
-    """Device bookkeeping shared by the trainers (one device so far)."""
+def save_npz(path: str, cfg, arrays: dict) -> None:
+    """Model-persistence writer: the config dataclass (repr of asdict,
+    decoded by literal_eval) plus named arrays. Writes through a file
+    object so the exact user path is honored (np.savez(path) silently
+    appends ".npz")."""
+    from dataclasses import asdict
 
-    def __init__(self, device=None):
-        self.device = make_device(device)
+    with open(path, "wb") as f:
+        np.savez(f, config=np.array(repr(asdict(cfg))), **arrays)
+
+
+def load_npz(path: str, config_cls):
+    """Counterpart of :func:`save_npz`: returns (config instance,
+    {name: array}) with pickle disabled."""
+    import ast
+
+    with np.load(path, allow_pickle=False) as z:
+        cfg = config_cls(**ast.literal_eval(str(z["config"])))
+        arrays = {k: z[k] for k in z.files if k != "config"}
+    return cfg, arrays
+
+
+class DataParallelTrainer:
+    """Mesh bookkeeping + row sharding shared by the trainers.
+
+    ``mesh`` (from ``device.make_mesh`` / ``make_hier_mesh``) gives the
+    members and their device; without one, ``n_devices`` members (default
+    1) go on ``device`` (default ``cuda:0``). The reference's default is
+    every device, which on the port's one card is one member."""
+
+    def __init__(self, mesh=None, n_devices=None, device=None):
+        if mesh is None:
+            mesh = make_mesh(1 if n_devices is None else n_devices, device)
+        elif n_devices is not None or device is not None:
+            raise Mp4jError("give a mesh, or n_devices and device, not both")
+        self.mesh = mesh
+        self.device = mesh.device
+
+    @property
+    def n_shards(self) -> int:
+        return self.mesh.n
+
+    def _pad_rows(self, arrays):
+        """Pad dim 0 of each tensor to a multiple of ``n_shards`` with
+        zeros, on its device; returns (padded tensors, rows per member,
+        [n * per] f32 sample weights: 1 on the real rows, 0 on the
+        padding)."""
+        N = arrays[0].shape[0]
+        n = self.n_shards
+        per = -(-N // n)
+        pad = per * n - N
+        sw = torch.ones(per * n, dtype=torch.float32, device=self.device)
+        if pad:
+            arrays = [torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
+                      for a in arrays]
+            sw[N:] = 0.0
+        return arrays, per, sw
 
     @staticmethod
     def _stage_weights(sample_weight, N: int):

@@ -1,19 +1,39 @@
-"""GBDT on one device: the histogram boosting round of
-``ytk_mp4j_tpu/models/gbdt.py`` in PyTorch.
+"""Data-parallel GBDT: the histogram boosting round of
+``ytk_mp4j_tpu/models/gbdt.py`` in PyTorch, over a mesh of members.
 
 ytk-mp4j's flagship consumer is ytk-learn's distributed GBDT. Each tree
-level does four things: build (node x feature x bin) gradient/hessian
-histograms (:func:`build_histograms`, which reaches the hand-written CUDA
-kernel behind ``ops.hist_kernel.histograms``), allreduce them across the
-data-parallel workers, choose the best split per node
-(:func:`best_splits`) and route every sample to its child node
-(:func:`_route_samples`). On one device the allreduce is the identity;
-it comes back with the multi-GPU slice.
+level does four things: every member builds (node x feature x bin)
+gradient/hessian histograms over its own rows (:func:`build_histograms`,
+which reaches the hand-written CUDA kernel behind
+``ops.hist_kernel.histograms``), the members' histograms are allreduced,
+the best split per node is chosen on the sums (:func:`best_splits`) and
+every row is routed to its child node (:func:`_route_samples`). After
+the last level the leaf sums are allreduced the same way.
+
+The members (``device.make_mesh`` / ``make_hier_mesh``) share one
+device: member m holds rows ``[m * per, (m + 1) * per)`` of one tensor.
+One histogram call a level covers every member, member m's node k as id
+``m * n_nodes + k``, and the members' histograms are folded in rank order
+(:func:`_fold`, ``ops.collectives.reduce_all``, the counterpart of the
+reference's ``lax.psum``). Splits are chosen once on the folded sums, so
+every member holds the same tree, and routing runs once over all rows.
 
 Functions take tensors on an explicit device; :class:`GBDTTrainer` runs
-on ``cuda:0`` unless given ``device="cpu"``. Trees are tuples of tensors
-``(feat, bin, dir, leaf)`` in level-order heap layout, as in the
-reference, and a C-tuple of them per round for softmax.
+on ``cuda:0`` unless given a mesh or ``device="cpu"``. Trees are tuples
+of tensors ``(feat, bin, dir, leaf)`` in level-order heap layout, as in
+the reference, and a C-tuple of them per round for softmax.
+
+Intended divergences from the reference:
+
+- ``train`` returns the margins of the padded ``[n * per]`` rows (the
+  reference's layout) as a tensor on the device, and ``predict`` returns
+  a tensor, where the reference returns numpy;
+- stochastic boosting draws from ``torch.Generator`` streams, one per
+  member, seeded from (seed, member), so subsampled trees differ from
+  the reference's ``jax.random`` trees;
+- leaf sums accumulate in float64 and round once to float32;
+- no ``comm=`` argument (it needs ``StepStatsExchanger`` and the host
+  map plane) and no ``GBDTServable`` (the serve plane) yet.
 """
 
 from __future__ import annotations
@@ -23,11 +43,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ytk_mp4j_tpu_torch.device import make_device
 from ytk_mp4j_tpu_torch.exceptions import Mp4jError
 from ytk_mp4j_tpu_torch.models._base import (DataParallelTrainer,
-                                             EarlyStopper, per_example_loss,
+                                             EarlyStopper, load_npz,
+                                             per_example_loss, save_npz,
                                              stage_softmax_labels)
-from ytk_mp4j_tpu_torch.device import make_device
+from ytk_mp4j_tpu_torch.models.binning import QuantileBinner
+from ytk_mp4j_tpu_torch.ops import collectives as coll
 from ytk_mp4j_tpu_torch.ops import hist_kernel
 
 
@@ -247,23 +270,56 @@ def best_splits(hist_g, hist_h, reg_lambda: float, feat_mask=None,
 
 
 def _segment_sum2(val_a, val_b, seg_ids, n_segments: int):
-    """Per-segment f32 sums of two value vectors (the leaf G/H)."""
+    """Per-segment float64 sums of two f32 value vectors (the leaf G/H).
+    On the card the atomic adds land in a different order each run; in
+    float64 that order moves a sum by ~1e-16 relative, so two runs round
+    to the same f32 leaf sums unless one lies that close to an f32
+    rounding boundary."""
     idx = seg_ids.long()
-    zeros = torch.zeros(n_segments, dtype=torch.float32,
+    zeros = torch.zeros(n_segments, dtype=torch.float64,
                         device=val_a.device)
-    return (zeros.index_add(0, idx, val_a), zeros.index_add(0, idx, val_b))
+    return (zeros.index_add(0, idx, val_a.double()),
+            zeros.index_add(0, idx, val_b.double()))
+
+
+def _fold(x, n_members: int):
+    """The members' partial sums ``[n_members * k, ...]`` (member m's at
+    rows ``[m * k, (m + 1) * k)``) -> their ``[k, ...]`` sum, folded in
+    rank order: the histogram and leaf-sum allreduce, the reference's
+    ``lax.psum``. Every member holds the result."""
+    return coll.reduce_all(x.reshape((n_members, -1) + tuple(x.shape[1:])))
 
 
 # ----------------------------------------------------------------------
 # one boosting round (tree build)
 # ----------------------------------------------------------------------
-def _build_tree(bins, g, h, cfg: GBDTConfig, feat_mask=None):
-    """Grow one tree from per-sample gradients/hessians. Returns (delta
-    [N] -- the learning-rate-scaled leaf value each sample receives --
-    and the tree)."""
+def _build_tree(bins, g, h, cfg: GBDTConfig, feat_mask=None,
+                n_members: int = 1):
+    """Grow one tree from per-sample gradients/hessians over ``n_members``
+    members, member m holding rows ``[m * per, (m + 1) * per)`` (N =
+    n_members * per). Each level makes one histogram call for every
+    member, member m's node k as id ``m * n_nodes + k``, and folds the
+    members in rank order (:func:`_fold`); the leaf sums likewise.
+    Returns (delta [N] -- the learning-rate-scaled leaf value each sample
+    receives -- and the tree)."""
     N = bins.shape[0]
     dev = bins.device
     F, B = cfg.n_features, cfg.n_bins
+    n = n_members
+    if N % n:
+        raise Mp4jError(f"{N} rows do not split into {n} equal shards")
+    # member of every row; None for one member, whose ids need no offset
+    member = (torch.arange(N, dtype=torch.int32, device=dev) // (N // n)
+              if n > 1 else None)
+
+    def member_ids(local, k):
+        """Member-local node ids in [0, k) -> ids in [0, n * k)."""
+        return local if member is None else local + member * k
+
+    def reduced_histograms(ids, k):
+        hg_, hh_ = build_histograms(bins, g, h, ids, n * k, cfg)
+        return _fold(hg_, n), _fold(hh_, n)
+
     node_ids = torch.zeros(N, dtype=torch.int32, device=dev)
     n_internal = 2 ** cfg.depth - 1
     tree_feat = torch.zeros(n_internal, dtype=torch.int32, device=dev)
@@ -276,18 +332,21 @@ def _build_tree(bins, g, h, cfg: GBDTConfig, feat_mask=None):
     for d in range(cfg.depth):
         n_nodes = 2 ** d
         if d == 0:
-            hg, hh = build_histograms(bins, g, h, node_ids, n_nodes, cfg)
+            hg, hh = reduced_histograms(member_ids(node_ids, 1), 1)
         else:
             # sibling subtraction, hist(parent) = hist(left) +
             # hist(right): build only the LEFT children -- samples in
-            # right nodes map to the out-of-range sentinel id n_half and
+            # right nodes map to an out-of-range sentinel id and
             # contribute nothing -- and derive the right siblings from the
             # previous level. A derived right child inherits error relative
             # to its parent's magnitude; the hessian clamp keeps that
-            # noise from producing negative hessian sums.
+            # noise from producing negative hessian sums. The sentinel is
+            # n * n_half: any smaller id is some member's left child.
             n_half = n_nodes // 2
-            left_ids = torch.where(node_ids % 2 == 0, node_ids // 2, n_half)
-            hl_g, hl_h = build_histograms(bins, g, h, left_ids, n_half, cfg)
+            left_ids = torch.where(node_ids % 2 == 0,
+                                   member_ids(node_ids // 2, n_half),
+                                   n * n_half)
+            hl_g, hl_h = reduced_histograms(left_ids, n_half)
             hg = torch.stack([hl_g, prev_hg - hl_g],
                              dim=1).reshape(n_nodes, F, B)
             hh = torch.stack([hl_h, torch.clamp(prev_hh - hl_h, min=0.0)],
@@ -310,47 +369,76 @@ def _build_tree(bins, g, h, cfg: GBDTConfig, feat_mask=None):
         level_start += n_nodes
 
     n_leaves = 2 ** cfg.depth
-    leaf_g, leaf_h = _segment_sum2(g, h, node_ids, n_leaves)
+    leaf_g, leaf_h = (
+        _fold(s, n).float()
+        for s in _segment_sum2(g, h, member_ids(node_ids, n_leaves),
+                               n * n_leaves))
     leaf_val = -leaf_g / (leaf_h + cfg.reg_lambda)
     delta = cfg.learning_rate * leaf_val[node_ids.long()]
     return delta, (tree_feat, tree_bin, tree_dir, leaf_val)
 
 
-def _sampling_masks(generator, cfg: GBDTConfig, N: int, device):
-    """Per-tree stochastic-boosting masks drawn from ``generator`` (a
-    ``torch.Generator`` on ``device``; None -> no masks).
+# odd 64-bit stride between the members' seeds (the golden-ratio constant)
+_MEMBER_SEED_STRIDE = 0x9E3779B97F4A7C15
 
-    Returns (sample_scale [N] f32 | None, feat_mask [F] bool | None).
+
+def member_generators(seed: int, n_members: int, device):
+    """One ``torch.Generator`` on ``device`` per member, member m seeded
+    with ``(seed + m * stride) mod 2**64`` -- the counterpart of the
+    reference folding the shard index into its key. Member 0 draws the
+    stream a one-member trainer draws from ``seed``."""
+    gens = []
+    for m in range(n_members):
+        gen = torch.Generator(device=device)
+        gen.manual_seed((seed + m * _MEMBER_SEED_STRIDE) % 2 ** 64)
+        gens.append(gen)
+    return gens
+
+
+def _sampling_masks(generators, cfg: GBDTConfig, N: int, device):
+    """Per-tree stochastic-boosting masks. ``generators``: a sequence of
+    ``torch.Generator`` on ``device``, one per member (one member: a list
+    of one), member m's rows being the m-th of ``len`` equal blocks of N;
+    None -> no masks.
+
+    Returns (sample_scale [N] f32 | None, feat_mask [F] bool | None). The
+    feature mask comes from the first generator alone, so it is the same
+    on every member; each member draws its rows' keeps from its own.
     Kept samples are scaled 1/subsample to keep gradient sums unbiased;
     at least one feature always survives (an all-dropped draw keeps one
     uniformly random feature)."""
     sample_scale = None
     feat_mask = None
-    if generator is None:
+    if generators is None:
         return sample_scale, feat_mask
     if cfg.colsample < 1.0:
         F = cfg.n_features
-        keep = (torch.rand(F, generator=generator, device=device)
+        keep = (torch.rand(F, generator=generators[0], device=device)
                 < cfg.colsample)
-        rescue = torch.randint(0, F, (), generator=generator, device=device)
+        rescue = torch.randint(0, F, (), generator=generators[0],
+                               device=device)
         fallback = (torch.arange(F, device=device) == rescue) & ~keep.any()
         feat_mask = keep | fallback
     if cfg.subsample < 1.0:
-        keep = (torch.rand(N, generator=generator, device=device)
-                < cfg.subsample)
+        per = N // len(generators)
+        keep = torch.cat([torch.rand(per, generator=gen, device=device)
+                          for gen in generators]) < cfg.subsample
         sample_scale = keep.to(torch.float32) / cfg.subsample
     return sample_scale, feat_mask
 
 
 def train_tree_shard(bins, y, preds, cfg: GBDTConfig, weights=None,
-                     generator=None, masks=None):
+                     generators=None, masks=None, n_members: int = 1):
     """One boosting round on these samples. Returns (new_preds, tree).
 
     ``weights`` ([N] f32, default all-ones) scales each sample's
-    gradient/hessian contribution. ``generator`` draws the per-tree
-    stochastic-boosting masks when cfg.subsample/colsample < 1;
-    ``masks=(sample_scale | None, feat_mask | None)`` hands them in
-    ready-made instead (no generator and no masks -> full-data trees).
+    gradient/hessian contribution -- the trainer uses weight 0 to
+    neutralize shard-padding rows. ``generators`` (one per member, see
+    :func:`member_generators`) draw the per-tree stochastic-boosting
+    masks when cfg.subsample/colsample < 1; ``masks=(sample_scale | None,
+    feat_mask | None)`` hands them in ready-made instead (no generators
+    and no masks -> full-data trees). ``n_members`` members hold equal
+    blocks of the rows, in rank order (see :func:`_build_tree`).
 
     Scalar objectives ("squared", "logistic"): preds/y are [N]; one tree
     is grown; tree = (feat, bin, dir, leaf) in level-order heap layout.
@@ -359,7 +447,7 @@ def train_tree_shard(bins, y, preds, cfg: GBDTConfig, weights=None,
     (g_c = p_c - 1[y=c], h_c = p_c (1 - p_c)); tree = a C-tuple.
     """
     if masks is None:
-        masks = _sampling_masks(generator, cfg, bins.shape[0], bins.device)
+        masks = _sampling_masks(generators, cfg, bins.shape[0], bins.device)
     sample_scale, feat_mask = masks
     if sample_scale is not None:
         weights = (sample_scale if weights is None
@@ -376,7 +464,7 @@ def train_tree_shard(bins, y, preds, cfg: GBDTConfig, weights=None,
             if weights is not None:
                 g = g * weights
                 h = h * weights
-            delta, tree = _build_tree(bins, g, h, cfg, feat_mask)
+            delta, tree = _build_tree(bins, g, h, cfg, feat_mask, n_members)
             deltas.append(delta)
             trees.append(tree)
         return preds + torch.stack(deltas, dim=1), tuple(trees)
@@ -391,7 +479,7 @@ def train_tree_shard(bins, y, preds, cfg: GBDTConfig, weights=None,
     if weights is not None:
         g = g * weights
         h = h * weights
-    delta, tree = _build_tree(bins, g, h, cfg, feat_mask)
+    delta, tree = _build_tree(bins, g, h, cfg, feat_mask, n_members)
     return preds + delta, tree
 
 
@@ -430,33 +518,27 @@ def _as_numpy(a) -> np.ndarray:
 # the trainer
 # ----------------------------------------------------------------------
 class GBDTTrainer(DataParallelTrainer):
-    """GBDT on one device: ``cuda:0`` unless ``device`` says otherwise
-    (no CUDA and no ``device`` raises Mp4jError)."""
+    """Data-parallel GBDT over a mesh of members (flat or hierarchical,
+    ``device.make_mesh`` / ``make_hier_mesh``). Without a mesh it runs
+    ``n_devices`` members (default 1) on ``device`` (default ``cuda:0``;
+    no CUDA and no ``device`` raises Mp4jError)."""
 
-    def __init__(self, cfg: GBDTConfig, device=None):
-        super().__init__(device)
+    def __init__(self, cfg: GBDTConfig, mesh=None, n_devices=None,
+                 device=None):
+        super().__init__(mesh, n_devices, device)
         self.cfg = cfg
         self.eval_history_: list[float] = []
+        self.binner_ = None    # fitted by train_raw; rides save_model
 
-    def train(self, bins, y, n_trees: int | None = None, seed: int = 0,
-              sample_weight: np.ndarray | None = None,
-              eval_set=None, early_stopping_rounds: int | None = None):
-        """Full boosting run; returns (trees, final margins) -- the
-        margins a tensor on the trainer's device, [N] for scalar
-        objectives and [N, n_classes] for softmax. ``bins`` and ``y`` may
-        be numpy arrays or tensors (a tensor already on the device is
-        used without a copy). ``seed`` seeds the ``torch.Generator`` of
-        the stochastic-boosting masks when cfg.subsample/colsample < 1
-        (same seed -> same trees); ``sample_weight`` ([N], numpy) scales
-        per-instance g/h contributions.
-
-        ``eval_set=(bins_va, y_va)`` evaluates the objective's metric on
-        held-out data after every round (margins updated incrementally,
-        one tree per round); with ``early_stopping_rounds=k`` training
-        stops after k rounds without improvement and the returned
-        ensemble is truncated to the best round. The per-round metric
-        history is ``self.eval_history_`` afterwards.
-        """
+    def shard_data(self, bins, y, sample_weight=None):
+        """Stage ``bins`` [N, F] and labels [N] (numpy or tensors) on the
+        mesh's device and pad them to ``n * per`` rows: member m's shard
+        is rows ``[m * per, (m + 1) * per)``. Returns (bins, y, zero
+        margins, weights), all ``[n * per, ...]``. Padding rows get
+        weight 0, so they contribute nothing to histograms or leaves;
+        ``sample_weight`` ([N], numpy) scales the real rows. A tensor
+        already on the device is padded there, never copied to the
+        host."""
         cfg = self.cfg
         dev = self.device
         dbins = _as_tensor(bins, torch.int32, dev)
@@ -465,17 +547,44 @@ class GBDTTrainer(DataParallelTrainer):
         if cfg.loss == "softmax":
             dy = torch.from_numpy(stage_softmax_labels(
                 _as_numpy(y), cfg.n_classes)).to(dev)
-            dpreds = torch.zeros((N, cfg.n_classes), dtype=torch.float32,
-                                 device=dev)
         else:
             dy = _as_tensor(y, torch.float32, dev)
-            dpreds = torch.zeros(N, dtype=torch.float32, device=dev)
         if tuple(dy.shape) != (N,):
             raise Mp4jError(f"y must be [N={N}], got {tuple(dy.shape)}")
-        dw = None
+        (dbins, dy), _, dw = self._pad_rows([dbins, dy])
         if sample_weight is not None:
-            dw = torch.from_numpy(
+            dw[:N] *= torch.from_numpy(
                 self._stage_weights(sample_weight, N)).to(dev)
+        shape = ((dw.shape[0], cfg.n_classes) if cfg.loss == "softmax"
+                 else (dw.shape[0],))
+        dpreds = torch.zeros(shape, dtype=torch.float32, device=dev)
+        return dbins, dy, dpreds, dw
+
+    def train(self, bins, y, n_trees: int | None = None, seed: int = 0,
+              sample_weight: np.ndarray | None = None,
+              eval_set=None, early_stopping_rounds: int | None = None):
+        """Full boosting run over the mesh; returns (trees, final
+        margins) -- the margins of the padded rows (see
+        :meth:`shard_data`; the first N are the input's), a tensor on the
+        trainer's device, ``[n * per]`` for scalar objectives and ``[n *
+        per, n_classes]`` for softmax. ``bins`` and ``y`` may be numpy
+        arrays or tensors (a tensor already on the device is used without
+        a copy). ``seed`` seeds the members' ``torch.Generator`` streams
+        of the stochastic-boosting masks when cfg.subsample/colsample < 1
+        (same seed -> same trees); ``sample_weight`` ([N], numpy) scales
+        per-instance g/h contributions.
+
+        ``eval_set=(bins_va, y_va)`` evaluates the objective's metric on
+        the whole (unsharded) held-out data after every round (margins
+        updated incrementally, one tree per round); with
+        ``early_stopping_rounds=k`` training stops after k rounds without
+        improvement and the returned ensemble is truncated to the best
+        round. The per-round metric history is ``self.eval_history_``
+        afterwards.
+        """
+        cfg = self.cfg
+        dev = self.device
+        dbins, dy, dpreds, dw = self.shard_data(bins, y, sample_weight)
 
         if early_stopping_rounds is not None and eval_set is None:
             raise Mp4jError("early_stopping_rounds requires an eval_set")
@@ -488,14 +597,14 @@ class GBDTTrainer(DataParallelTrainer):
         stopper = EarlyStopper(early_stopping_rounds)
         self.eval_history_ = stopper.history
 
-        generator = None
+        generators = None
         if cfg.subsample < 1.0 or cfg.colsample < 1.0:
-            generator = torch.Generator(device=dev)
-            generator.manual_seed(seed)
+            generators = member_generators(seed, self.n_shards, dev)
         trees = []
         for i in range(n_trees if n_trees is not None else cfg.n_trees):
             dpreds, tree = train_tree_shard(dbins, dy, dpreds, cfg,
-                                            weights=dw, generator=generator)
+                                            weights=dw, generators=generators,
+                                            n_members=self.n_shards)
             trees.append(tree)
             if va is not None:
                 va_margins = self._update_margins(va[0], tree, va_margins)
@@ -507,6 +616,68 @@ class GBDTTrainer(DataParallelTrainer):
                         dpreds = stopper.best_state
                     break
         return trees, dpreds
+
+    def train_raw(self, X, y, n_trees: int | None = None, seed: int = 0,
+                  sample_weight: np.ndarray | None = None,
+                  eval_set=None, early_stopping_rounds: int | None = None,
+                  binner=None, bin_sample: int | None = 1_000_000):
+        """The ytk-learn consumer entry point: RAW continuous features
+        [N, F] (numpy, or a tensor, which stays on its device) ->
+        quantile binning -> :meth:`train`, in one call.
+
+        A :class:`~ytk_mp4j_tpu_torch.models.binning.QuantileBinner` with
+        ``n_bins=cfg.n_bins`` and ``missing_bucket=cfg.missing_bin`` is
+        fitted on the host from a ``bin_sample``-row sample of X, then X
+        is binned on the trainer's device. NaN features flow to the
+        missing bucket. The binner is kept as ``self.binner_`` and
+        persisted by :meth:`save_model`; ``eval_set=(X_va, y_va)`` takes
+        raw features, binned with the same edges. A pre-fitted ``binner``
+        is used as it is. ``sample_weight`` weights both the quantile
+        sketch and the boosting gradients. Returns ``(trees, margins)``
+        like :meth:`train`; serve raw features with :meth:`predict_raw`.
+        The reference's ``comm=`` (a distributed fit over the host comm
+        plane) is not ported yet."""
+        if binner is None:
+            binner = QuantileBinner(n_bins=self.cfg.n_bins,
+                                    missing_bucket=self.cfg.missing_bin)
+        # a finer binner would emit bin ids >= cfg.n_bins, which the
+        # histograms silently drop; coarser is legal. The missing-bucket
+        # conventions must agree or NaN routing silently changes.
+        if binner.n_bins > self.cfg.n_bins:
+            raise Mp4jError(
+                f"binner.n_bins={binner.n_bins} exceeds "
+                f"cfg.n_bins={self.cfg.n_bins}: out-of-range bin ids "
+                "would silently vanish from the histograms (a coarser "
+                "binner is fine)")
+        if bool(binner.missing_bucket) != bool(self.cfg.missing_bin):
+            raise Mp4jError(
+                f"binner.missing_bucket={binner.missing_bucket} but "
+                f"cfg.missing_bin={self.cfg.missing_bin}: the reserved "
+                "bin-0 conventions must match or NaN routing silently "
+                "changes")
+        if binner.edges is None:
+            binner.fit(X, sample=bin_sample, seed=seed,
+                       sample_weight=sample_weight)
+        self.binner_ = binner
+        if eval_set is not None:
+            eval_set = (binner.transform(eval_set[0], self.device),
+                        eval_set[1])
+        return self.train(
+            binner.transform(X, self.device), y, n_trees=n_trees, seed=seed,
+            sample_weight=sample_weight, eval_set=eval_set,
+            early_stopping_rounds=early_stopping_rounds)
+
+    def predict_raw(self, X, trees, proba: bool = False):
+        """Serve RAW continuous features through the binner fitted by
+        :meth:`train_raw` (or set on ``self.binner_`` from what
+        :meth:`load_model` returns)."""
+        if self.binner_ is None:
+            raise Mp4jError(
+                "no fitted binner on this trainer: train with "
+                "train_raw, or set trainer.binner_ (load_model returns "
+                "the persisted binner)")
+        return self.predict(self.binner_.transform(X, self.device), trees,
+                            proba=proba)
 
     def _check_bins_width(self, bins, what: str = "bins") -> None:
         """A bin matrix narrower/wider than cfg.n_features would route
@@ -587,12 +758,66 @@ class GBDTTrainer(DataParallelTrainer):
         return (counts / total if total else
                 np.zeros(self.cfg.n_features)).astype(np.float64)
 
+    def save_model(self, path: str, trees, binner=None) -> None:
+        """Persist the ensemble (and the fitted binner's edges -- the one
+        from :meth:`train_raw` by default) as an .npz in the reference's
+        format: ``GBDTTrainer.load_model`` of either package reads it."""
+        if binner is None:
+            binner = self.binner_
+        arrays = {"n_trees": np.int64(len(trees))}
+        for i, round_trees in enumerate(trees):
+            per_class = (round_trees if self.cfg.loss == "softmax"
+                         else (round_trees,))
+            for c, (tf, tb, td, lv) in enumerate(per_class):
+                arrays[f"feat_{i}_{c}"] = _as_numpy(tf)
+                arrays[f"bin_{i}_{c}"] = _as_numpy(tb)
+                arrays[f"dir_{i}_{c}"] = _as_numpy(td)
+                arrays[f"leaf_{i}_{c}"] = _as_numpy(lv)
+        if binner is not None and binner.edges is not None:
+            arrays["bin_edges"] = binner.edges
+            arrays["bin_missing"] = np.bool_(binner.missing_bucket)
+        save_npz(path, self.cfg, arrays)
+
+    @staticmethod
+    def load_model(path: str, device=None):
+        """Load an ensemble saved by either package; returns (cfg, trees
+        on ``device`` (default ``cuda:0``), binner | None)."""
+        cfg, z = load_npz(path, GBDTConfig)
+
+        def tree(i, c):
+            tf = z[f"feat_{i}_{c}"]
+            # models saved before default-direction support have no dir
+            # arrays; all-left (0) IS their training-time behavior
+            td = z.get(f"dir_{i}_{c}")
+            if td is None:
+                td = np.zeros_like(tf)
+            return (tf, z[f"bin_{i}_{c}"], td, z[f"leaf_{i}_{c}"])
+
+        n_trees = int(z["n_trees"])
+        if cfg.loss == "softmax":
+            trees = [tuple(tree(i, c) for c in range(cfg.n_classes))
+                     for i in range(n_trees)]
+        else:
+            trees = [tree(i, 0) for i in range(n_trees)]
+        binner = None
+        if "bin_edges" in z:
+            # the binner's granularity may differ from cfg.n_bins (a
+            # coarser binner feeding a finer histogram is legal); derive
+            # it from the saved edges + missing-bucket flag
+            edges = z["bin_edges"]
+            mb = bool(z.get("bin_missing", False))
+            binner = QuantileBinner(edges.shape[1] + (2 if mb else 1),
+                                    missing_bucket=mb)
+            binner.edges = edges
+        return cfg, trees_from_numpy(trees, cfg, device), binner
+
 
 def trees_from_numpy(trees, cfg: GBDTConfig, device=None):
     """Trees in the reference's layout -- a list of ``(feat, bin, dir,
     leaf)`` arrays per round, a per-class tuple of them for softmax, as
     ``ytk_mp4j_tpu`` trains and saves them -- as the port's trees on
-    ``device`` (default ``cuda:0``), ready for :meth:`GBDTTrainer.predict`.
+    ``device`` (default ``cuda:0``), ready for :meth:`GBDTTrainer.predict`
+    (:meth:`GBDTTrainer.load_model` reads the reference's saved files).
     """
     dev = make_device(device)
     n_internal = 2 ** cfg.depth - 1
