@@ -100,15 +100,18 @@ import time
 import numpy as np
 import torch
 
-from ytk_mp4j_tpu_torch import (GBDTConfig, GBDTTrainer, GpuCommCluster,
-                                Operands, Operators, entry)
+from ytk_mp4j_tpu_torch import (FMConfig, FMTrainer, GBDTConfig,
+                                GBDTTrainer, GpuCommCluster, LinearConfig,
+                                LinearTrainer, Operands, Operators, entry)
 from ytk_mp4j_tpu_torch.device import make_hier_mesh, make_mesh
+from ytk_mp4j_tpu_torch.models import fm as fm_mod
 from ytk_mp4j_tpu_torch.models import gbdt
 from ytk_mp4j_tpu_torch.models.binning import QuantileBinner
 from ytk_mp4j_tpu_torch.operands import to_tensor
 from ytk_mp4j_tpu_torch.ops import _build
 from ytk_mp4j_tpu_torch.ops import hist_kernel as hk
 from ytk_mp4j_tpu_torch.ops import ring_kernel as rk
+from ytk_mp4j_tpu_torch.ops import sparse as sparse_ops
 
 ROWS = 11_000_000
 F, B, DEPTH = 28, 256, 6
@@ -126,6 +129,7 @@ RING_DTYPES = (torch.float32, torch.float64, torch.int64, torch.int32,
 RING_MEMBERS = (1, 2, 3, 5, 8, 9)  # 9: above the cluster limit
 RING_REPEATS = 200
 TIMING_REPS = 5
+PROFILE_ATTEMPTS = 3               # CUPTI now and then hands back nothing
 CONFIG0_LEN = 1 << 20              # BASELINE.json configs[0]: 1M f32, 4 ranks
 CONFIG1_LEN = 256 << 20            # configs[1]: 256M f64, 8 ranks
 HIST_PAYLOAD = 2 * 16 * F * B      # g and h planes of 16 nodes
@@ -303,41 +307,46 @@ def part_of_launch(trace):
     return out
 
 
-def profile_tree(trainer, dbins, dy, name="tree_trace.json"):
-    """One more tree like the timed ones, under ``torch.profiler`` (CUDA
-    activity): device ms by kernel name, the histogram kernel's passes,
-    the members' folds and the leaf sums against everything else, and the
-    device's idle share over the tree's window (first device event's
-    start to the last one's end)."""
-    real = {attr: getattr(gbdt, attr) for attr in TREE_PARTS.values()}
-    for label, attr in TREE_PARTS.items():
-        setattr(gbdt, attr, labelled(label, real[attr]))
+def profile_run(run, parts, name, exclude=()):
+    """``run()`` once under ``torch.profiler`` (CPU + CUDA activity), each
+    function of ``parts`` ({label: (module, attribute)}) wrapped in a
+    labelled range; the trace goes to chiprun_out/``name``. Returns
+    (device ms by kernel name, device ms launched inside each part --
+    kernels named in ``exclude`` left out --, busy ms, window ms: first
+    device event's start to the last one's end)."""
+    real = {label: getattr(mod, attr) for label, (mod, attr) in
+            parts.items()}
+    for label, (mod, attr) in parts.items():
+        setattr(mod, attr, labelled(label, real[label]))
     torch.cuda.synchronize()
-    try:
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            trainer.train(dbins, dy, n_trees=1)
-            torch.cuda.synchronize()
-    finally:
-        for attr, fn in real.items():
-            setattr(gbdt, attr, fn)
     path = os.path.join(OUT_DIR, name)
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        trace = json.load(f)["traceEvents"]
-    events = [e for e in trace
-              if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
-    check(events, "the profiler saw no device event in the tree")
+    try:
+        for _ in range(PROFILE_ATTEMPTS):    # again if CUPTI saw nothing
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                trace = json.load(f)["traceEvents"]
+            events = [e for e in trace
+                      if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+            if events:
+                break
+    finally:
+        for label, (mod, attr) in parts.items():
+            setattr(mod, attr, real[label])
+    check(events, f"the profiler saw no device event in {name}")
     launched_in = part_of_launch(trace)
-    parts = dict.fromkeys(TREE_PARTS, 0.0)
+    part_ms = dict.fromkeys(parts, 0.0)
     by_name = {}
     for e in events:
         k = kernel_name(e["name"])
         by_name[k] = by_name.get(k, 0.0) + e["dur"] / 1e3
         label = launched_in.get(e.get("args", {}).get("correlation"))
-        if label is not None and k not in HIST_KERNELS:
-            parts[label] += e["dur"] / 1e3
+        if label is not None and k not in exclude:
+            part_ms[label] += e["dur"] / 1e3
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
     busy, (lo, hi) = 0.0, spans[0]
     for a, b in spans[1:]:
@@ -348,6 +357,19 @@ def profile_tree(trainer, dbins, dy, name="tree_trace.json"):
             hi = max(hi, b)
     busy = (busy + hi - lo) / 1e3
     window = (max(b for _, b in spans) - spans[0][0]) / 1e3
+    return (dict(sorted(by_name.items(), key=lambda kv: -kv[1])), part_ms,
+            busy, window)
+
+
+def profile_tree(trainer, dbins, dy, name="tree_trace.json"):
+    """One more tree like the timed ones, under ``torch.profiler``: device
+    ms by kernel name, the histogram kernel's passes, the members' folds
+    and the leaf sums against everything else, and the device's idle
+    share over the tree's window."""
+    by_name, parts, busy, window = profile_run(
+        lambda: trainer.train(dbins, dy, n_trees=1),
+        {label: (gbdt, attr) for label, attr in TREE_PARTS.items()}, name,
+        exclude=HIST_KERNELS)
     hist = sum(v for k, v in by_name.items() if k in HIST_KERNELS)
     total = sum(by_name.values())
     rest = total - hist - sum(parts.values())
@@ -355,9 +377,8 @@ def profile_tree(trainer, dbins, dy, name="tree_trace.json"):
            "busy_ms": busy, "idle_share": 1 - busy / window,
            "device_ms": total, "hist_kernel_ms": hist,
            "fold_ms": parts["fold"], "leaf_sums_ms": parts["leaf sums"],
-           "rest_ms": rest, "other_ms": total - hist,
-           "by_name_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1]))}
-    top = list(rec["by_name_ms"].items())[:10]
+           "rest_ms": rest, "other_ms": total - hist, "by_name_ms": by_name}
+    top = list(by_name.items())[:10]
     print(f"tree profile ({trainer.n_shards} member(s)), device ms by "
           "kernel: " + ", ".join(f"{k} {v:.3f}" for k, v in top), flush=True)
     print(f"tree profile ({trainer.n_shards} member(s)): {split_line(rec)}",
@@ -760,22 +781,26 @@ def device_ms(fn, reps=TIMING_REPS, match=None):
     """Mean device ms of the kernels ``fn`` launches (those whose name
     holds ``match``, default all; copies and fills excluded), from
     ``torch.profiler`` over ``reps`` calls after one warm-up: the host's
-    launch latency between calls counts on no side."""
+    launch latency between calls counts on no side. A profile with no
+    device time is taken again, PROFILE_ATTEMPTS times at most."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        if us and "Memcpy" not in e.key and "Memset" not in e.key \
-                and (match is None or match in e.key):
-            total += us
+    for _ in range(PROFILE_ATTEMPTS):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = 0.0
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if us and "Memcpy" not in e.key and "Memset" not in e.key \
+                    and (match is None or match in e.key):
+                total += us
+        if total > 0:
+            break
     check(total > 0, "the profiler saw no device time")
     return total / reps / 1e3
 
@@ -1033,6 +1058,303 @@ def run_ring(dev):
     return entries, {"calls": rows, "host_s": host_s, "peak_gib": peak}
 
 
+# ----------------------------------------------------------------------
+# slice 6: FM/FFM, the map plane and linear (no kernel of their own)
+# ----------------------------------------------------------------------
+# Juan et al., "Field-aware Factorization Machines for CTR Prediction"
+# (RecSys 2016), Criteo: 39 fields (13 integer + 26 categorical columns),
+# features hashed to 10^6, k = 4
+CRITEO = dict(n_features=1_000_000, n_fields=39, k=4, max_nnz=39,
+              model="ffm", learning_rate=0.1)
+CRITEO_ROWS = 16_384               # 4,096 a member
+CONFIG4 = dict(n_features=100_000, n_fields=8, k=8, max_nnz=8,
+               model="ffm", learning_rate=0.05)     # bench.py:1624-1639
+CONFIG4_ROWS = 8192
+FM_FIT_STEPS = 3                   # the equalities' runs
+FM_TIMED_STEPS = 5
+CONFIG4_TIMED_STEPS = 10           # bench.py's steps
+FM_PATHS = {"dense": {},
+            "sparse": {"sparse_grads": True},
+            "sharded": {"sparse_grads": True, "table_sharding": "sharded"}}
+MAP_KEYS = 20_000                  # configs[2]: a member, 50 % overlap
+MAP_INT_KEYS = 50_000              # bench.py:1742
+MAP_REPS = 5
+MAP_CHAIN = 8
+LINEAR_STEPS = 10
+
+
+def steps_ms(step, params, batch, steps):
+    """Mean device ms of one step over ``steps`` steps after one warm-up
+    step (CUDA events around the loop); the steps' final params."""
+    params, _ = step(params, batch)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        params, _ = step(params, batch)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / steps
+
+
+# the FM step's parts a profiled step reports apart
+FM_PARTS = {"grads": (fm_mod, "_loss_and_grads"),
+            "fetch": (fm_mod, "_fetch_rows_sharded"),
+            "sort": (sparse_ops, "sort_by_key"),
+            "segment": (sparse_ops, "segment_reduce_sorted"),
+            "masked add": (fm_mod, "_add_rows")}
+
+
+def fm_path(name, cfg, mesh, data, p0, steps, profile=None):
+    """One FM gradient path: ``fit`` (FM_FIT_STEPS, public API) for the
+    equalities, then the step alone timed over ``steps`` steps; with
+    ``profile`` (a trace file name), one more step under
+    ``torch.profiler``: device ms by kernel, by part (FM_PARTS) and the
+    device's idle share over the step's window."""
+    tr = FMTrainer(cfg, mesh=mesh, **FM_PATHS[name])
+    params, losses = tr.fit(*data, n_steps=FM_FIT_STEPS, params=p0)
+    check(np.isfinite(losses).all(), f"{name} FFM losses not finite")
+    batch = tr.shard_data(*data)
+    step = tr._step(int(batch[0].shape[1]) * cfg.max_nnz)
+    q = tr._place_params(p0)
+    ms = steps_ms(step, q, batch, steps)
+    prof = None
+    if profile is not None:
+        by_name, parts, busy, window = profile_run(lambda: step(q, batch),
+                                                   FM_PARTS, profile)
+        total = sum(by_name.values())
+        prof = {"device_ms": total, "window_ms": window,
+                "idle_share": 1 - busy / window, "parts_ms": parts,
+                "rest_ms": total - sum(parts.values()),
+                "by_name_ms": by_name}
+        print(f"FFM {name} step profile: device {total:.3f} ms of a "
+              f"{window:.3f} ms window (idle {1 - busy / window:.1%}); "
+              + ", ".join(f"{k} {v:.3f}" for k, v in parts.items() if v)
+              + f", rest {prof['rest_ms']:.3f} ms; by kernel: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in
+                          list(by_name.items())[:8]), flush=True)
+    return tr, params, losses, ms, prof
+
+
+def ffm_small_card_equals_cpu():
+    """The three FFM paths at a small size on the card against the
+    port's CPU path (the CPU path is held against the reference in
+    tests/test_torch_fm.py): losses to rtol 1e-5."""
+    rng = np.random.default_rng(0)
+    feats = rng.integers(0, 64, (96, 4)).astype(np.int32)
+    fields = np.tile(np.arange(4, dtype=np.int32), (96, 1))
+    vals = np.ones((96, 4), np.float32)
+    y = ((feats[:, 0] + feats[:, 1]) % 2).astype(np.float32)
+    cfg = FMConfig(n_features=64, n_fields=4, k=4, max_nnz=4, model="ffm",
+                   learning_rate=0.3, l2=1e-3, init_scale=0.1)
+    for name, kw in FM_PATHS.items():
+        _, lc = FMTrainer(cfg, mesh=make_mesh(4), **kw).fit(
+            feats, fields, vals, y, n_steps=5, seed=2)
+        _, lp = FMTrainer(cfg, mesh=make_mesh(4, "cpu"), **kw).fit(
+            feats, fields, vals, y, n_steps=5, seed=2)
+        check(np.allclose(lc, lp, rtol=1e-5, atol=1e-6),
+              f"small FFM {name}: card {lc} != CPU {lp}")
+
+
+def run_ffm_criteo(dev):
+    """FFM at Criteo width over 4 members: dense, sparse replicated and
+    sparse sharded, the reference's equalities at this size (sparse ==
+    dense and sharded == replicated at rtol 1e-4; the stream of one
+    full-batch chunk a step == fit at rtol 1e-5, replicated and
+    sharded), steps/s and rows/s of each path."""
+    ffm_small_card_equals_cpu()
+    cfg = FMConfig(**CRITEO)
+    mesh = make_mesh(MEMBERS)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    K = cfg.max_nnz
+    data = (torch.randint(0, cfg.n_features, (CRITEO_ROWS, K), device=dev,
+                          generator=gen, dtype=torch.int32),
+            torch.arange(K, dtype=torch.int32, device=dev).expand(
+                CRITEO_ROWS, K).contiguous(),
+            torch.ones((CRITEO_ROWS, K), device=dev),
+            torch.randint(0, 2, (CRITEO_ROWS,), device=dev,
+                          generator=gen).float())
+    t0 = time.perf_counter()
+    p0 = FMTrainer(cfg, mesh=mesh).init_params(seed=0)
+    init_s = time.perf_counter() - t0
+    rows = FMTrainer(cfg, mesh=mesh).n_rows
+    slots = CRITEO_ROWS // MEMBERS * K * K
+    print(f"FFM at Criteo width: {cfg.n_features} features x "
+          f"{cfg.n_fields} fields, k {cfg.k}, table {rows} x {cfg.k} f32 "
+          f"({rows * cfg.k * 4 / 1e6:.0f} MB, drawn in {init_s:.1f} s), "
+          f"{CRITEO_ROWS} rows over {MEMBERS} members ({slots} slot rows a "
+          "member)", flush=True)
+    rec = {}
+    runs = {}
+    for name in FM_PATHS:
+        torch.cuda.reset_peak_memory_stats()
+        tr, params, losses, ms, prof = fm_path(
+            name, cfg, mesh, data, p0, FM_TIMED_STEPS,
+            profile=f"ffm_{name}_step_trace.json")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        runs[name] = (tr, params, losses)
+        rec[name] = {"ms_per_step": ms, "steps_s": 1e3 / ms,
+                     "rows_s": CRITEO_ROWS * 1e3 / ms, "losses":
+                     losses.tolist(), "peak_gib": peak, "profile": prof}
+        print(f"FFM {name}: {ms:.3f} ms a step, {1e3 / ms:.3f} steps/s, "
+              f"{CRITEO_ROWS * 1e3 / ms:.0f} rows/s (CUDA events, "
+              f"{FM_TIMED_STEPS} steps after a warm-up); losses "
+              f"{losses.tolist()}; peak {peak:.2f} GiB", flush=True)
+        del tr, params
+    lref = runs["dense"][2]
+    check(np.allclose(runs["sparse"][2], lref, rtol=1e-4, atol=1e-6),
+          "sparse FFM losses != dense")
+    check(np.allclose(runs["sharded"][2], runs["sparse"][2], rtol=1e-4,
+                      atol=1e-6), "sharded FFM losses != replicated")
+    table_diff = float((runs["sharded"][1][2][:rows]
+                        - runs["sparse"][1][2]).abs().max())
+    check(table_diff < 1e-4, f"sharded table != replicated ({table_diff})")
+    for name in ("sparse", "sharded"):
+        tr = FMTrainer(cfg, mesh=mesh, **FM_PATHS[name])
+        _, stream = tr.fit_stream((data for _ in range(FM_FIT_STEPS)),
+                                  params=p0)
+        check(np.allclose(stream, runs[name][2], rtol=1e-5, atol=1e-7),
+              f"{name} FFM stream {stream} != fit {runs[name][2]}")
+        rec[name]["stream_losses"] = stream.tolist()
+        rec[name]["stream_bitwise"] = bool(
+            np.array_equal(stream, runs[name][2]))
+    print(f"FFM equalities hold: sparse == dense and sharded == replicated "
+          f"(rtol 1e-4; tables within {table_diff:.2e}), stream == fit "
+          f"(rtol 1e-5; bitwise: replicated "
+          f"{rec['sparse']['stream_bitwise']}, sharded "
+          f"{rec['sharded']['stream_bitwise']})", flush=True)
+    del runs, p0, data
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_ffm_config4(dev):
+    """BASELINE.json configs[4] at the repo's bench shape (one member, the
+    sparse path, bench.py's data): steps/s."""
+    rng = np.random.default_rng(3)
+    cfg = FMConfig(**CONFIG4)
+    K = cfg.max_nnz
+    data = (rng.integers(0, cfg.n_features, (CONFIG4_ROWS, K)).astype(
+                np.int32),
+            rng.integers(0, cfg.n_fields, (CONFIG4_ROWS, K)).astype(np.int32),
+            np.ones((CONFIG4_ROWS, K), np.float32),
+            (rng.random(CONFIG4_ROWS) > 0.5).astype(np.float32))
+    mesh = make_mesh(1)
+    p0 = FMTrainer(cfg, mesh=mesh).init_params(seed=0)
+    _, _, losses, ms, _ = fm_path("sparse", cfg, mesh, data, p0,
+                                  CONFIG4_TIMED_STEPS)
+    print(f"FFM configs[4] shape ({cfg.n_features} features x "
+          f"{cfg.n_fields} fields, k {cfg.k}, {CONFIG4_ROWS} rows, one "
+          f"member, sparse): {ms:.3f} ms a step, {1e3 / ms:.3f} steps/s",
+          flush=True)
+    return {"ms_per_step": ms, "steps_s": 1e3 / ms,
+            "losses": losses.tolist()}
+
+
+def overlap_maps(keys, key):
+    """configs[2]'s key layout (bench.py ``bench_socket_map``): member r
+    holds keys ``(r * keys // 2 + i) % (MEMBERS * keys)``, 50 % shared
+    with its neighbour; values ``float(i)``."""
+    return [{key((r * keys // 2 + i) % (MEMBERS * keys)): float(i)
+             for i in range(keys)} for r in range(MEMBERS)]
+
+
+def host_merge(maps):
+    out = {}
+    for m in maps:
+        for k, v in m.items():
+            out[k] = out.get(k, 0.0) + v
+    return out
+
+
+def map_rate(cl, maps, want, reps):
+    """Merged keys/s of ``reps`` synchronous allreduce_map calls (host
+    clock; each call ends with the values on the host), each checked
+    against the host merge, after one untimed warm-up."""
+    cl.allreduce_map([dict(m) for m in maps], Operands.DOUBLE)
+    work = [[dict(m) for m in maps] for _ in range(reps)]
+    t0 = time.perf_counter()
+    for w in work:
+        cl.allreduce_map(w, Operands.DOUBLE)
+    s = time.perf_counter() - t0
+    for w in work:
+        check(all(m == want for m in w), "allreduce_map != host merge")
+    return reps * len(want) / s, s / reps
+
+
+def run_maps(dev):
+    """configs[2]: 4 members, 20,000 string keys a member, 50 % overlap,
+    DOUBLE SUM; then 50,000 int keys a member, synchronous and chained
+    MAP_CHAIN deep through allreduce_map_async. Merged keys/s."""
+    cl = GpuCommCluster(MEMBERS)
+    check(cl.device == dev, "the cluster is not on the card")
+    smaps = overlap_maps(MAP_KEYS, lambda c: f"w{c}")
+    swant = host_merge(smaps)
+    s_rate, s_call = map_rate(cl, smaps, swant, MAP_REPS)
+    imaps = overlap_maps(MAP_INT_KEYS, lambda c: c)
+    iwant = host_merge(imaps)
+    i_rate, i_call = map_rate(cl, imaps, iwant, MAP_REPS)
+    work = [[dict(m) for m in imaps] for _ in range(MAP_CHAIN)]
+    t0 = time.perf_counter()
+    handles = [cl.allreduce_map_async(w, Operands.DOUBLE) for w in work]
+    for h in handles:
+        h.result()
+    chain_s = time.perf_counter() - t0
+    for w in work:
+        check(all(m == iwant for m in w), "allreduce_map_async != merge")
+    c_rate = MAP_CHAIN * len(iwant) / chain_s
+    print(f"map allreduce, {MEMBERS} members, DOUBLE SUM (host clock): "
+          f"{MAP_KEYS} string keys a member (union {len(swant)}) "
+          f"{s_rate:.0f} merged keys/s ({s_call * 1e3:.2f} ms a call); "
+          f"{MAP_INT_KEYS} int keys a member (union {len(iwant)}) "
+          f"{i_rate:.0f} keys/s ({i_call * 1e3:.2f} ms a call), chained "
+          f"{MAP_CHAIN} deep {c_rate:.0f} keys/s; every result == the "
+          "host merge", flush=True)
+    return {"string_keys_s": s_rate, "string_call_ms": s_call * 1e3,
+            "int_keys_s": i_rate, "int_call_ms": i_call * 1e3,
+            "int_chained_keys_s": c_rate}
+
+
+def run_linear(dev):
+    """Logistic regression over the GBDT headline's rows as floats
+    (bins / B; label bins[:, 0] / B + noise > 0.5), 4 members,
+    LINEAR_STEPS steps: loss and steps/s; the first 100,000 rows' fit on
+    the card equals the CPU's at rtol 1e-5."""
+    bins, y = make_data(ROWS, F, B)
+    x = torch.from_numpy(bins).to(dev).float() / B
+    yl = (torch.from_numpy(y).to(dev) > 0.5).float()
+    del bins, y
+    cfg = LinearConfig(n_features=F, loss="logistic", learning_rate=0.5)
+    tr = LinearTrainer(cfg, mesh=make_mesh(MEMBERS))
+    tr.fit(x, yl, n_steps=1)                                  # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    params, losses = tr.fit(x, yl, n_steps=LINEAR_STEPS)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / LINEAR_STEPS
+    check(np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"linear losses {losses}")
+    sub = 100_000
+    _, lc = LinearTrainer(cfg, mesh=make_mesh(MEMBERS)).fit(
+        x[:sub], yl[:sub], n_steps=LINEAR_STEPS)
+    _, lp = LinearTrainer(cfg, mesh=make_mesh(MEMBERS, "cpu")).fit(
+        x[:sub].cpu(), yl[:sub].cpu(), n_steps=LINEAR_STEPS)
+    check(np.allclose(lc, lp, rtol=1e-5, atol=1e-6),
+          f"linear on the card {lc} != CPU {lp}")
+    print(f"linear logistic, {ROWS} x {F} f32 over {MEMBERS} members: loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f} in {LINEAR_STEPS} steps, "
+          f"{ms:.3f} ms a step (fit, CUDA events), {1e3 / ms:.2f} steps/s; "
+          f"card == CPU on {sub} rows", flush=True)
+    del x, yl
+    torch.cuda.empty_cache()
+    return {"ms_per_step": ms, "steps_s": 1e3 / ms,
+            "losses": losses.tolist()}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1063,12 +1385,15 @@ def main():
     entry_record = run_entry()
     ring_entries, ring_record = run_ring(dev)
     kernels = [hist_entry] + ring_entries
+    slice6 = {"ffm_criteo": run_ffm_criteo(dev),
+              "ffm_config4": run_ffm_config4(dev), "maps": run_maps(dev),
+              "linear": run_linear(dev)}
 
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": kind, "nvidia_smi": smi, "gbdt": gbdt_record,
                    "data_parallel": dp_record, "train_raw": raw_record,
                    "entry": entry_record, "ring": ring_record,
-                   "kernels": kernels}, f, indent=1)
+                   "slice6": slice6, "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

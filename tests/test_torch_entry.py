@@ -44,3 +44,49 @@ def test_entry_points_run_on_the_card_unless_asked(monkeypatch):
         entry.entry()
     with pytest.raises(Mp4jError, match="no CUDA device"):
         entry.dryrun(4)
+
+
+def test_dryrun_covers_the_whole_reference_dryrun(monkeypatch):
+    """Every part of ``__graft_entry__.dryrun_multichip`` runs, in its
+    order: GBDT (three trainers), the map allreduce, the dense allreduce
+    under every algo, FFM sparse replicated / sharded / streamed both
+    ways, and the softmax linear model."""
+    from ytk_mp4j_tpu_torch.comm.gpu_comm import GpuCommCluster
+    from ytk_mp4j_tpu_torch.models.fm import FMTrainer
+    from ytk_mp4j_tpu_torch.models.gbdt import GBDTTrainer
+    from ytk_mp4j_tpu_torch.models.linear import LinearTrainer
+
+    calls = []
+
+    def spy(cls, name, tag):
+        real = getattr(cls, name)
+
+        def wrapped(self, *a, **kw):
+            calls.append(tag(self, kw) if callable(tag) else tag)
+            return real(self, *a, **kw)
+
+        monkeypatch.setattr(cls, name, wrapped)
+
+    spy(GBDTTrainer, "train", "gbdt")
+    spy(GBDTTrainer, "train_raw", "train_raw")
+    spy(GpuCommCluster, "allreduce_map", "map")
+    spy(GpuCommCluster, "allreduce_array", lambda s, kw: kw["algo"])
+    spy(FMTrainer, "fit", lambda s, kw: f"ffm {s.table_sharding}")
+    spy(FMTrainer, "fit_stream",
+        lambda s, kw: f"ffm stream {s.table_sharding}")
+    spy(LinearTrainer, "fit", "linear")
+    entry.dryrun(4, device="cpu")
+    assert [c for c in calls if c != "gbdt"] == [
+        "train_raw", "map", "xla", "ring", "rdma", "ffm replicated",
+        "ffm sharded", "ffm stream replicated", "ffm stream sharded",
+        "linear"]
+    assert calls.count("gbdt") >= 2
+
+
+def test_dryrun_raises_on_a_wrong_map_result(monkeypatch):
+    from ytk_mp4j_tpu_torch.comm.gpu_comm import GpuCommCluster
+
+    monkeypatch.setattr(GpuCommCluster, "allreduce_map",
+                        lambda self, maps, *a, **kw: maps)
+    with pytest.raises(Mp4jError, match="dryrun: map allreduce"):
+        entry.dryrun(3, device="cpu")

@@ -4,8 +4,11 @@ members, device-memory slots above), against their plain versions, run
 to run, at the edges of their contracts (for the rings: co-residency
 refused, a stuck ring raising at the spin bound, unaligned inputs), and
 through the trainer (one member and a mesh of members, ``train_raw`` and
-the binner's transform) and the collective driver. Every test skips
-where there is no CUDA device.
+the binner's transform) and the collective driver; and the paths that
+have no kernel of their own -- the map collectives, the FM/FFM trainer on
+every gradient path, the linear trainer, their streaming fits and the
+libsvm parser's build -- on the card against the port's CPU path at small
+sizes. Every test skips where there is no CUDA device.
 
 This file imports neither jax nor the JAX package and uses no fixture of
 tests/conftest.py, so it also runs where JAX is not installed:
@@ -19,8 +22,9 @@ import numpy as np
 import pytest
 import torch
 
-from ytk_mp4j_tpu_torch import (GBDTConfig, GBDTTrainer, GpuCommCluster,
-                                Operands, Operators, entry)
+from ytk_mp4j_tpu_torch import (FMConfig, FMTrainer, GBDTConfig,
+                                GBDTTrainer, GpuCommCluster, LinearConfig,
+                                LinearTrainer, Operands, Operators, entry)
 from ytk_mp4j_tpu_torch.device import make_hier_mesh, make_mesh
 from ytk_mp4j_tpu_torch.exceptions import Mp4jError
 from ytk_mp4j_tpu_torch.models.binning import QuantileBinner
@@ -486,3 +490,148 @@ def test_gpu_comm_cluster_on_the_card(cuda):
     for a in arrs:
         np.testing.assert_allclose(a, exact, rtol=1e-5, atol=1e-5)
     cl.barrier()
+
+
+# ----------------------------------------------------------------------
+# slice 6: the map plane, FM/FFM and linear on the card against the CPU
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("op", ["SUM", "PROD", "MAX", "MIN"])
+def test_map_collectives_on_the_card_equal_the_cpu(cuda, op):
+    """Max/min and integer sums agree bitwise; float sums add with
+    atomics on the card (rtol 1e-12 in f64)."""
+    rng = np.random.default_rng(0)
+    maps = [{f"k{int(k)}": float(v) for k, v in
+             zip(rng.integers(0, 500, 300), rng.standard_normal(300))}
+            for _ in range(4)]
+    on = [dict(m) for m in maps]
+    off = [dict(m) for m in maps]
+    GpuCommCluster(4).allreduce_map(on, Operands.DOUBLE,
+                                    Operators.by_name(op))
+    GpuCommCluster(4, device="cpu").allreduce_map(off, Operands.DOUBLE,
+                                                  Operators.by_name(op))
+    for a, b in zip(on, off):
+        assert set(a) == set(b)
+        for k in b:
+            if op in ("MAX", "MIN"):
+                assert a[k] == b[k]
+            else:
+                np.testing.assert_allclose(a[k], b[k], rtol=1e-12)
+    imaps = [{int(k): 1 for k in rng.integers(0, 1000, 200)}
+             for _ in range(4)]
+    on = [dict(m) for m in imaps]
+    off = [dict(m) for m in imaps]
+    GpuCommCluster(4).reduce_scatter_map(on, Operands.INT)
+    GpuCommCluster(4, device="cpu").reduce_scatter_map(off, Operands.INT)
+    assert on == off
+
+
+def test_map_async_chain_on_the_card(cuda):
+    """Eight chained allreduce_map_async calls, resolved in reverse:
+    each equals its synchronous result."""
+    rng = np.random.default_rng(1)
+    cl = GpuCommCluster(4)
+    batches = [[{int(k): float(v) for k, v in
+                 zip(rng.integers(0, 5000, 800), rng.standard_normal(800))}
+                for _ in range(4)] for _ in range(8)]
+    want = []
+    for maps in batches:
+        w = [dict(m) for m in maps]
+        cl.allreduce_map(w, Operands.DOUBLE)
+        want.append(w)
+    handles = [cl.allreduce_map_async([dict(m) for m in maps],
+                                      Operands.DOUBLE) for maps in batches]
+    for h, w in zip(handles[::-1], want[::-1]):
+        for a, b in zip(h.result(), w):
+            assert set(a) == set(b)
+            for k in b:
+                np.testing.assert_allclose(a[k], b[k], rtol=1e-12)
+
+
+FM_PATHS = {"dense": {}, "sparse": {"sparse_grads": True},
+            "sparse_cap": {"sparse_grads": True, "sparse_capacity": 64},
+            "sharded": {"sparse_grads": True, "table_sharding": "sharded"}}
+
+
+def _ffm_data(n=96, vocab=64, K=4, seed=0):
+    rng = np.random.default_rng(seed)
+    feats = rng.integers(0, vocab, (n, K)).astype(np.int32)
+    fields = np.tile(np.arange(K, dtype=np.int32), (n, 1))
+    vals = np.ones((n, K), np.float32)
+    y = ((feats[:, 0] + feats[:, 1]) % 2).astype(np.float32)
+    return feats, fields, vals, y
+
+
+@pytest.mark.parametrize("path", sorted(FM_PATHS))
+@pytest.mark.parametrize("model", ["fm", "ffm"])
+def test_fm_paths_on_the_card_equal_the_cpu(cuda, model, path):
+    """Losses, table and predictions to rtol 1e-5 (the card's table adds
+    are atomics in no fixed order); the stream of one full batch a chunk
+    equals fit to the same tolerance."""
+    data = _ffm_data()
+    cfg = FMConfig(n_features=64, n_fields=4, k=4, max_nnz=4, model=model,
+                   learning_rate=0.3, l2=1e-3, init_scale=0.1)
+    runs = {}
+    for where in ("card", "cpu"):
+        dev = None if where == "card" else "cpu"
+        tr = FMTrainer(cfg, mesh=make_mesh(4, dev), **FM_PATHS[path])
+        params, losses = tr.fit(*data, n_steps=5, seed=2)
+        runs[where] = (tr, params, losses)
+    tr, pc, lc = runs["card"]
+    _, pp, lp = runs["cpu"]
+    assert pc[2].device.type == "cuda"
+    np.testing.assert_allclose(lc, lp, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tr.full_table(pc), pp[2].numpy()
+                               [:tr.n_rows], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tr.predict(pc, *data[:3]).cpu().numpy(),
+                               runs["cpu"][0].predict(pp, *data[:3]).numpy(),
+                               rtol=1e-5, atol=1e-6)
+    _, ls = FMTrainer(cfg, mesh=make_mesh(4), **FM_PATHS[path]).fit_stream(
+        (data for _ in range(5)), seed=2)
+    np.testing.assert_allclose(ls, lc, rtol=1e-5, atol=1e-6)
+
+
+def test_fm_trains_from_tensors_on_the_card(cuda):
+    """Data already on the card stages without a host copy; sharded
+    equals replicated at rtol 1e-4, as the reference's dry run holds
+    it."""
+    data = [torch.from_numpy(a).to(cuda) for a in _ffm_data(n=256)]
+    cfg = FMConfig(n_features=64, n_fields=4, k=4, max_nnz=4, model="ffm",
+                   learning_rate=0.3, init_scale=0.1)
+    _, lr = FMTrainer(cfg, n_devices=4, sparse_grads=True).fit(*data,
+                                                               n_steps=3)
+    _, ls = FMTrainer(cfg, n_devices=4, sparse_grads=True,
+                      table_sharding="sharded").fit(*data, n_steps=3)
+    np.testing.assert_allclose(ls, lr, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("loss", ["squared", "logistic", "softmax"])
+def test_linear_on_the_card_equals_the_cpu(cuda, loss):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((501, 5)).astype(np.float32)
+    y = (rng.integers(0, 3, 501).astype(np.int32) if loss == "softmax"
+         else (x[:, 0] > 0).astype(np.float32))
+    cfg = LinearConfig(n_features=5, loss=loss, n_classes=3,
+                       learning_rate=0.2, momentum=0.9, l1=1e-3, l2=1e-3)
+    pc, lc = LinearTrainer(cfg, n_devices=4).fit(x, y, n_steps=10)
+    pp, lp = LinearTrainer(cfg, n_devices=4, device="cpu").fit(x, y,
+                                                               n_steps=10)
+    assert pc[0].device.type == "cuda"
+    np.testing.assert_allclose(lc, lp, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(pc[0].cpu().numpy(), pp[0].numpy(),
+                               rtol=1e-5, atol=1e-6)
+    _, ls = LinearTrainer(cfg, n_devices=4).fit_stream(
+        ((x, y) for _ in range(10)), max_in_flight=0)
+    np.testing.assert_allclose(ls, lc, rtol=1e-5, atol=1e-6)
+
+
+def test_libsvm_parser_builds_on_the_cards_machine(tmp_path):
+    """The parser builds with the machine's g++ and parses like the
+    line-by-line path (no card needed, but run with the card's suite)."""
+    from ytk_mp4j_tpu_torch.utils import native
+    from ytk_mp4j_tpu_torch.utils.libsvm import _parse_chunk_slow
+
+    assert native.build().exists()
+    lines = ["1 0:3:1.5 1:7:-2", "0 2:5:0.25"]
+    got = native.parse_libsvm_chunk("\n".join(lines).encode(), 2, 3)
+    for a, b in zip(got, _parse_chunk_slow(lines, [1, 2], 3)):
+        assert a.tobytes() == b.tobytes()

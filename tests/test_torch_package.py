@@ -83,7 +83,9 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert len(files) >= 15
     for name in ("operators.py", "operands.py", "meta.py",
                  "comm/gpu_comm.py", "ops/ring.py", "ops/collectives.py",
-                 "ops/ring_kernel.py", "models/binning.py", "entry.py"):
+                 "ops/ring_kernel.py", "models/binning.py", "entry.py",
+                 "ops/sparse.py", "comm/keycodec.py", "models/fm.py",
+                 "models/linear.py", "utils/libsvm.py", "utils/native.py"):
         assert PKG / name in files, name
     for path in files:
         assert not pat.search(path.read_text()), path
@@ -91,7 +93,8 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 def test_exports():
     assert sorted(ytk_mp4j_tpu_torch.__all__) == [
-        "GBDTConfig", "GBDTTrainer", "GpuCommCluster", "Mp4jError",
+        "FMConfig", "FMTrainer", "GBDTConfig", "GBDTTrainer",
+        "GpuCommCluster", "LinearConfig", "LinearTrainer", "Mp4jError",
         "Operand", "Operands", "Operator", "Operators", "meta",
         "trees_from_numpy"]
     for name in ytk_mp4j_tpu_torch.__all__:
@@ -197,5 +200,6 @@ def test_chip_smoke_alone_fails(tmp_path):
 
 def test_packaging_names_the_port():
     text = (REPO / "pyproject.toml").read_text()
-    assert 'ytk_mp4j_tpu_torch = ["ops/csrc/*.cu"]' in text
+    assert ('ytk_mp4j_tpu_torch = ["ops/csrc/*.cu", "csrc/*.cpp"]'
+            in text)
     assert re.search(r"torch\s*=\s*\[\s*\"torch", text)

@@ -12,7 +12,13 @@ the GBDT trainer over a mesh of members (``device.make_mesh`` /
 ``make_hier_mesh``) with zero-weight row padding and rank-order folds of
 the histograms and leaf sums, quantile binning (``models/binning.py``),
 ``train_raw`` / ``predict_raw``, model files either package loads, and
-the entry points (``entry.py``). It imports torch and numpy, never jax
+the entry points (``entry.py``). Slice 6: the sparse map plane
+(``ops/sparse.py``, ``comm/keycodec.py`` and the map family of
+``GpuCommCluster``), the FM/FFM trainer with a replicated or sharded
+embedding table (``models/fm.py``), the linear trainer
+(``models/linear.py``), streaming fits and the libsvm reader
+(``utils/libsvm.py``, with its native parser). It imports torch and
+numpy, never jax
 and nothing of ``ytk_mp4j_tpu``. Entry points run on ``cuda:0`` unless
 the caller passes ``device="cpu"``.
 """
@@ -20,11 +26,14 @@ the caller passes ``device="cpu"``.
 from ytk_mp4j_tpu_torch import meta
 from ytk_mp4j_tpu_torch.comm.gpu_comm import GpuCommCluster
 from ytk_mp4j_tpu_torch.exceptions import Mp4jError
+from ytk_mp4j_tpu_torch.models.fm import FMConfig, FMTrainer
 from ytk_mp4j_tpu_torch.models.gbdt import (GBDTConfig, GBDTTrainer,
                                             trees_from_numpy)
+from ytk_mp4j_tpu_torch.models.linear import LinearConfig, LinearTrainer
 from ytk_mp4j_tpu_torch.operands import Operand, Operands
 from ytk_mp4j_tpu_torch.operators import Operator, Operators
 
-__all__ = ["GBDTConfig", "GBDTTrainer", "GpuCommCluster", "Mp4jError",
+__all__ = ["FMConfig", "FMTrainer", "GBDTConfig", "GBDTTrainer",
+           "GpuCommCluster", "LinearConfig", "LinearTrainer", "Mp4jError",
            "Operand", "Operands", "Operator", "Operators", "meta",
            "trees_from_numpy"]

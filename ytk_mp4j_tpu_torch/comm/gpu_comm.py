@@ -21,8 +21,16 @@ Divergences from the reference, intended:
 - 8-byte operands need no switch (the reference needs jax x64);
 - under ``algo="rdma"`` a custom operator raises ``Mp4jError`` naming
   ``algo="ring"``: the kernel cannot run a Python function;
-- the map family, the ``i*`` futures and tracing are not ported yet
-  (ROADMAP).
+- the ``i*`` futures (``iallreduce_map`` among them) and tracing are
+  not ported yet: they ride the progress plane (ROADMAP).
+
+The map family (``allreduce_map`` ... ``scatter_map``, the reference's
+``tpu_comm.py:526-800``) keeps the keys on the host, coded by one
+persistent codec per key kind (``comm.keycodec``), and moves the values
+through the device as ``(code, value)`` member tensors reduced by
+``ops.sparse.sparse_allreduce``. ``allreduce_map_async`` copies the
+union's values into pinned host memory behind a CUDA event; the
+handle's ``result()`` waits on that event.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import numpy as np
 import torch
 
 from ytk_mp4j_tpu_torch import meta
+from ytk_mp4j_tpu_torch.comm import keycodec
 from ytk_mp4j_tpu_torch.device import make_mesh
 from ytk_mp4j_tpu_torch.exceptions import Mp4jError
 from ytk_mp4j_tpu_torch.operands import Operand, Operands, to_numpy, \
@@ -39,6 +48,38 @@ from ytk_mp4j_tpu_torch.operators import Operator, Operators
 from ytk_mp4j_tpu_torch.ops import collectives as coll
 from ytk_mp4j_tpu_torch.ops import ring as ring_ops
 from ytk_mp4j_tpu_torch.ops import ring_kernel
+from ytk_mp4j_tpu_torch.ops import sparse as sparse_ops
+
+
+class PendingMap:
+    """Deferred result of :meth:`GpuCommCluster.allreduce_map_async`.
+
+    The device reduction and the copy of its values into pinned host
+    memory are queued when this handle exists; :meth:`result` waits on
+    the copy's CUDA event, decodes, and writes the merged map into every
+    rank's dict (the synchronous call's post-state). Idempotent."""
+
+    def __init__(self, codec, codes, host_vals, event, maps):
+        self._codec = codec
+        self._codes = codes
+        self._vals = host_vals
+        self._event = event
+        self._maps = maps
+        self._done = False
+
+    def result(self):
+        if not self._done:
+            if self._codec is not None:
+                if self._event is not None:
+                    self._event.synchronize()
+                merged = GpuCommCluster._decode_union(
+                    self._codec, self._codes, to_numpy(self._vals))
+                for m in self._maps:
+                    m.clear()
+                    m.update(merged)
+                self._vals = None
+            self._done = True
+        return self._maps
 
 
 class GpuCommCluster:
@@ -51,6 +92,9 @@ class GpuCommCluster:
         self.mesh = make_mesh(n, device)
         self.n = self.mesh.n
         self.device = self.mesh.device
+        # persistent key<->code vocabularies of the map collectives
+        # (grow-only, one per key kind -- see comm.keycodec)
+        self._codecs: dict[str, object] = {}
 
     @property
     def slave_num(self) -> int:
@@ -290,6 +334,234 @@ class GpuCommCluster:
         for r, (s, e) in enumerate(ranges):
             arrs[r][s:e] = full[s - lo: e - lo]
         return arrs
+
+    # ------------------------------------------------------------------
+    # sparse map collectives: keys stay on the host, values ride the
+    # device as (code, value) member tensors through ops.sparse; each
+    # rank's dict is mutated in place, as the reference's maps
+    # ------------------------------------------------------------------
+    def _norm_maps(self, maps, operand: Operand):
+        if len(maps) != self.n:
+            raise Mp4jError(f"expected {self.n} per-rank maps, got "
+                            f"{len(maps)}")
+        for m in maps:
+            if not isinstance(m, dict):
+                raise Mp4jError(
+                    f"per-rank operands must be dicts, got "
+                    f"{type(m).__name__}")
+        self._check_operand(operand)
+        return maps
+
+    def _encode_maps(self, maps, operand: Operand, operator: Operator):
+        """Pack each rank's entries into SENTINEL-padded (code, value)
+        host buffers of one power-of-2 length through the cluster's
+        persistent codec. Returns ``(codec, idx, val, cap)`` with ``cap``
+        an upper bound on the union's unique codes, or None when every
+        map is empty."""
+        total = sum(len(m) for m in maps)
+        if total == 0:
+            return None
+        for m in maps:
+            if m:
+                k0 = next(iter(m))
+                vshape = np.shape(m[k0])
+                break
+        kind = keycodec.kind_of(k0)
+        codec = self._codecs.get(kind)
+        if codec is None:
+            codec = self._codecs[kind] = keycodec.codec_for_kind(kind)
+        # a power-of-2 slot count, as the reference's (whose compiled
+        # programs are keyed on it); padding is SENTINEL / identity
+        Lmax = keycodec.pow2_bucket(max(len(m) for m in maps))
+        ident = operator.identity(operand.dtype)
+        idx = np.full((self.n, Lmax), sparse_ops.SENTINEL, dtype=np.int32)
+        val = np.full((self.n, Lmax) + vshape, ident, dtype=operand.dtype)
+        for r, m in enumerate(maps):
+            c = len(m)
+            if c == 0:
+                continue
+            idx[r, :c] = codec.encode(m.keys(), c)
+            val[r, :c] = keycodec.pack_values(m.values(), c, vshape,
+                                              operand.dtype)
+        # every key of this call is in the vocabulary, so the union's
+        # unique-code count is bounded by both
+        return codec, idx, val, min(codec.size, total)
+
+    @staticmethod
+    def _decode_union(codec, codes, vals: np.ndarray) -> dict:
+        """Host-known union codes + the union's values (host) -> one
+        merged dict."""
+        return dict(zip(codec.decode(codes), list(vals[: codes.size])))
+
+    def _device_sparse_allreduce(self, idx, val, capacity, operator):
+        """The union's values on the device, [capacity, ...]: every
+        member holds the same union, so one row is returned."""
+        capacity = keycodec.pow2_bucket(capacity)
+        _oi, ov = sparse_ops.sparse_allreduce(
+            to_tensor(idx, self.device), to_tensor(val, self.device),
+            capacity, operator)
+        return ov[0]
+
+    @staticmethod
+    def _union_codes(idx: np.ndarray) -> np.ndarray:
+        """The union's code list, on the host: ``segment_reduce_sorted``
+        packs unique codes ascending with SENTINEL padding at the end --
+        ``np.unique`` of the staged buffers minus the sentinel -- so the
+        device's codes need no fetch."""
+        codes = np.unique(idx)
+        if codes.size and codes[-1] == sparse_ops.SENTINEL:
+            codes = codes[:-1]
+        return codes
+
+    def _reduced_union(self, maps, operand: Operand, operator: Operator):
+        """(codec, union codes, union values on the host) of the maps, or
+        None when every map is empty."""
+        enc = self._encode_maps(maps, operand, operator)
+        if enc is None:
+            return None
+        codec, idx, val, cap = enc
+        codes = self._union_codes(idx)
+        ov = self._device_sparse_allreduce(idx, val, cap, operator)
+        return codec, codes, to_numpy(ov[: codes.size])
+
+    def allreduce_map(self, maps, operand: Operand = Operands.DOUBLE,
+                      operator: Operator = Operators.SUM):
+        """Key-union reduce: every rank's dict becomes the union of all
+        keys with shared keys reduced by ``operator``."""
+        maps = self._norm_maps(maps, operand)
+        got = self._reduced_union(maps, operand, operator)
+        if got is None:
+            return maps
+        merged = self._decode_union(*got)
+        for m in maps:
+            m.clear()
+            m.update(merged)
+        return maps
+
+    def allreduce_map_async(self, maps,
+                            operand: Operand = Operands.DOUBLE,
+                            operator: Operator = Operators.SUM
+                            ) -> PendingMap:
+        """:meth:`allreduce_map` without the wait: the device reduction
+        and a non-blocking copy of the union's values into pinned host
+        memory are queued behind a CUDA event, and the returned handle's
+        ``result()`` waits on it, decodes and mutates the maps. Chained
+        calls overlap their host encodes with the device's work. The
+        input dicts must not change between the call and ``result()``."""
+        maps = self._norm_maps(maps, operand)
+        enc = self._encode_maps(maps, operand, operator)
+        if enc is None:
+            return PendingMap(None, None, None, None, maps)
+        codec, idx, val, cap = enc
+        codes = self._union_codes(idx)
+        ov = self._device_sparse_allreduce(idx, val, cap, operator)
+        ov = ov[: codes.size]
+        event = None
+        if ov.device.type == "cuda":
+            host = torch.empty(ov.shape, dtype=ov.dtype, pin_memory=True)
+            host.copy_(ov, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            ov = host
+        return PendingMap(codec, codes, ov, event, maps)
+
+    def reduce_map(self, maps, operand: Operand = Operands.DOUBLE,
+                   operator: Operator = Operators.SUM, root: int = 0):
+        """Key-union reduce into ``root``'s dict; others unchanged."""
+        self._check_root(root)
+        maps = self._norm_maps(maps, operand)
+        got = self._reduced_union(maps, operand, operator)
+        if got is None:
+            return maps
+        maps[root].clear()
+        maps[root].update(self._decode_union(*got))
+        return maps
+
+    def reduce_scatter_map(self, maps, operand: Operand = Operands.DOUBLE,
+                           operator: Operator = Operators.SUM):
+        """Key-union reduce, then each rank keeps the keys hashing to it
+        (``meta.key_partition``, the placement of every backend; the
+        codec caches it per code)."""
+        maps = self._norm_maps(maps, operand)
+        got = self._reduced_union(maps, operand, operator)
+        if got is None:
+            return maps
+        codec, codes, vals = got
+        parts = codec.partition(codes, self.n)
+        for r, m in enumerate(maps):
+            mine = parts == r
+            m.clear()
+            m.update(zip(codec.decode(codes[mine]), list(vals[mine])))
+        return maps
+
+    def allgather_map(self, maps, operand: Operand = Operands.DOUBLE):
+        """Disjoint union: every rank's dict becomes the union of all
+        ranks' entries. Duplicate keys raise (ambiguous without an
+        operator)."""
+        self.gather_map(maps, operand, root=0)
+        return self.broadcast_map(maps, operand, root=0)
+
+    def gather_map(self, maps, operand: Operand = Operands.DOUBLE,
+                   root: int = 0):
+        """Disjoint union into ``root``'s dict; others unchanged. A
+        duplicate key raises naming the key and both owner ranks."""
+        self._check_root(root)
+        maps = self._norm_maps(maps, operand)
+        total = sum(len(m) for m in maps)
+        union: dict = {}
+        for m in maps:
+            union.update(m)
+        if len(union) != total:
+            seen: dict = {}
+            for r, m in enumerate(maps):
+                for k in m:
+                    if k in seen:
+                        raise Mp4jError(
+                            f"gather_map: duplicate key {k!r} owned by "
+                            f"ranks {seen[k]} and {r}; use reduce_map "
+                            f"to combine")
+                    seen[k] = r
+        maps[root].clear()
+        maps[root].update(union)
+        return maps
+
+    def broadcast_map(self, maps, operand: Operand = Operands.DOUBLE,
+                      root: int = 0):
+        """Every rank's dict becomes a copy of ``root``'s."""
+        self._check_root(root)
+        maps = self._norm_maps(maps, operand)
+        src = dict(maps[root])
+        for r, m in enumerate(maps):
+            if r != root:
+                m.clear()
+                m.update(src)
+        return maps
+
+    def scatter_map(self, maps, operand: Operand = Operands.DOUBLE,
+                    root: int = 0, partitioner=None):
+        """Rank r receives the subset of ``root``'s entries whose keys
+        hash to r (``meta.key_partition``); ``partitioner(key) -> rank``
+        overrides the placement."""
+        self._check_root(root)
+        maps = self._norm_maps(maps, operand)
+        if partitioner is None:
+            partitioner = lambda k: meta.key_partition(k, self.n)  # noqa: E731
+        src = dict(maps[root])
+        shares: list[dict] = [{} for _ in range(self.n)]
+        for k, v in src.items():
+            shares[meta.check_partition_rank(partitioner(k), self.n,
+                                             k)][k] = v
+        for r, m in enumerate(maps):
+            m.clear()
+            m.update(shares[r])
+        return maps
+
+    def reset_map_vocabularies(self) -> None:
+        """Drop the persistent key<->code vocabularies (and their cached
+        partitions): on a long-lived cluster whose key space churns they
+        grow without bound. The next map collective rebuilds from the
+        live keys."""
+        self._codecs.clear()
 
     def barrier(self):
         """Wait until every member's queued work is done."""

@@ -3,12 +3,16 @@
 - :func:`entry` returns one GBDT boosting round (histograms + split +
   route + leaf update) with example arguments on one device, as the
   reference's ``entry`` returns a jittable step;
-- :func:`dryrun` runs, over n members on one device, the parts of the
-  reference's ``dryrun_multichip`` the port has: data-parallel GBDT over
+- :func:`dryrun` runs, over n members on one device, the whole of the
+  reference's ``dryrun_multichip``, in its order: data-parallel GBDT over
   a hierarchical mesh (flat where n is odd), the missing-bucket and
-  categorical configuration, ``train_raw`` -> ``predict_raw``, and the
-  dense allreduce under every algo. The map allreduce, FM and linear
-  models are not ported yet (ROADMAP queue 1, items 7 and 9).
+  categorical configuration, ``train_raw`` -> ``predict_raw``, the map
+  allreduce, the dense allreduce under every algo (the reference's
+  ring step is ``algo="ring"``'s schedule), FFM with sparse gradients --
+  replicated, then with the sharded table, whose losses must equal the
+  replicated ones at rtol 1e-4, then streamed one full batch a chunk,
+  replicated and sharded, equal to the full batch at rtol 1e-5 -- and the
+  softmax linear model.
 
 Both run on ``cuda:0`` unless given ``device="cpu"``.
 """
@@ -21,8 +25,10 @@ import torch
 from ytk_mp4j_tpu_torch.comm.gpu_comm import GpuCommCluster
 from ytk_mp4j_tpu_torch.device import make_device, make_hier_mesh, make_mesh
 from ytk_mp4j_tpu_torch.exceptions import Mp4jError
+from ytk_mp4j_tpu_torch.models.fm import FMConfig, FMTrainer
 from ytk_mp4j_tpu_torch.models.gbdt import (GBDTConfig, GBDTTrainer,
                                             train_tree_shard)
+from ytk_mp4j_tpu_torch.models.linear import LinearConfig, LinearTrainer
 from ytk_mp4j_tpu_torch.operands import Operands
 from ytk_mp4j_tpu_torch.operators import Operators
 
@@ -87,8 +93,15 @@ def dryrun(n_devices: int, device=None) -> None:
     _check(bool(torch.isfinite(tr3.predict_raw(Xr, trees3)).all()),
            "predict_raw not finite")
 
-    # the dense allreduce under every schedule
+    # the sparse-map allreduce over the same members
     cluster = GpuCommCluster(n_devices, mesh.device)
+    maps = [{f"w:{r % 3}": float(r)} for r in range(n_devices)]
+    cluster.allreduce_map(maps, Operands.FLOAT, Operators.SUM)
+    want_map = {f"w:{j}": float(sum(range(j, n_devices, 3)))
+                for j in range(min(3, n_devices))}
+    _check(all(m == want_map for m in maps), "map allreduce")
+
+    # the dense allreduce under every schedule
     want = sum(range(n_devices))
     for algo in ("xla", "ring", "rdma"):
         arrs = [np.full(16, float(r), np.float32) for r in range(n_devices)]
@@ -96,3 +109,39 @@ def dryrun(n_devices: int, device=None) -> None:
                                 algo=algo)
         _check(all(float(a[0]) == want for a in arrs),
                f"allreduce under {algo}")
+
+    _dryrun_fm_linear(make_mesh(n_devices, device))
+
+
+def _dryrun_fm_linear(mesh) -> None:
+    """FFM's sparse step over a flat mesh -- replicated, sharded,
+    streamed -- and the softmax linear step, on the reference's data."""
+    n = mesh.n
+    rng = np.random.default_rng(0)
+    fcfg = FMConfig(model="ffm", n_features=64, n_fields=2, k=2,
+                    max_nnz=2, learning_rate=0.1)
+    Nf = 8 * n
+    feats = rng.integers(0, 64, (Nf, 2)).astype(np.int32)
+    fields = np.tile(np.arange(2, dtype=np.int32), (Nf, 1))
+    vals = rng.standard_normal((Nf, 2)).astype(np.float32)
+    yf = rng.integers(0, 2, Nf).astype(np.float32)
+    _, flosses = FMTrainer(fcfg, mesh=mesh, sparse_grads=True).fit(
+        feats, fields, vals, yf, n_steps=2)
+    _check(bool(np.isfinite(flosses).all()), "FFM losses not finite")
+    sharded = FMTrainer(fcfg, mesh=mesh, sparse_grads=True,
+                        table_sharding="sharded")
+    _, slosses = sharded.fit(feats, fields, vals, yf, n_steps=2)
+    _check(np.allclose(slosses, flosses, rtol=1e-4, atol=1e-6),
+           "sharded FFM losses != replicated")
+    for tr in (FMTrainer(fcfg, mesh=mesh, sparse_grads=True), sharded):
+        _, stream = tr.fit_stream((feats, fields, vals, yf)
+                                  for _ in range(2))
+        _check(np.allclose(stream, flosses, rtol=1e-5, atol=1e-7),
+               f"{tr.table_sharding} FFM stream != full batch")
+
+    lcfg = LinearConfig(n_features=4, loss="softmax", n_classes=3,
+                        learning_rate=0.3)
+    xl = rng.standard_normal((8 * n, 4)).astype(np.float32)
+    yl = rng.integers(0, 3, 8 * n).astype(np.int32)
+    _, llosses = LinearTrainer(lcfg, mesh=mesh).fit(xl, yl, n_steps=2)
+    _check(bool(np.isfinite(llosses).all()), "linear losses not finite")

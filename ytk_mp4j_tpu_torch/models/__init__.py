@@ -1,1 +1,2 @@
-"""Model families of the port (GBDT and its quantile binning so far)."""
+"""Model families of the port: GBDT with its quantile binning, FM/FFM and
+linear."""

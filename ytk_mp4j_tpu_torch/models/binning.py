@@ -19,7 +19,7 @@ Intended divergences from the reference:
 - ``fit_distributed`` is not ported yet: it needs an SPMD comm exposing
   ``rank`` / ``slave_num`` / ``allgather_array``, which the port gets
   with the host planes or ``comm/distributed.py`` (ROADMAP queue 1,
-  items 10 and 12). ``local_sketch`` and ``merge_sketches``, its two
+  "Multi-process backend"). ``local_sketch`` and ``merge_sketches``, its two
   halves, are here.
 """
 

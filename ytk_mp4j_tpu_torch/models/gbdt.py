@@ -46,7 +46,8 @@ import torch
 from ytk_mp4j_tpu_torch.device import make_device
 from ytk_mp4j_tpu_torch.exceptions import Mp4jError
 from ytk_mp4j_tpu_torch.models._base import (DataParallelTrainer,
-                                             EarlyStopper, load_npz,
+                                             EarlyStopper, as_numpy,
+                                             as_tensor, load_npz,
                                              per_example_loss, save_npz,
                                              stage_softmax_labels)
 from ytk_mp4j_tpu_torch.models.binning import QuantileBinner
@@ -499,21 +500,6 @@ def predict_tree(bins, tree, cfg: GBDTConfig):
     return leaf_val[node.long()]
 
 
-def _as_tensor(a, dtype, device):
-    """A contiguous tensor of ``dtype`` on ``device``; numpy input is
-    copied (no copy for a tensor already in place)."""
-    if isinstance(a, torch.Tensor):
-        return a.to(device=device, dtype=dtype).contiguous()
-    np_dtype = {torch.int32: np.int32, torch.float32: np.float32}[dtype]
-    return torch.from_numpy(np.array(a, dtype=np_dtype)).to(device)
-
-
-def _as_numpy(a) -> np.ndarray:
-    if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
-    return np.asarray(a)
-
-
 # ----------------------------------------------------------------------
 # the trainer
 # ----------------------------------------------------------------------
@@ -541,20 +527,19 @@ class GBDTTrainer(DataParallelTrainer):
         host."""
         cfg = self.cfg
         dev = self.device
-        dbins = _as_tensor(bins, torch.int32, dev)
+        dbins = as_tensor(bins, torch.int32, dev)
         self._check_bins_width(dbins)
         N = dbins.shape[0]
         if cfg.loss == "softmax":
             dy = torch.from_numpy(stage_softmax_labels(
-                _as_numpy(y), cfg.n_classes)).to(dev)
+                as_numpy(y), cfg.n_classes)).to(dev)
         else:
-            dy = _as_tensor(y, torch.float32, dev)
+            dy = as_tensor(y, torch.float32, dev)
         if tuple(dy.shape) != (N,):
             raise Mp4jError(f"y must be [N={N}], got {tuple(dy.shape)}")
         (dbins, dy), _, dw = self._pad_rows([dbins, dy])
         if sample_weight is not None:
-            dw[:N] *= torch.from_numpy(
-                self._stage_weights(sample_weight, N)).to(dev)
+            dw[:N] *= self._weights(sample_weight, N)
         shape = ((dw.shape[0], cfg.n_classes) if cfg.loss == "softmax"
                  else (dw.shape[0],))
         dpreds = torch.zeros(shape, dtype=torch.float32, device=dev)
@@ -590,8 +575,8 @@ class GBDTTrainer(DataParallelTrainer):
             raise Mp4jError("early_stopping_rounds requires an eval_set")
         va = None
         if eval_set is not None:
-            va = (_as_tensor(eval_set[0], torch.int32, dev),
-                  _as_numpy(eval_set[1]))
+            va = (as_tensor(eval_set[0], torch.int32, dev),
+                  as_numpy(eval_set[1]))
             self._check_bins_width(va[0], "eval_set bins")
             va_margins = None
         stopper = EarlyStopper(early_stopping_rounds)
@@ -608,7 +593,7 @@ class GBDTTrainer(DataParallelTrainer):
             trees.append(tree)
             if va is not None:
                 va_margins = self._update_margins(va[0], tree, va_margins)
-                metric = self._eval_metric(_as_numpy(va_margins), va[1])
+                metric = self._eval_metric(as_numpy(va_margins), va[1])
                 # state: the margin snapshot matching the kept ensemble
                 if stopper.update(metric, i, state=dpreds):
                     if stopper.best_state is not None:
@@ -729,7 +714,7 @@ class GBDTTrainer(DataParallelTrainer):
         the trainer's device ([N], or [N, n_classes] for softmax);
         ``proba=True`` applies the sigmoid (logistic) or softmax."""
         cfg = self.cfg
-        bins = _as_tensor(bins, torch.int32, self.device)
+        bins = as_tensor(bins, torch.int32, self.device)
         self._check_bins_width(bins)
         shape = ((bins.shape[0], cfg.n_classes) if cfg.loss == "softmax"
                  else (bins.shape[0],))
@@ -752,8 +737,8 @@ class GBDTTrainer(DataParallelTrainer):
             per_class = (round_trees if self.cfg.loss == "softmax"
                          else (round_trees,))
             for tf, tb, _td, _lv in per_class:
-                real = _as_numpy(tb) != self.cfg.n_bins - 1
-                np.add.at(counts, _as_numpy(tf)[real], 1)
+                real = as_numpy(tb) != self.cfg.n_bins - 1
+                np.add.at(counts, as_numpy(tf)[real], 1)
         total = counts.sum()
         return (counts / total if total else
                 np.zeros(self.cfg.n_features)).astype(np.float64)
@@ -769,10 +754,10 @@ class GBDTTrainer(DataParallelTrainer):
             per_class = (round_trees if self.cfg.loss == "softmax"
                          else (round_trees,))
             for c, (tf, tb, td, lv) in enumerate(per_class):
-                arrays[f"feat_{i}_{c}"] = _as_numpy(tf)
-                arrays[f"bin_{i}_{c}"] = _as_numpy(tb)
-                arrays[f"dir_{i}_{c}"] = _as_numpy(td)
-                arrays[f"leaf_{i}_{c}"] = _as_numpy(lv)
+                arrays[f"feat_{i}_{c}"] = as_numpy(tf)
+                arrays[f"bin_{i}_{c}"] = as_numpy(tb)
+                arrays[f"dir_{i}_{c}"] = as_numpy(td)
+                arrays[f"leaf_{i}_{c}"] = as_numpy(lv)
         if binner is not None and binner.edges is not None:
             arrays["bin_edges"] = binner.edges
             arrays["bin_missing"] = np.bool_(binner.missing_bucket)

@@ -1,0 +1,264 @@
+"""Data-parallel linear models (the port of
+``ytk_mp4j_tpu/models/linear.py``): linear regression, logistic
+regression and multiclass softmax, over a mesh of members on one device.
+
+Member m trains on rows ``[m * per, (m + 1) * per)``; a batch is a tuple
+of ``[n, per, ...]`` tensors and the parameters are one replicated copy.
+One autograd pass over every member's rows gives the summed gradient the
+reference's explicit ``psum`` computes (it casts its parameters
+per-member so that the ``psum`` is the only cross-member sum, ``_mean_
+loss_grad:62``; here there is nothing to fold twice). The sums are
+divided by the total sample weight, so padding rows (weight 0) and
+integer instance weights train exactly like the unpadded, duplicated
+rows.
+
+Losses: ``squared``, ``logistic`` ({0, 1} labels) and ``softmax`` (w is
+[F, C], labels are class ids). L2 is a penalty gradient added before the
+momentum update (not on the bias); L1 a proximal shrink after the step.
+
+Intended divergences from the reference: ``predict`` returns a tensor on
+the device; no ``comm=`` argument and no ``LinearServable`` (they ride
+the host planes: ROADMAP queue 1, "What rides the host planes").
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ytk_mp4j_tpu_torch.device import make_mesh
+from ytk_mp4j_tpu_torch.exceptions import Mp4jError
+from ytk_mp4j_tpu_torch.models._base import (DataParallelTrainer,
+                                             EarlyStopper, as_numpy,
+                                             as_tensor, per_example_loss,
+                                             stage_softmax_labels)
+
+LOSSES = ("squared", "logistic", "softmax")
+
+
+@dataclass(frozen=True)
+class LinearConfig:
+    n_features: int
+    loss: str = "squared"
+    n_classes: int = 2          # used by loss="softmax" only
+    learning_rate: float = 0.1
+    l1: float = 0.0
+    l2: float = 0.0
+    momentum: float = 0.0
+
+    def __post_init__(self):
+        if self.loss not in LOSSES:
+            raise Mp4jError(f"loss must be one of {LOSSES}, got {self.loss!r}")
+        if self.loss == "softmax" and self.n_classes < 2:
+            raise Mp4jError("softmax needs n_classes >= 2")
+
+
+def _mean_loss_grad(params, x, y, sw, cfg: LinearConfig):
+    """The weighted-mean loss (data term only) and its gradient over
+    every member's rows ``x`` [..., F]."""
+    w, b = (p.detach().requires_grad_(True) for p in params)
+    with torch.enable_grad():
+        z = x @ w + b
+        sum_loss = torch.sum(per_example_loss(z, y, cfg.loss) * sw)
+        gw, gb = torch.autograd.grad(sum_loss, (w, b))
+    denom = torch.clamp(torch.sum(sw), min=1.0)
+    return sum_loss.detach() / denom, (gw / denom, gb / denom)
+
+
+def train_step_shard(params, vel, x, y, sw, cfg: LinearConfig):
+    """One optimization step over member batches. Returns (params, vel,
+    loss)."""
+    loss, (gw, gb) = _mean_loss_grad(params, x, y, sw, cfg)
+    w, b = params
+    gw = gw + cfg.l2 * w                      # L2 penalty (not on bias)
+    vw, vb = vel
+    vw = cfg.momentum * vw + gw
+    vb = cfg.momentum * vb + gb
+    w = w - cfg.learning_rate * vw
+    b = b - cfg.learning_rate * vb
+    if cfg.l1 > 0.0:
+        # proximal shrink keeps the objective smooth for momentum
+        shrink = cfg.learning_rate * cfg.l1
+        w = torch.sign(w) * torch.clamp(torch.abs(w) - shrink, min=0.0)
+    return (w, b), (vw, vb), loss
+
+
+def predict(params, x, cfg: LinearConfig):
+    w, b = params
+    z = x @ w + b
+    if cfg.loss == "logistic":
+        return torch.sigmoid(z)
+    if cfg.loss == "softmax":
+        return torch.softmax(z, dim=-1)
+    return z
+
+
+def _stage_params(params, device):
+    return tuple(torch.from_numpy(np.array(p, np.float32)).to(device)
+                 if not isinstance(p, torch.Tensor)
+                 else p.detach().to(device=device, dtype=torch.float32)
+                 for p in params)
+
+
+def params_from_numpy(params, cfg: LinearConfig, mesh=None):
+    """The reference's parameters ``(w, b)`` as numpy arrays (as
+    ``ytk_mp4j_tpu`` trains or loads them) as the port's, on ``mesh``'s
+    device (default: one member on ``cuda:0``)."""
+    mesh = make_mesh(1) if mesh is None else mesh
+    w, b = _stage_params(params, mesh.device)
+    want = ((cfg.n_features, cfg.n_classes) if cfg.loss == "softmax"
+            else (cfg.n_features,))
+    if tuple(w.shape) != want:
+        raise Mp4jError(f"w must be {want}, got {tuple(w.shape)}")
+    return w, b
+
+
+class LinearTrainer(DataParallelTrainer):
+    """Data-parallel linear/logistic/softmax regression over a mesh of
+    members (``mesh``, or ``n_devices`` members on ``device``; ``cuda:0``
+    unless ``device="cpu"``)."""
+
+    def __init__(self, cfg: LinearConfig, mesh=None, n_devices=None,
+                 device=None):
+        super().__init__(mesh, n_devices, device)
+        self.cfg = cfg
+        self.eval_history_: list[float] = []
+
+    def init_params(self):
+        cfg = self.cfg
+        dev = self.device
+        if cfg.loss == "softmax":
+            # w [F, C], b [C]: ytk-learn's multiclass_linear family
+            return (torch.zeros((cfg.n_features, cfg.n_classes),
+                                device=dev),
+                    torch.zeros((cfg.n_classes,), device=dev))
+        return (torch.zeros((cfg.n_features,), device=dev),
+                torch.zeros((), device=dev))
+
+    def _stage_x(self, x, what: str = "x"):
+        x = as_tensor(x, torch.float32, self.device)
+        if x.dim() != 2 or x.shape[1] != self.cfg.n_features:
+            raise Mp4jError(
+                f"{what} must be [N, {self.cfg.n_features}], got "
+                f"{tuple(x.shape)}")
+        return x
+
+    def _stage_labels(self, y):
+        """Labels must be a flat [N] vector (a column vector would
+        broadcast through the loss to [N, N] and train silently on
+        garbage); softmax labels are class ids validated in range."""
+        if not isinstance(y, torch.Tensor):
+            y = np.asarray(y)
+        if y.ndim != 1:
+            raise Mp4jError(f"y must be 1-D [N], got shape {tuple(y.shape)}")
+        if self.cfg.loss != "softmax":
+            return as_tensor(y, torch.float32, self.device)
+        return as_tensor(stage_softmax_labels(as_numpy(y),
+                                              self.cfg.n_classes),
+                         torch.int32, self.device)
+
+    def shard_data(self, x, y, sample_weight=None):
+        """Pad and shard ``x`` [N, F] and ``y`` [N] (numpy or tensors):
+        returns member tensors ``(x, y, sw)`` [n, per, ...]. Padding rows
+        weigh 0; ``sample_weight`` ([N]) scales each example's loss and
+        gradient (integer weights == row duplication)."""
+        x = self._stage_x(x)
+        y = self._stage_labels(y)
+        N = x.shape[0]
+        if y.shape[0] != N:
+            raise Mp4jError(f"y must be [N={N}], got {tuple(y.shape)}")
+        (x, y), per, sw = self._pad_rows([x, y])
+        if sample_weight is not None:
+            sw[:N] *= self._weights(sample_weight, N)
+        return self._members([x, y, sw], per)
+
+    def fit(self, x, y, n_steps: int = 100, params=None, eval_set=None,
+            early_stopping_rounds: int | None = None,
+            sample_weight=None):
+        """Run ``n_steps`` full-batch steps; returns (params, losses as
+        numpy). ``eval_set=(x_va, y_va)`` tracks the held-out loss per
+        step (``self.eval_history_``); ``early_stopping_rounds=k`` stops
+        after k non-improving steps and returns the best step's
+        params."""
+        if early_stopping_rounds is not None and eval_set is None:
+            raise Mp4jError("early_stopping_rounds requires an eval_set")
+        dx, dy, dsw = self.shard_data(x, y, sample_weight=sample_weight)
+        params = (self.init_params() if params is None
+                  else _stage_params(params, self.device))
+        vel = tuple(torch.zeros_like(p) for p in params)
+        va = None
+        if eval_set is not None:
+            x_va = self._stage_x(eval_set[0], "eval x")
+            y_va = self._stage_labels(eval_set[1])
+            if tuple(y_va.shape) != (x_va.shape[0],):
+                raise Mp4jError(f"eval y must be [{x_va.shape[0]}], got "
+                                f"{tuple(y_va.shape)}")
+            va = (x_va, y_va)
+        stopper = EarlyStopper(early_stopping_rounds)
+        self.eval_history_ = stopper.history
+        losses = []
+        for i in range(n_steps):
+            params, vel, loss = train_step_shard(params, vel, dx, dy, dsw,
+                                                 self.cfg)
+            losses.append(loss)
+            if va is not None and stopper.update(
+                    self._eval_loss(params, va), i, state=(params, vel)):
+                if stopper.best_state is not None:
+                    params, vel = stopper.best_state
+                    losses = losses[:stopper.best_round + 1]
+                break
+        if not losses:
+            return params, np.zeros(0, np.float32)
+        return params, torch.stack(losses).cpu().numpy()
+
+    def fit_stream(self, batches, params=None,
+                   batch_rows: int | None = None,
+                   max_in_flight: int = 2):
+        """Chunked (out-of-core) training: one step per ``(x, y)`` chunk
+        (or ``(x, y, w)`` with per-chunk instance weights;
+        ``utils.libsvm.dense_chunks`` adapts libsvm text). Chunks pad to
+        ``batch_rows`` (default: the first chunk, rounded up to the
+        member count) with zero-weight rows; momentum threads across
+        chunks; the loop double-buffers as ``FMTrainer.fit_stream``
+        (``max_in_flight=0`` runs the steps one after another). Returns
+        (params, per-chunk losses)."""
+        params = (self.init_params() if params is None
+                  else _stage_params(params, self.device))
+        state = [params, tuple(torch.zeros_like(p) for p in params)]
+
+        def dispatch(staged):
+            state[0], state[1], loss = train_step_shard(
+                state[0], state[1], *staged, self.cfg)
+            return loss
+
+        losses = self._stream_fit(batches, self._stage_stream_chunk,
+                                  dispatch, batch_rows, max_in_flight)
+        return state[0], losses
+
+    def _stage_stream_chunk(self, chunk, batch_rows: int | None):
+        """Host half of one stream step: validate, copy to the device,
+        pad to ``batch_rows`` (resolved from the first chunk)."""
+        x = self._stage_x(chunk[0])
+        y = self._stage_labels(chunk[1])
+        N = x.shape[0]
+        if batch_rows is None:
+            batch_rows = -(-N // self.n_shards) * self.n_shards
+        (x, y), sw, per = self._pad_stream_rows([x, y], batch_rows)
+        if len(chunk) > 2:
+            sw[:N] *= self._weights(chunk[2], N)
+        return self._members([x, y, sw], per), batch_rows
+
+    def _eval_loss(self, params, va) -> float:
+        w, b = params
+        x, y = va
+        return float(torch.mean(per_example_loss(x @ w + b, y,
+                                                 self.cfg.loss)))
+
+    def predict(self, params, x):
+        """Probabilities (logistic, softmax) or scores (squared), a
+        tensor on the device. ``params`` may be either package's."""
+        with torch.no_grad():
+            return predict(_stage_params(params, self.device),
+                           self._stage_x(x), self.cfg)

@@ -103,6 +103,24 @@ def reduce_scatter(x, operator: Operator = Operators.SUM):
         (x.shape[0], b) + tuple(x.shape[2:]))
 
 
+def all_to_all(x):
+    """Member m's block j goes to member j: ``x`` [n_src, n_dst, ...]
+    becomes [n_dst, n_src, ...], the transpose of the two member axes
+    (the reference's ``lax.all_to_all(x, split_axis=0, concat_axis=0,
+    tiled=False)``). A view: copy before writing into it."""
+    if x.dim() < 2 or x.shape[0] != x.shape[1]:
+        raise Mp4jError(
+            f"all_to_all takes [n, n, ...] member blocks, got "
+            f"{tuple(x.shape)}")
+    return x.transpose(0, 1)
+
+
+def flat_index(n: int, device):
+    """Each member's rank, [n] int64: row r is member r (the reference's
+    ``flat_index`` over the mesh axes)."""
+    return torch.arange(n, device=device)
+
+
 def barrier(device) -> None:
     """Members share one device: wait for its queued work."""
     if torch.device(device).type == "cuda":
