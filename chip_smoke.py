@@ -25,6 +25,11 @@ configs[0] -- ``GpuCommCluster(4).allreduce_array`` of 1M f32 SUM with
 over 4 members by the bidirectional kernel; configs[1] -- reduce-scatter
 then allgather of 256M f64 over 8 members on device tensors.
 
+Slice 7, the multi-process plane: ``init_distributed`` /
+``DistributedComm`` / ``global_mesh`` over ``torch.distributed``, each
+rank a process, GBDT over processes with the histograms and leaf sums
+folded across the ranks in rank order.
+
 Phases:
 
 1. build the kernels from the sources in this checkout (one ``nvcc``
@@ -80,18 +85,39 @@ Phases:
    5 calls), so the host's launch gap counts on no side; the older
    measure (CUDA events around each launch) is printed beside the
    kernel's;
-7. one JSON line of kernels, then the card's ``nvidia-smi`` line, then
+7. the FFM, map-plane and linear phases of slice 6 (no kernel of their
+   own);
+8. the multi-process plane, in worker processes of this script (fresh
+   interpreters, a ``file://`` store under ``.chipwork/``, a 300 s
+   deadline that kills every worker): (a) NCCL at world size 1 --
+   ``checkdist``'s checks on ``cuda:0``, then GBDT over ``global_mesh()``
+   at the headline shape, whose 3 timed trees and margins must equal
+   phase 3's one-member trees bitwise; (b) 4 processes on ``cuda:0`` with
+   ``backend="gloo"`` (NCCL refuses two ranks on one card), 2.75M rows
+   each of the same ``make_data`` draw: ``checkdist``'s checks, 1 warm-up
+   tree, 3 timed trees (18 histogram launches a process) whose trees and
+   margins must equal phase 4's ``make_mesh(4)`` trees bitwise, one more
+   tree with the host ms of every cross-process fold, the gather of a
+   level alone with every rank idle, and each process's peak device
+   memory. First, in this process, the histogram kernel over half the
+   rows with its scale seeded from all of them must give that half's
+   partial of one call bitwise. The workers hand the trainer the global rows as a
+   card tensor, as phases 3 and 4 do, so that no timed tree copies from
+   the host; the trainer takes a view of its own members' rows;
+9. one JSON line of kernels, then the card's ``nvidia-smi`` line, then
    the ``{"ok": true, ...}`` line last.
 
 Any failed check raises, and the script exits non-zero without the ok
 line; so it does where CUDA is absent or the package is not beside it.
 A longer record goes to ``chiprun_out/chip_smoke.json``.
 
-Usage: ``python3 chip_smoke.py`` from the repo root (no arguments).
+Usage: ``python3 chip_smoke.py`` from the repo root (no arguments; the
+script starts itself with ``--rank-worker`` for phase 8).
 """
 
 import json
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -138,6 +164,10 @@ HIST_KERNELS = ("absmax_kernel", "scan_kernel", "scatter_kernel",
                 "hist_kernel", "finalize_kernel")   # ops/csrc/hist_kernel.cu
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "chiprun_out")
+WORK_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        ".chipwork")
+PROCESSES = 4                      # phase 8 (b): gloo ranks on one card
+PROCESS_DEADLINE_S = 300
 
 
 def make_data(n, f, b, seed=0):
@@ -397,13 +427,14 @@ def split_line(rec):
 
 
 def record_levels(trainer, dbins, dy):
-    """Train one tree while keeping each histogram call's inputs."""
+    """Train one tree while keeping each histogram call's inputs (the
+    bins too: over processes they are the rank's rows)."""
     real = gbdt.build_histograms
     calls = []
 
-    def recorder(bins, g, h, node_ids, n_nodes, cfg):
-        calls.append((g, h, node_ids, n_nodes))
-        return real(bins, g, h, node_ids, n_nodes, cfg)
+    def recorder(bins, g, h, node_ids, n_nodes, cfg, absmax=None):
+        calls.append((bins, g, h, node_ids, n_nodes, absmax))
+        return real(bins, g, h, node_ids, n_nodes, cfg, absmax)
 
     gbdt.build_histograms = recorder
     try:
@@ -414,26 +445,36 @@ def record_levels(trainer, dbins, dy):
     return calls
 
 
-def phase_levels(dbins, calls):
+def level_errors(call):
+    """The kernel against its plain version on one recorded call (with
+    its fixed-point seed, where the path gave one): per plane (g, h), the
+    largest abs error and the tolerance it is held to, KERNEL_REL_TOL of
+    the plain version's largest magnitude."""
+    bins, g, h, ids, n_nodes, absmax = call
+    got = hk.histograms(bins, g, h, ids, n_nodes, F, B, absmax)
+    plain = hk.histograms_reference(bins, g, h, ids, n_nodes, F, B)
+    return [((a - p).abs().max().item(),
+             KERNEL_REL_TOL * p.abs().max().item())
+            for a, p in zip(got, plain)]
+
+
+def phase_levels(calls):
     """Per level, the kernel against its plain version on the inputs the
     main path gave it, and kernel / plain / bincount ms beside the bound.
     Returns (rows, the largest abs error against the plain version)."""
-    n = dbins.shape[0]
     rows = []
     max_abs = 0.0
-    for d, (g, h, ids, n_nodes) in enumerate(calls):
-        got = hk.histograms(dbins, g, h, ids, n_nodes, F, B)
-        plain = hk.histograms_reference(dbins, g, h, ids, n_nodes, F, B)
-        errs = [(a - p).abs().max().item() for a, p in zip(got, plain)]
-        for k in range(2):
-            check(errs[k] <= KERNEL_REL_TOL * plain[k].abs().max().item(),
-                  f"level {d} (n_nodes={n_nodes}) {'gh'[k]}: kernel vs "
-                  f"plain {errs[k]}")
-        err = max(errs)
+    for d, call in enumerate(calls):
+        dbins, g, h, ids, n_nodes, absmax = call
+        n = dbins.shape[0]
+        errs = level_errors(call)
+        for k, (e, tol) in enumerate(errs):
+            check(e <= tol, f"level {d} (n_nodes={n_nodes}) {'gh'[k]}: "
+                  f"kernel vs plain {e}")
+        err = max(e for e, _ in errs)
         max_abs = max(max_abs, err)
-        del got, plain
         kern = timed_ms(lambda: hk.histograms(dbins, g, h, ids, n_nodes,
-                                              F, B), 10)
+                                              F, B, absmax), 10)
         plain = timed_ms(lambda: hk.histograms_reference(
             dbins, g, h, ids, n_nodes, F, B), 2)
         lib = timed_ms(bincount_call(dbins, g, h, ids, n_nodes), 2)
@@ -559,11 +600,12 @@ def run_gbdt(dev, dbins, dy):
     trainer = GBDTTrainer(cfg)
     calls = record_levels(trainer, dbins, dy)        # warm-up tree
     check(len(calls) == DEPTH, f"{len(calls)} histogram calls in a tree")
-    _, _, rec = timed_trees(trainer, dbins, dy, "slice")
+    trees, margins, rec = timed_trees(trainer, dbins, dy, "slice")
+    save_reference("one_member", trees, margins)
     profile = profile_tree(trainer, dbins, dy)
     kernel_tree_equals_plain(dbins, dy)
 
-    rows, level_err = phase_levels(dbins, calls)
+    rows, level_err = phase_levels(calls)
     mean = {k: sum(r[k] for r in rows) / len(rows)
             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     line = {
@@ -594,11 +636,12 @@ def run_data_parallel(dbins, dy, one_member):
     trainer = GBDTTrainer(cfg, mesh=mesh)
     calls = record_levels(trainer, dbins, dy)        # warm-up tree
     want_nodes = [MEMBERS * max(1, 2 ** (d - 1)) for d in range(DEPTH)]
-    check([c[3] for c in calls] == want_nodes,
-          f"histogram calls at {[c[3] for c in calls]} nodes, want "
+    check([c[4] for c in calls] == want_nodes,
+          f"histogram calls at {[c[4] for c in calls]} nodes, want "
           f"{want_nodes}: one call a level over every member")
-    _, _, rec = timed_trees(trainer, dbins, dy,
-                            f"data-parallel slice ({MEMBERS} members)")
+    trees, margins, rec = timed_trees(
+        trainer, dbins, dy, f"data-parallel slice ({MEMBERS} members)")
+    save_reference("mesh4", trees, margins)
     rec["turns"] = in_turns(GBDTTrainer(cfg), trainer, dbins, dy)
     profile = profile_tree(trainer, dbins, dy, "tree_trace_members.json")
     check(profile["fold_ms"] > 0 and profile["leaf_sums_ms"] > 0,
@@ -623,7 +666,7 @@ def run_data_parallel(dbins, dy, one_member):
           "bitwise (run-to-run repeatability: the same code path)",
           flush=True)
 
-    rows, level_err = phase_levels(dbins, calls)
+    rows, level_err = phase_levels(calls)
     return dict(rec, members=MEMBERS, levels=rows, max_abs_err=level_err,
                 tree_profile=profile)
 
@@ -1355,6 +1398,225 @@ def run_linear(dev):
             "losses": losses.tolist()}
 
 
+# ----------------------------------------------------------------------
+# slice 7: the multi-process plane (worker processes of this script)
+# ----------------------------------------------------------------------
+def save_reference(name, trees, margins):
+    """A phase's timed trees and margins, for the workers of phase 8."""
+    os.makedirs(WORK_DIR, exist_ok=True)
+    with open(os.path.join(WORK_DIR, f"ref_{name}.pkl"), "wb") as f:
+        pickle.dump({"trees": [tuple(a.cpu() for a in t) for t in trees],
+                     "margins": margins.cpu()}, f)
+
+
+def rank_worker(job):
+    """One rank of a phase-8 job (``job``: the dict ``run_processes``
+    passes). Runs checkdist's checks, then GBDT over ``global_mesh()`` at
+    the headline shape: 1 warm-up tree whose histogram calls (this
+    rank's rows, the job's fixed-point seed) are each held against the
+    plain version, 3 timed trees between the launch counts, held bitwise
+    against the reference trees of ``job["ref"]``, and one more tree with
+    every cross-process fold timed. Writes its
+    record to ``job["out"]``; returns the job-wide exit code."""
+    from ytk_mp4j_tpu_torch.check import checkdist
+    from ytk_mp4j_tpu_torch.comm.distributed import (all_gather_rows,
+                                                     global_mesh,
+                                                     init_distributed)
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    comm = init_distributed(num_processes=job["world"],
+                            process_id=job["rank"],
+                            init_method=f"file://{job['store']}",
+                            backend=job["backend"], device=job["device"],
+                            timeout=PROCESS_DEADLINE_S)
+    rec = {"rank": comm.rank, "backend": comm.backend,
+           "init_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    fails = checkdist.run_checks(comm)
+    rec["checks_s"] = time.perf_counter() - t0
+    rec["check_failures"] = fails
+
+    bins, y = make_data(ROWS, F, B)
+    dbins = torch.from_numpy(bins).to(comm.device)
+    dy = torch.from_numpy(y).to(comm.device)
+    del bins, y
+    mesh = global_mesh()
+    cfg = GBDTConfig(n_features=F, n_bins=B, depth=DEPTH, loss="squared")
+    trainer = GBDTTrainer(cfg, mesh=mesh)
+    calls = record_levels(trainer, dbins, dy)            # warm-up tree
+    # every level's call of this rank (its rows, the job's seed) against
+    # the plain version; the cells the call gives unseeded that differ
+    lv_errs, rec["unseeded_cells_differing"] = [], []
+    for call in calls:
+        lv_errs.append(level_errors(call))
+        bins, g, h, ids, k, absmax = call
+        seeded = hk.histograms(bins, g, h, ids, k, F, B, absmax)
+        unseeded = hk.histograms(bins, g, h, ids, k, F, B)
+        rec["unseeded_cells_differing"].append(
+            [int((a != b).sum()) for a, b in zip(unseeded, seeded)])
+    rec["hist_seeded"] = all(c[5] is not None for c in calls)
+    rec["hist_max_abs_err"] = max(e for lv in lv_errs for e, _ in lv)
+    rec["hist_misses"] = [
+        f"level {d} {'gh'[k]}: kernel vs plain {e} > {tol}"
+        for d, lv in enumerate(lv_errs) for k, (e, tol) in enumerate(lv)
+        if not e <= tol]
+    del calls, seeded, unseeded
+    torch.cuda.synchronize()
+    # the peak of the trees alone; the allocator keeps its cached blocks,
+    # so the timed trees allocate as the warm-up tree left them
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    trees, margins, tree_s, host_s = train_timed(trainer, dbins, dy)
+    rec["launches"] = read_counts()["hist_kernel"]
+    rec["trees_per_s"] = 1 / tree_s
+    rec["host_s"] = host_s
+    with open(job["ref"], "rb") as f:
+        ref = pickle.load(f)
+    same = (len(trees) == len(ref["trees"]) and all(
+        torch.equal(a.cpu(), b) for t, r in zip(trees, ref["trees"])
+        for a, b in zip(t, r)))
+    rec["trees_equal"] = bool(same)
+    rec["margins_equal"] = bool(torch.equal(margins.cpu(), ref["margins"]))
+
+    # one more tree, every cross-process fold (gather and rank-order
+    # fold) timed on the host clock, synchronized
+    real = gbdt._fold_across
+    fold_ms = []
+
+    def timed_fold(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        fold_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    gbdt._fold_across = timed_fold
+    try:
+        trainer.train(dbins, dy, n_trees=1)
+    finally:
+        gbdt._fold_across = real
+    # one fold a level (g and h together), then one of the leaf sums
+    check(len(fold_ms) == DEPTH + 1, f"{len(fold_ms)} folds in a tree")
+    rec["fold_ms_levels"] = fold_ms[:DEPTH]
+    rec["fold_ms_leaves"] = fold_ms[DEPTH]
+    # the gather alone, every rank idle: a level's g and h partials at 1
+    # and 16 nodes, 10 gathers after a barrier
+    rec["idle_gather_ms"] = {}
+    for nodes in (1, 16):
+        x = torch.randn(nodes, 2, F, B, device=comm.device)
+        comm.barrier()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(10):
+            all_gather_rows(x, mesh.group)
+        torch.cuda.synchronize()
+        rec["idle_gather_ms"][nodes] = (time.perf_counter() - t) * 100
+    rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    ok = (fails == 0 and rec["launches"] == DEPTH * TIMED_TREES and same
+          and rec["margins_equal"] and rec["hist_seeded"]
+          and not rec["hist_misses"])
+    comm.close(0 if ok else 1)
+    rec["final_code"] = comm.final_code
+    with open(job["out"], "w") as f:
+        json.dump(rec, f)
+    return comm.final_code
+
+
+def run_processes(world, backend, ref, tag):
+    """Phase-8 job: ``world`` worker processes of this script on cuda:0,
+    meeting through a file store; every worker killed at the deadline.
+    Returns the ranks' records."""
+    store = os.path.join(WORK_DIR, f"store_{tag}")
+    if os.path.exists(store):
+        os.remove(store)
+    jobs = [{"world": world, "rank": r, "backend": backend, "store": store,
+             "device": "cuda:0",
+             "ref": os.path.join(WORK_DIR, f"ref_{ref}.pkl"),
+             "out": os.path.join(WORK_DIR, f"{tag}_rank{r}.json")}
+            for r in range(world)]
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank-worker",
+         json.dumps(j)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        env=env) for j in jobs]
+    deadline = time.monotonic() + PROCESS_DEADLINE_S
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0]
+                .decode(errors="replace"))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.communicate()
+        raise RuntimeError(f"{tag}: {world} workers passed the "
+                           f"{PROCESS_DEADLINE_S} s deadline")
+    took = time.perf_counter() - t0
+    with open(os.path.join(OUT_DIR, f"workers_{tag}.log"), "w") as f:
+        f.write("\n".join(f"--- rank {r}\n{log}"
+                          for r, log in enumerate(logs)))
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode:
+            print(log[-3000:], file=sys.stderr)
+            raise RuntimeError(f"{tag}: worker {r} exited {p.returncode}")
+    recs = []
+    for j in jobs:
+        with open(j["out"]) as f:
+            recs.append(json.load(f))
+    for rec in recs:
+        check(rec["backend"] == (backend or "nccl"),
+              f"{tag}: rank {rec['rank']} ran {rec['backend']}")
+        check(rec["check_failures"] == 0, f"{tag}: checkdist failed")
+        check(rec["hist_seeded"], f"{tag}: rank {rec['rank']}'s histogram "
+              "calls were not seeded with the job's scale")
+        check(not rec["hist_misses"], f"{tag}: rank {rec['rank']}: "
+              f"{rec['hist_misses']}")
+        check(rec["launches"] == DEPTH * TIMED_TREES,
+              f"{tag}: rank {rec['rank']} launched the kernel "
+              f"{rec['launches']} times, want {DEPTH * TIMED_TREES}")
+        check(rec["trees_equal"] and rec["margins_equal"],
+              f"{tag}: rank {rec['rank']}'s trees/margins != {ref}'s")
+    rate = min(rec["trees_per_s"] for rec in recs)
+    fold = np.mean([np.mean(rec["fold_ms_levels"]) for rec in recs])
+    err = max(rec["hist_max_abs_err"] for rec in recs)
+    differ = [int(np.sum(rec["unseeded_cells_differing"])) for rec in recs]
+    cells = 2 * F * B * (2 ** DEPTH - 1)      # g and h, every level's nodes
+    print(f"{tag}: {world} process(es), backend {recs[0]['backend']}, "
+          f"{took:.1f} s in all (checks {max(r['checks_s'] for r in recs):.1f}"
+          f" s); {TIMED_TREES} trees at {rate:.3f} trees/s (slowest rank), "
+          f"launches {[r['launches'] for r in recs]}, trees and margins "
+          f"bitwise {ref}'s; each rank's {DEPTH} seeded histogram calls "
+          f"vs plain: max abs err {err:.3e}; unseeded, {differ} of {cells} "
+          f"cells a rank would differ; cross-process fold {fold:.3f} ms a level (host, "
+          f"mean over levels and ranks; leaves "
+          f"{np.mean([r['fold_ms_leaves'] for r in recs]):.3f} ms); peak "
+          f"device memory {[round(r['peak_gib'], 2) for r in recs]} GiB; "
+          f"one gather of a level's g and h, every rank idle: "
+          f"{max(r['idle_gather_ms']['1'] for r in recs):.3f} ms at 1 node, "
+          f"{max(r['idle_gather_ms']['16'] for r in recs):.3f} ms at 16 "
+          "(slowest rank)", flush=True)
+    return {"world": world, "backend": recs[0]["backend"], "s": took,
+            "trees_per_s": rate, "fold_ms_level": fold, "max_abs_err": err,
+            "ranks": recs}
+
+
+def run_multiprocess(mesh4_rates):
+    """Phase 8: (a) NCCL at world size 1, (b) PROCESSES gloo ranks."""
+    nccl = run_processes(1, None, "one_member", "nccl1")
+    gloo = run_processes(PROCESSES, "gloo", "mesh4", f"gloo{PROCESSES}")
+    print(f"GBDT over {PROCESSES} gloo processes {gloo['trees_per_s']:.3f} "
+          f"trees/s against make_mesh({MEMBERS}) in this run "
+          f"{mesh4_rates['timed']:.3f} (timed set) / "
+          f"{mesh4_rates['turns']:.3f} (median in turns) trees/s; "
+          f"NCCL world 1 {nccl['trees_per_s']:.3f} trees/s", flush=True)
+    return {"nccl_world1": nccl, "gloo": gloo, "mesh4": mesh4_rates}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1388,12 +1650,22 @@ def main():
     slice6 = {"ffm_criteo": run_ffm_criteo(dev),
               "ffm_config4": run_ffm_config4(dev), "maps": run_maps(dev),
               "linear": run_linear(dev)}
+    slice7 = run_multiprocess({
+        "timed": dp_record["trees_per_s"],
+        "turns": dp_record["turns"]["members_median"]})
+    hist_entry["max_abs_err"] = max(hist_entry["max_abs_err"],
+                                    slice7["nccl_world1"]["max_abs_err"],
+                                    slice7["gloo"]["max_abs_err"])
+    hist_entry["process_path_launches"] = {
+        "nccl_world1": [r["launches"] for r in slice7["nccl_world1"]["ranks"]],
+        f"gloo{PROCESSES}": [r["launches"] for r in slice7["gloo"]["ranks"]]}
 
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": kind, "nvidia_smi": smi, "gbdt": gbdt_record,
                    "data_parallel": dp_record, "train_raw": raw_record,
                    "entry": entry_record, "ring": ring_record,
-                   "slice6": slice6, "kernels": kernels}, f, indent=1)
+                   "slice6": slice6, "slice7": slice7,
+                   "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -1403,4 +1675,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--rank-worker":
+        sys.exit(rank_worker(json.loads(sys.argv[2])))
     sys.exit(main())

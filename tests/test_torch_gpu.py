@@ -8,7 +8,10 @@ the binner's transform) and the collective driver; and the paths that
 have no kernel of their own -- the map collectives, the FM/FFM trainer on
 every gradient path, the linear trainer, their streaming fits and the
 libsvm parser's build -- on the card against the port's CPU path at small
-sizes. Every test skips where there is no CUDA device.
+sizes; and the multi-process plane (``checkdist`` under NCCL at world size
+1 and under gloo with two ranks on one card, two NCCL ranks on one card
+refused, the kernel's scale seeded from the job). Every test skips where
+there is no CUDA device.
 
 This file imports neither jax nor the JAX package and uses no fixture of
 tests/conftest.py, so it also runs where JAX is not installed:
@@ -635,3 +638,61 @@ def test_libsvm_parser_builds_on_the_cards_machine(tmp_path):
     got = native.parse_libsvm_chunk("\n".join(lines).encode(), 2, 3)
     for a, b in zip(got, _parse_chunk_slow(lines, [1, 2], 3)):
         assert a.tobytes() == b.tobytes()
+
+
+# ----------------------------------------------------------------------
+# the multi-process plane on the card
+# ----------------------------------------------------------------------
+def test_kernel_scale_seeded_from_a_larger_call(cuda):
+    """Over processes each rank histograms its own members' rows with the
+    job's max|g| and max|h| (``absmax``): a member's partial must then
+    equal its partial in one call over every member's rows, bitwise."""
+    N, F, B, k = 200_000, 28, 256, 4
+    bins, g, h, _ = _inputs(cuda, 2 * N, F, B, 0, 1)
+    g[N + 7] = 40.0                      # member 1 holds the largest |g|
+    nid = torch.from_numpy(np.random.default_rng(2).integers(
+        0, k, 2 * N).astype(np.int32)).to(cuda)
+    member = (torch.arange(2 * N, device=cuda) >= N).to(torch.int32)
+    whole = hk.histograms(bins, g, h, nid + member * k, 2 * k, F, B)
+    seed = hk.absmax_bits(g, h)
+    part = hk.histograms(bins[:N].contiguous(), g[:N].contiguous(),
+                         h[:N].contiguous(), nid[:N].contiguous(), k, F, B,
+                         seed)
+    for a, b in zip(part, whole):
+        assert torch.equal(a, b[:k])
+
+
+def _checkdist(tmp_path, world, backend=None, timeout=240):
+    """checkdist over ``world`` processes on cuda:0; their outputs."""
+    import sys
+
+    from torch_dist_worker import run_procs
+
+    store = tmp_path / "store"
+    extra = ["--backend", backend] if backend else []
+    return run_procs(lambda r: [
+        sys.executable, "-m", "ytk_mp4j_tpu_torch.check.checkdist",
+        "--init-method", f"file://{store}", "--num-processes", str(world),
+        "--process-id", str(r), "--device", "cuda:0"] + extra, world,
+        timeout=timeout)
+
+
+def test_checkdist_nccl_world_one(cuda, tmp_path):
+    """NCCL at world size 1: the dense and map families, the fold, GBDT
+    over the global mesh bitwise equal to make_mesh(1), binning."""
+    (log,) = _checkdist(tmp_path, 1)
+    assert "checkdist done (nccl on cuda:0): 0 failures" in log
+
+
+def test_checkdist_two_gloo_ranks_on_one_card(cuda, tmp_path):
+    logs = _checkdist(tmp_path, 2, "gloo")
+    assert all("checkdist done (gloo on cuda:0): 0 failures" in log
+               for log in logs)
+
+
+def test_two_nccl_ranks_on_one_card_raise(cuda, tmp_path):
+    """NCCL refuses two ranks on one card: both raise, neither hangs, and
+    nothing drops quietly to gloo."""
+    with pytest.raises(RuntimeError, match="processes failed") as info:
+        _checkdist(tmp_path, 2, timeout=120)
+    assert "gloo on" not in str(info.value)

@@ -85,7 +85,10 @@ def test_no_source_imports_jax_or_the_jax_package():
                  "comm/gpu_comm.py", "ops/ring.py", "ops/collectives.py",
                  "ops/ring_kernel.py", "models/binning.py", "entry.py",
                  "ops/sparse.py", "comm/keycodec.py", "models/fm.py",
-                 "models/linear.py", "utils/libsvm.py", "utils/native.py"):
+                 "models/linear.py", "utils/libsvm.py", "utils/native.py",
+                 "comm/distributed.py", "comm/context.py",
+                 "comm/progress.py", "check/checkdist.py",
+                 "check/_oracle.py", "utils/tuning.py"):
         assert PKG / name in files, name
     for path in files:
         assert not pat.search(path.read_text()), path

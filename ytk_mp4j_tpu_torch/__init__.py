@@ -17,8 +17,13 @@ the entry points (``entry.py``). Slice 6: the sparse map plane
 ``GpuCommCluster``), the FM/FFM trainer with a replicated or sharded
 embedding table (``models/fm.py``), the linear trainer
 (``models/linear.py``), streaming fits and the libsvm reader
-(``utils/libsvm.py``, with its native parser). It imports torch and
-numpy, never jax
+(``utils/libsvm.py``, with its native parser). Slice 7: the
+multi-process plane over ``torch.distributed`` (``comm/distributed.py``:
+``init_distributed``, ``DistributedComm``, ``global_mesh``), GBDT over
+processes with the histograms and leaf sums folded across the ranks in
+rank order, ``train(comm=)`` / ``train_raw(comm=)`` and
+``QuantileBinner.fit_distributed``, and the check program
+``check/checkdist.py``. It imports torch and numpy, never jax
 and nothing of ``ytk_mp4j_tpu``. Entry points run on ``cuda:0`` unless
 the caller passes ``device="cpu"``.
 """

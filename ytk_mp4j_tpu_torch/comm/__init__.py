@@ -1,1 +1,2 @@
-"""Device-path collective drivers of the port."""
+"""Collective backends of the port: the single-controller device cluster
+(``gpu_comm``) and the multi-process plane (``distributed``)."""

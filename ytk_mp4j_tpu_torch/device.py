@@ -10,8 +10,15 @@ rank r is row r of the members' ``[n, ...]`` tensors, the reference's
 members an ``(inter, intra)`` shape; ranks stay row-major with inter
 outermost, so member ``(i, j)`` is rank ``i * intra + j`` and a
 reduction over every member folds them in that flat order, as the
-reference's ``psum`` over the ``(inter, intra)`` axes tuple. The device
-list for members on several cards comes with a later slice.
+reference's ``psum`` over the ``(inter, intra)`` axes tuple.
+
+A mesh over several processes (``comm.distributed.global_mesh`` /
+``hier_global_mesh``) also holds the ``torch.distributed`` process group:
+each process holds the members ``[first, first + local)`` on its one
+device, and the members of all processes form the mesh in rank order.
+On a one-process mesh ``group`` is None and every member is local. The
+device list for members on several cards of one process comes with a
+later slice.
 """
 
 from __future__ import annotations
@@ -46,12 +53,22 @@ def make_device(device=None) -> torch.device:
 
 
 class Mesh(NamedTuple):
-    """n members on one device, in a flat ``(n,)`` or ``(inter, intra)``
-    shape."""
+    """n members in a flat ``(n,)`` or ``(inter, intra)`` shape; this
+    process holds members ``[first, first + n_local)`` on ``device``.
+    ``group`` is the process group of a mesh over several processes,
+    None on a one-process mesh (every member local)."""
 
     n: int
     device: torch.device
     shape: tuple
+    group: object = None
+    first: int = 0
+    local: int | None = None
+
+    @property
+    def n_local(self) -> int:
+        """Members held by this process."""
+        return self.n if self.local is None else self.local
 
 
 def _check_count(n, what: str, unit: str = "") -> None:

@@ -4,8 +4,10 @@ port of ``ytk_mp4j_tpu/models/binning.py``).
 ytk-learn's GBDT bins continuous features into <= 256 quantile buckets
 before it builds histograms. Bin edges are fitted on the host from (a
 row sample of) the data: the numpy code of the reference's ``fit``,
-``local_sketch``, ``_weighted_sketch`` and ``merge_sketches`` is copied
-here unchanged, so the edges are bitwise the reference's. The transform
+``local_sketch``, ``_weighted_sketch``, ``merge_sketches`` and
+``fit_distributed`` (over any comm with ``rank`` / ``slave_num`` /
+``allgather_array``, such as ``comm.distributed.DistributedComm``) is
+copied here unchanged, so the edges are bitwise the reference's. The transform
 runs on the device as the reference's comparison count, ``bin(x) =
 #edges <= x`` (:func:`bin_ids`, the port of ``_transform_device:561``),
 chunked by rows as the reference chunks it; its ids are bitwise the
@@ -15,12 +17,7 @@ Intended divergences from the reference:
 
 - ``transform`` returns an int32 tensor on the device (the reference
   returns numpy), and ``fit`` and ``transform`` also take a tensor, which
-  stays on its device: ``fit`` copies only its row sample to the host;
-- ``fit_distributed`` is not ported yet: it needs an SPMD comm exposing
-  ``rank`` / ``slave_num`` / ``allgather_array``, which the port gets
-  with the host planes or ``comm/distributed.py`` (ROADMAP queue 1,
-  "Multi-process backend"). ``local_sketch`` and ``merge_sketches``, its two
-  halves, are here.
+  stays on its device: ``fit`` copies only its row sample to the host.
 """
 
 from __future__ import annotations
@@ -33,6 +30,7 @@ import torch
 
 from ytk_mp4j_tpu_torch.device import make_device
 from ytk_mp4j_tpu_torch.exceptions import Mp4jError
+from ytk_mp4j_tpu_torch.operands import Operands
 
 
 class FeatureSketch(NamedTuple):
@@ -446,6 +444,65 @@ class QuantileBinner:
         self.edges = np.where(np.isnan(merged), np.float32(np.inf),
                               merged)
         return self
+
+    def fit_distributed(self, X_shard, comm,
+                        sample: int | None = 1_000_000, seed: int = 0,
+                        sample_weight=None):
+        """SPMD distributed fit: every rank calls this with ITS OWN shard
+        and an mp4j comm exposing ``rank`` / ``slave_num`` /
+        ``allgather_array``. One fixed-size allgather moves the sketches;
+        raw features never leave their rank. All ranks return fitted with
+        identical edges.
+
+        Each rank's segment leads with a (n_bins, missing_bucket, F)
+        header, checked after the allgather, and the segment sizes are
+        exchanged first: a binner-config or feature-count mismatch across
+        ranks raises on every rank instead of garbling the merge.
+        ``sample_weight`` weighs THIS rank's rows (see
+        :meth:`local_sketch`)."""
+        edges, counts, finite, cdfs = self.local_sketch(
+            X_shard, sample, seed, sample_weight=sample_weight)
+        F, E = edges.shape
+        n, r = comm.slave_num, comm.rank
+        hdr = np.asarray(
+            [self.n_bins, int(self.missing_bucket), F], np.float32)
+        H = len(hdr)
+        seg = H + 2 * F * E + 2 * F
+        # the segment length is itself config-dependent (F, E): a mismatch
+        # would shear the main allgather into misaligned blocks before any
+        # header could be read, so the sizes are exchanged first
+        sizes = np.zeros(n, np.float32)
+        sizes[r] = seg
+        comm.allgather_array(sizes, Operands.FLOAT)
+        if not (sizes == seg).all():
+            raise Mp4jError(
+                f"fit_distributed sketch-size mismatch across ranks: "
+                f"{sizes.astype(int).tolist()} (n_bins / missing_bucket "
+                f"/ feature-count differ)")
+        buf = np.zeros(n * seg, np.float32)
+        s = r * seg
+        o0, o1 = H, H + F * E               # values
+        o2 = o1 + F * E                      # cdf ordinates
+        o3, o4 = o2 + F, o2 + 2 * F          # counts | finite
+        buf[s: s + H] = hdr
+        buf[s + o0: s + o1] = edges.ravel()
+        buf[s + o1: s + o2] = cdfs.ravel()
+        buf[s + o2: s + o3] = counts
+        buf[s + o3: s + o4] = finite
+        comm.allgather_array(buf, Operands.FLOAT)
+        rows = buf.reshape(n, seg)
+        for p in range(n):
+            if not np.array_equal(rows[p, :H], hdr):
+                raise Mp4jError(
+                    f"fit_distributed config mismatch: rank {p} sent "
+                    f"(n_bins, missing_bucket, F) = "
+                    f"{rows[p, :H].astype(int).tolist()}, this rank has "
+                    f"{hdr.astype(int).tolist()}")
+        return self.merge_sketches(
+            rows[:, o0:o1].reshape(n, F, E),
+            rows[:, o2:o3],
+            rows[:, o3:o4],
+            cdf_stack=rows[:, o1:o2].reshape(n, F, E))
 
     def transform(self, X, device=None):
         """Continuous [N, F] -> int32 bin ids in [0, n_bins), as a

@@ -18,6 +18,20 @@ One histogram call a level covers every member, member m's node k as id
 reference's ``lax.psum``). Splits are chosen once on the folded sums, so
 every member holds the same tree, and routing runs once over all rows.
 
+Over processes (``comm.distributed.global_mesh`` / ``hier_global_mesh``)
+each process holds its members' rows on its own device and makes one
+histogram call a level over them; :func:`_fold_across` then gathers every
+rank's ``[n_local * k, ...]`` partials in rank order (the g and h planes
+in one gather) and folds all n members in rank order, exactly as one
+process folds n members, and the fixed-point
+scale of the histogram kernel is the job's (its max|g| and max|h| agreed
+by one MAX all-reduce a tree), so every member's partial is bitwise the
+one-process partial: trees and margins equal a one-process
+``make_mesh(n)``'s bit for bit. The gather moves n times the bytes of an
+allreduce; it is the price of the rank order (an NCCL or gloo
+all-reduce sums in its own order, and folding each process's members
+first would group the sums differently).
+
 Functions take tensors on an explicit device; :class:`GBDTTrainer` runs
 on ``cuda:0`` unless given a mesh or ``device="cpu"``. Trees are tuples
 of tensors ``(feat, bin, dir, leaf)`` in level-order heap layout, as in
@@ -32,8 +46,9 @@ Intended divergences from the reference:
   member, seeded from (seed, member), so subsampled trees differ from
   the reference's ``jax.random`` trees;
 - leaf sums accumulate in float64 and round once to float32;
-- no ``comm=`` argument (it needs ``StepStatsExchanger`` and the host
-  map plane) and no ``GBDTServable`` (the serve plane) yet.
+- over processes the trees and margins equal one process's bit for bit
+  (the reference's global mesh sums by ``psum``, in its own order);
+- no ``GBDTServable`` (the serve plane) yet.
 """
 
 from __future__ import annotations
@@ -46,11 +61,14 @@ import torch
 from ytk_mp4j_tpu_torch.device import make_device
 from ytk_mp4j_tpu_torch.exceptions import Mp4jError
 from ytk_mp4j_tpu_torch.models._base import (DataParallelTrainer,
-                                             EarlyStopper, as_numpy,
+                                             EarlyStopper,
+                                             StepStatsExchanger, as_numpy,
                                              as_tensor, load_npz,
                                              per_example_loss, save_npz,
                                              stage_softmax_labels)
+from ytk_mp4j_tpu_torch.comm.distributed import all_gather_rows, all_reduce_
 from ytk_mp4j_tpu_torch.models.binning import QuantileBinner
+from ytk_mp4j_tpu_torch.operators import Operators
 from ytk_mp4j_tpu_torch.ops import collectives as coll
 from ytk_mp4j_tpu_torch.ops import hist_kernel
 
@@ -147,7 +165,8 @@ class GBDTConfig:
 # ----------------------------------------------------------------------
 # one tree level: histograms, splits, routing
 # ----------------------------------------------------------------------
-def build_histograms(bins, g, h, node_ids, n_nodes: int, cfg: GBDTConfig):
+def build_histograms(bins, g, h, node_ids, n_nodes: int, cfg: GBDTConfig,
+                     absmax=None):
     """Per-(node, feature, bin) gradient/hessian sums.
 
     bins: [N, F] int32 (values in [0, B)); g, h: [N] f32; node_ids: [N]
@@ -155,12 +174,14 @@ def build_histograms(bins, g, h, node_ids, n_nodes: int, cfg: GBDTConfig):
     subtraction in :func:`_build_tree` passes a sentinel id for
     right-child samples and depends on this). Returns (hist_g, hist_h):
     [n_nodes, F, B] f32. ``hist_mode="pallas"`` goes through
-    ``ops.hist_kernel.histograms`` (the CUDA kernel on a CUDA tensor);
-    the other modes take its plain version on any device.
+    ``ops.hist_kernel.histograms`` (the CUDA kernel on a CUDA tensor,
+    ``absmax`` its fixed-point scale); the other modes take its plain
+    version on any device.
     """
     F, B = cfg.n_features, cfg.n_bins
     if cfg.hist_mode == "pallas":
-        return hist_kernel.histograms(bins, g, h, node_ids, n_nodes, F, B)
+        return hist_kernel.histograms(bins, g, h, node_ids, n_nodes, F, B,
+                                      absmax)
     return hist_kernel.histograms_reference(bins, g, h, node_ids, n_nodes,
                                             F, B)
 
@@ -291,18 +312,28 @@ def _fold(x, n_members: int):
     return coll.reduce_all(x.reshape((n_members, -1) + tuple(x.shape[1:])))
 
 
+def _fold_across(x, n_members: int, group):
+    """:func:`_fold` over every rank of a process ``group``: ``x`` holds
+    this rank's ``n_members`` members' partials; every rank's are gathered
+    in rank order, then all of them are folded in rank order."""
+    every = all_gather_rows(x, group)
+    return _fold(every.reshape((-1,) + tuple(x.shape[1:])),
+                 n_members * every.shape[0])
+
+
 # ----------------------------------------------------------------------
 # one boosting round (tree build)
 # ----------------------------------------------------------------------
 def _build_tree(bins, g, h, cfg: GBDTConfig, feat_mask=None,
-                n_members: int = 1):
+                n_members: int = 1, group=None):
     """Grow one tree from per-sample gradients/hessians over ``n_members``
     members, member m holding rows ``[m * per, (m + 1) * per)`` (N =
     n_members * per). Each level makes one histogram call for every
     member, member m's node k as id ``m * n_nodes + k``, and folds the
-    members in rank order (:func:`_fold`); the leaf sums likewise.
-    Returns (delta [N] -- the learning-rate-scaled leaf value each sample
-    receives -- and the tree)."""
+    members in rank order (:func:`_fold`); the leaf sums likewise. With a
+    process ``group`` these are this rank's members, and the folds cross
+    the ranks. Returns (delta [N] -- the learning-rate-scaled leaf value
+    each sample receives -- and the tree)."""
     N = bins.shape[0]
     dev = bins.device
     F, B = cfg.n_features, cfg.n_bins
@@ -317,9 +348,25 @@ def _build_tree(bins, g, h, cfg: GBDTConfig, feat_mask=None,
         """Member-local node ids in [0, k) -> ids in [0, n * k)."""
         return local if member is None else local + member * k
 
+    # over processes the kernel's fixed-point scale is the job's, so that
+    # each member's partial is the one a single call over every row gives
+    # (the plain version on the CPU has no scale)
+    absmax = None
+    if (group is not None and cfg.hist_mode == "pallas"
+            and dev.type == "cuda"):
+        absmax = all_reduce_(hist_kernel.absmax_bits(g, h), Operators.MAX,
+                             group)
+
+    def fold2(a, b):
+        """Fold the g and h planes of partials; across processes both ride
+        one gather (the same element-wise adds, one host round trip)."""
+        if group is None:
+            return _fold(a, n), _fold(b, n)
+        both = _fold_across(torch.stack([a, b], dim=1), n, group)
+        return both[:, 0].contiguous(), both[:, 1].contiguous()
+
     def reduced_histograms(ids, k):
-        hg_, hh_ = build_histograms(bins, g, h, ids, n * k, cfg)
-        return _fold(hg_, n), _fold(hh_, n)
+        return fold2(*build_histograms(bins, g, h, ids, n * k, cfg, absmax))
 
     node_ids = torch.zeros(N, dtype=torch.int32, device=dev)
     n_internal = 2 ** cfg.depth - 1
@@ -371,9 +418,8 @@ def _build_tree(bins, g, h, cfg: GBDTConfig, feat_mask=None,
 
     n_leaves = 2 ** cfg.depth
     leaf_g, leaf_h = (
-        _fold(s, n).float()
-        for s in _segment_sum2(g, h, member_ids(node_ids, n_leaves),
-                               n * n_leaves))
+        s.float() for s in fold2(*_segment_sum2(
+            g, h, member_ids(node_ids, n_leaves), n * n_leaves)))
     leaf_val = -leaf_g / (leaf_h + cfg.reg_lambda)
     delta = cfg.learning_rate * leaf_val[node_ids.long()]
     return delta, (tree_feat, tree_bin, tree_dir, leaf_val)
@@ -383,28 +429,34 @@ def _build_tree(bins, g, h, cfg: GBDTConfig, feat_mask=None,
 _MEMBER_SEED_STRIDE = 0x9E3779B97F4A7C15
 
 
-def member_generators(seed: int, n_members: int, device):
+def member_generators(seed: int, n_members: int, device, first: int = 0):
     """One ``torch.Generator`` on ``device`` per member, member m seeded
     with ``(seed + m * stride) mod 2**64`` -- the counterpart of the
-    reference folding the shard index into its key. Member 0 draws the
-    stream a one-member trainer draws from ``seed``."""
+    reference folding the shard index into its key -- for the global
+    members ``[first, first + n_members)``. Member 0 draws the stream a
+    one-member trainer draws from ``seed``."""
     gens = []
-    for m in range(n_members):
+    for m in range(first, first + n_members):
         gen = torch.Generator(device=device)
         gen.manual_seed((seed + m * _MEMBER_SEED_STRIDE) % 2 ** 64)
         gens.append(gen)
     return gens
 
 
-def _sampling_masks(generators, cfg: GBDTConfig, N: int, device):
+def _sampling_masks(generators, cfg: GBDTConfig, N: int, device,
+                    lead=None):
     """Per-tree stochastic-boosting masks. ``generators``: a sequence of
     ``torch.Generator`` on ``device``, one per member (one member: a list
     of one), member m's rows being the m-th of ``len`` equal blocks of N;
     None -> no masks.
 
     Returns (sample_scale [N] f32 | None, feat_mask [F] bool | None). The
-    feature mask comes from the first generator alone, so it is the same
+    feature mask comes from member 0's generator alone, so it is the same
     on every member; each member draws its rows' keeps from its own.
+    Member 0 is the first generator, or ``lead`` where this process holds
+    other members (a mesh over processes) and a feature mask is drawn:
+    ``lead`` draws the feature mask, then as many row keeps as member 0
+    draws, which it drops, so that its stream stays member 0's.
     Kept samples are scaled 1/subsample to keep gradient sums unbiased;
     at least one feature always survives (an all-dropped draw keeps one
     uniformly random feature)."""
@@ -412,16 +464,18 @@ def _sampling_masks(generators, cfg: GBDTConfig, N: int, device):
     feat_mask = None
     if generators is None:
         return sample_scale, feat_mask
+    gen0 = generators[0] if lead is None else lead
+    per = N // len(generators)
     if cfg.colsample < 1.0:
         F = cfg.n_features
-        keep = (torch.rand(F, generator=generators[0], device=device)
+        keep = (torch.rand(F, generator=gen0, device=device)
                 < cfg.colsample)
-        rescue = torch.randint(0, F, (), generator=generators[0],
-                               device=device)
+        rescue = torch.randint(0, F, (), generator=gen0, device=device)
         fallback = (torch.arange(F, device=device) == rescue) & ~keep.any()
         feat_mask = keep | fallback
     if cfg.subsample < 1.0:
-        per = N // len(generators)
+        if lead is not None:
+            torch.rand(per, generator=lead, device=device)
         keep = torch.cat([torch.rand(per, generator=gen, device=device)
                           for gen in generators]) < cfg.subsample
         sample_scale = keep.to(torch.float32) / cfg.subsample
@@ -429,7 +483,8 @@ def _sampling_masks(generators, cfg: GBDTConfig, N: int, device):
 
 
 def train_tree_shard(bins, y, preds, cfg: GBDTConfig, weights=None,
-                     generators=None, masks=None, n_members: int = 1):
+                     generators=None, masks=None, n_members: int = 1,
+                     group=None, lead=None):
     """One boosting round on these samples. Returns (new_preds, tree).
 
     ``weights`` ([N] f32, default all-ones) scales each sample's
@@ -439,7 +494,10 @@ def train_tree_shard(bins, y, preds, cfg: GBDTConfig, weights=None,
     masks when cfg.subsample/colsample < 1; ``masks=(sample_scale | None,
     feat_mask | None)`` hands them in ready-made instead (no generators
     and no masks -> full-data trees). ``n_members`` members hold equal
-    blocks of the rows, in rank order (see :func:`_build_tree`).
+    blocks of the rows, in rank order (see :func:`_build_tree`); with a
+    process ``group`` they are this rank's members, and ``lead`` is
+    member 0's generator where this rank does not hold member 0 and
+    cfg.colsample < 1 (see :func:`_sampling_masks`).
 
     Scalar objectives ("squared", "logistic"): preds/y are [N]; one tree
     is grown; tree = (feat, bin, dir, leaf) in level-order heap layout.
@@ -448,7 +506,8 @@ def train_tree_shard(bins, y, preds, cfg: GBDTConfig, weights=None,
     (g_c = p_c - 1[y=c], h_c = p_c (1 - p_c)); tree = a C-tuple.
     """
     if masks is None:
-        masks = _sampling_masks(generators, cfg, bins.shape[0], bins.device)
+        masks = _sampling_masks(generators, cfg, bins.shape[0], bins.device,
+                                lead)
     sample_scale, feat_mask = masks
     if sample_scale is not None:
         weights = (sample_scale if weights is None
@@ -465,7 +524,8 @@ def train_tree_shard(bins, y, preds, cfg: GBDTConfig, weights=None,
             if weights is not None:
                 g = g * weights
                 h = h * weights
-            delta, tree = _build_tree(bins, g, h, cfg, feat_mask, n_members)
+            delta, tree = _build_tree(bins, g, h, cfg, feat_mask, n_members,
+                                      group)
             deltas.append(delta)
             trees.append(tree)
         return preds + torch.stack(deltas, dim=1), tuple(trees)
@@ -480,7 +540,7 @@ def train_tree_shard(bins, y, preds, cfg: GBDTConfig, weights=None,
     if weights is not None:
         g = g * weights
         h = h * weights
-    delta, tree = _build_tree(bins, g, h, cfg, feat_mask, n_members)
+    delta, tree = _build_tree(bins, g, h, cfg, feat_mask, n_members, group)
     return preds + delta, tree
 
 
@@ -505,9 +565,12 @@ def predict_tree(bins, tree, cfg: GBDTConfig):
 # ----------------------------------------------------------------------
 class GBDTTrainer(DataParallelTrainer):
     """Data-parallel GBDT over a mesh of members (flat or hierarchical,
-    ``device.make_mesh`` / ``make_hier_mesh``). Without a mesh it runs
-    ``n_devices`` members (default 1) on ``device`` (default ``cuda:0``;
-    no CUDA and no ``device`` raises Mp4jError)."""
+    ``device.make_mesh`` / ``make_hier_mesh``, or over processes,
+    ``comm.distributed.global_mesh`` / ``hier_global_mesh``). Without a
+    mesh it runs ``n_devices`` members (default 1) on ``device`` (default
+    ``cuda:0``; no CUDA and no ``device`` raises Mp4jError)."""
+
+    over_processes = True
 
     def __init__(self, cfg: GBDTConfig, mesh=None, n_devices=None,
                  device=None):
@@ -520,26 +583,35 @@ class GBDTTrainer(DataParallelTrainer):
         """Stage ``bins`` [N, F] and labels [N] (numpy or tensors) on the
         mesh's device and pad them to ``n * per`` rows: member m's shard
         is rows ``[m * per, (m + 1) * per)``. Returns (bins, y, zero
-        margins, weights), all ``[n * per, ...]``. Padding rows get
-        weight 0, so they contribute nothing to histograms or leaves;
-        ``sample_weight`` ([N], numpy) scales the real rows. A tensor
-        already on the device is padded there, never copied to the
-        host."""
+        margins, weights), all ``[n_local * per, ...]``: this process's
+        members' rows (every member's on a one-process mesh; on a mesh
+        over processes every rank passes the same global arrays and only
+        its own rows are staged). Padding rows get weight 0, so they
+        contribute nothing to histograms or leaves; ``sample_weight``
+        ([N], numpy) scales the real rows. A tensor already on the device
+        is padded there, never copied to the host."""
         cfg = self.cfg
         dev = self.device
-        dbins = as_tensor(bins, torch.int32, dev)
-        self._check_bins_width(dbins)
-        N = dbins.shape[0]
+        if not isinstance(bins, torch.Tensor):
+            bins = np.asarray(bins)
+        self._check_bins_width(bins)
+        N = bins.shape[0]
         if cfg.loss == "softmax":
-            dy = torch.from_numpy(stage_softmax_labels(
-                as_numpy(y), cfg.n_classes)).to(dev)
+            y = stage_softmax_labels(as_numpy(y), cfg.n_classes)
+        elif not isinstance(y, torch.Tensor):
+            y = np.asarray(y)
+        if tuple(y.shape) != (N,):
+            raise Mp4jError(f"y must be [N={N}], got {tuple(y.shape)}")
+        dbins = as_tensor(self._local_rows(bins, N), torch.int32, dev)
+        y = self._local_rows(y, N)
+        if cfg.loss == "softmax":
+            dy = torch.from_numpy(y).to(dev)
         else:
             dy = as_tensor(y, torch.float32, dev)
-        if tuple(dy.shape) != (N,):
-            raise Mp4jError(f"y must be [N={N}], got {tuple(dy.shape)}")
-        (dbins, dy), _, dw = self._pad_rows([dbins, dy])
+        real = dy.shape[0]
+        (dbins, dy), _, dw = self._pad_rows([dbins, dy], N)
         if sample_weight is not None:
-            dw[:N] *= self._weights(sample_weight, N)
+            dw[:real] *= self._weights(sample_weight, N)
         shape = ((dw.shape[0], cfg.n_classes) if cfg.loss == "softmax"
                  else (dw.shape[0],))
         dpreds = torch.zeros(shape, dtype=torch.float32, device=dev)
@@ -547,25 +619,36 @@ class GBDTTrainer(DataParallelTrainer):
 
     def train(self, bins, y, n_trees: int | None = None, seed: int = 0,
               sample_weight: np.ndarray | None = None,
-              eval_set=None, early_stopping_rounds: int | None = None):
+              eval_set=None, early_stopping_rounds: int | None = None,
+              comm=None):
         """Full boosting run over the mesh; returns (trees, final
         margins) -- the margins of the padded rows (see
         :meth:`shard_data`; the first N are the input's), a tensor on the
         trainer's device, ``[n * per]`` for scalar objectives and ``[n *
-        per, n_classes]`` for softmax. ``bins`` and ``y`` may be numpy
-        arrays or tensors (a tensor already on the device is used without
-        a copy). ``seed`` seeds the members' ``torch.Generator`` streams
-        of the stochastic-boosting masks when cfg.subsample/colsample < 1
-        (same seed -> same trees); ``sample_weight`` ([N], numpy) scales
-        per-instance g/h contributions.
+        per, n_classes]`` for softmax (on a mesh over processes every
+        member's margins, gathered onto every rank). ``bins`` and ``y``
+        may be numpy arrays or tensors (a tensor already on the device is
+        used without a copy). ``seed`` seeds the members'
+        ``torch.Generator`` streams of the stochastic-boosting masks when
+        cfg.subsample/colsample < 1 (same seed -> same trees, on any mesh
+        of n members); ``sample_weight`` ([N], numpy) scales per-instance
+        g/h contributions.
 
         ``eval_set=(bins_va, y_va)`` evaluates the objective's metric on
-        the whole (unsharded) held-out data after every round (margins
-        updated incrementally, one tree per round); with
+        the whole (unsharded) held-out data after every round, on every
+        rank (margins updated incrementally, one tree per round); with
         ``early_stopping_rounds=k`` training stops after k rounds without
         improvement and the returned ensemble is truncated to the best
         round. The per-round metric history is ``self.eval_history_``
         afterwards.
+
+        ``comm`` (an mp4j comm; every rank calls ``train`` together) sums
+        each round's statistics across its ranks on the map plane (the
+        round count, and the eval metric when an ``eval_set`` is given):
+        the per-round job-wide means land in ``self.sync_round_history_``.
+        Under ``MP4J_OVERLAP=1`` the exchanges are drained at the end of
+        the boosting loop (the same trees: the stats are observational;
+        see ``models._base.StepStatsExchanger``).
         """
         cfg = self.cfg
         dev = self.device
@@ -582,46 +665,64 @@ class GBDTTrainer(DataParallelTrainer):
         stopper = EarlyStopper(early_stopping_rounds)
         self.eval_history_ = stopper.history
 
-        generators = None
+        mesh = self.mesh
+        generators = lead = None
         if cfg.subsample < 1.0 or cfg.colsample < 1.0:
-            generators = member_generators(seed, self.n_shards, dev)
+            generators = member_generators(seed, mesh.n_local, dev,
+                                           mesh.first)
+            if mesh.first and cfg.colsample < 1.0:
+                lead = member_generators(seed, 1, dev)[0]
+        exchanger = StepStatsExchanger(comm)
         trees = []
         for i in range(n_trees if n_trees is not None else cfg.n_trees):
-            dpreds, tree = train_tree_shard(dbins, dy, dpreds, cfg,
-                                            weights=dw, generators=generators,
-                                            n_members=self.n_shards)
+            dpreds, tree = train_tree_shard(
+                dbins, dy, dpreds, cfg, weights=dw, generators=generators,
+                n_members=mesh.n_local, group=mesh.group, lead=lead)
             trees.append(tree)
+            metric = None
             if va is not None:
                 va_margins = self._update_margins(va[0], tree, va_margins)
                 metric = self._eval_metric(as_numpy(va_margins), va[1])
+            # round k's job-wide stats ride the map plane
+            stats = {"trees": np.float64(1.0)}
+            if metric is not None:
+                stats["metric"] = np.float64(metric)
+            exchanger.submit_map(stats)
+            if metric is not None:
                 # state: the margin snapshot matching the kept ensemble
                 if stopper.update(metric, i, state=dpreds):
                     if stopper.best_state is not None:
                         trees = trees[:stopper.best_round + 1]
                         dpreds = stopper.best_state
                     break
-        return trees, dpreds
+        exchanger.drain()
+        self.sync_round_history_ = exchanger.mean_map_history()
+        return trees, self._gather_rows(dpreds)
 
     def train_raw(self, X, y, n_trees: int | None = None, seed: int = 0,
                   sample_weight: np.ndarray | None = None,
                   eval_set=None, early_stopping_rounds: int | None = None,
-                  binner=None, bin_sample: int | None = 1_000_000):
+                  binner=None, comm=None,
+                  bin_sample: int | None = 1_000_000):
         """The ytk-learn consumer entry point: RAW continuous features
         [N, F] (numpy, or a tensor, which stays on its device) ->
         quantile binning -> :meth:`train`, in one call.
 
         A :class:`~ytk_mp4j_tpu_torch.models.binning.QuantileBinner` with
         ``n_bins=cfg.n_bins`` and ``missing_bucket=cfg.missing_bin`` is
-        fitted on the host from a ``bin_sample``-row sample of X, then X
-        is binned on the trainer's device. NaN features flow to the
+        fitted on the host from a ``bin_sample``-row sample of X -- by
+        ``fit_distributed`` over ``comm`` where one with ``slave_num > 1``
+        is given (every rank calls ``train_raw`` together with its own X;
+        one allgather merges the ranks' sketches, and ``comm`` then syncs
+        the round stats as in :meth:`train`) -- and X is binned on the
+        trainer's device. NaN features flow to the
         missing bucket. The binner is kept as ``self.binner_`` and
         persisted by :meth:`save_model`; ``eval_set=(X_va, y_va)`` takes
         raw features, binned with the same edges. A pre-fitted ``binner``
         is used as it is. ``sample_weight`` weights both the quantile
         sketch and the boosting gradients. Returns ``(trees, margins)``
         like :meth:`train`; serve raw features with :meth:`predict_raw`.
-        The reference's ``comm=`` (a distributed fit over the host comm
-        plane) is not ported yet."""
+        """
         if binner is None:
             binner = QuantileBinner(n_bins=self.cfg.n_bins,
                                     missing_bucket=self.cfg.missing_bin)
@@ -641,8 +742,12 @@ class GBDTTrainer(DataParallelTrainer):
                 "bin-0 conventions must match or NaN routing silently "
                 "changes")
         if binner.edges is None:
-            binner.fit(X, sample=bin_sample, seed=seed,
-                       sample_weight=sample_weight)
+            if comm is not None and comm.slave_num > 1:
+                binner.fit_distributed(X, comm, sample=bin_sample, seed=seed,
+                                       sample_weight=sample_weight)
+            else:
+                binner.fit(X, sample=bin_sample, seed=seed,
+                           sample_weight=sample_weight)
         self.binner_ = binner
         if eval_set is not None:
             eval_set = (binner.transform(eval_set[0], self.device),
@@ -650,7 +755,7 @@ class GBDTTrainer(DataParallelTrainer):
         return self.train(
             binner.transform(X, self.device), y, n_trees=n_trees, seed=seed,
             sample_weight=sample_weight, eval_set=eval_set,
-            early_stopping_rounds=early_stopping_rounds)
+            early_stopping_rounds=early_stopping_rounds, comm=comm)
 
     def predict_raw(self, X, trees, proba: bool = False):
         """Serve RAW continuous features through the binner fitted by

@@ -207,7 +207,18 @@ def _check_inputs(bins, g, h, node_ids, n_nodes: int, F: int, B: int):
             raise Mp4jError(f"{name} must be contiguous")
 
 
-def histograms(bins, g, h, node_ids, n_nodes: int, F: int, B: int):
+def absmax_bits(g, h):
+    """[2] int32: the bits of max|g| and max|h| over every row, as the
+    kernel's first pass takes them (the bits of a non-negative float
+    order as the float does; a NaN's above +inf)."""
+    if g.numel() == 0:
+        return torch.zeros(2, dtype=torch.int32, device=g.device)
+    return torch.stack([(v.contiguous().view(torch.int32) & 0x7FFFFFFF).max()
+                        for v in (g, h)])
+
+
+def histograms(bins, g, h, node_ids, n_nodes: int, F: int, B: int,
+               absmax=None):
     """Per-(node, feature, bin) gradient/hessian sums.
 
     bins: [N, F] int32; g, h: [N] f32; node_ids: [N] int32 -- ids outside
@@ -215,8 +226,21 @@ def histograms(bins, g, h, node_ids, n_nodes: int, F: int, B: int):
     sibling subtraction passes a sentinel id for right-child rows); rows
     with g == h == 0 leave exact zeros. Returns (hist_g, hist_h):
     [n_nodes, F, B] f32. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (none when N == 0)."""
+    tensors launch the kernel (none when N == 0).
+
+    ``absmax`` ([2] int32 on the device, :func:`absmax_bits` of a larger
+    set of rows that holds these) seeds the kernel's max|g| and max|h|,
+    so that its fixed-point scale is that set's: the rows' sums are then
+    bitwise those of one call over the whole set (the GBDT trainer over
+    processes passes the job's). The plain version sums exactly in f64
+    and needs no scale."""
     _check_inputs(bins, g, h, node_ids, n_nodes, F, B)
+    if absmax is not None and (absmax.dtype != torch.int32
+                               or tuple(absmax.shape) != (2,)
+                               or absmax.device != bins.device):
+        raise Mp4jError(
+            f"absmax must be int32 [2] on {bins.device}, got "
+            f"{absmax.dtype} {tuple(absmax.shape)} on {absmax.device}")
     dev = bins.device
     if dev.type == "cpu":
         return histograms_reference(bins, g, h, node_ids, n_nodes, F, B)
@@ -243,6 +267,8 @@ def histograms(bins, g, h, node_ids, n_nodes: int, F: int, B: int):
         zero = torch.zeros(2 * total + 2 * lists + 1, dtype=torch.int64,
                            device=dev)
         acc, counts, cursor, flags = zero.split([2 * total, lists, lists, 1])
+        if absmax is not None:   # the first pass's atomicMax keeps the seed
+            flags.view(torch.int32).copy_(absmax)
         offsets = torch.empty(lists + 1, dtype=torch.int64, device=dev)
         recs = torch.empty((N, 4), dtype=torch.int32, device=dev)
         out = torch.empty((2, n_nodes, F, B), dtype=torch.float32,
