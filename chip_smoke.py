@@ -30,6 +30,10 @@ Slice 7, the multi-process plane: ``init_distributed`` /
 rank a process, GBDT over processes with the histograms and leaf sums
 folded across the ranks in rank order.
 
+Slice 8, FM/FFM and linear over processes: ``FMTrainer`` on its dense,
+sparse and sharded-table paths and ``LinearTrainer`` over
+``global_mesh()``, ``fit(comm=)`` (no kernel of their own).
+
 Phases:
 
 1. build the kernels from the sources in this checkout (one ``nvcc``
@@ -104,15 +108,32 @@ Phases:
    partial of one call bitwise. The workers hand the trainer the global rows as a
    card tensor, as phases 3 and 4 do, so that no timed tree copies from
    the host; the trainer takes a view of its own members' rows;
-9. one JSON line of kernels, then the card's ``nvidia-smi`` line, then
-   the ``{"ok": true, ...}`` line last.
+9. FM/FFM and linear over processes, in worker processes as phase 8:
+   (a) NCCL at world size 1 -- checkdist's FFM and dense-plane checks,
+   FFM at Criteo width on the sparse and sharded paths and linear over
+   the headline rows over ``global_mesh()``, each held against (and timed
+   beside) the same trainer on ``make_mesh(1)`` in the worker at rtol
+   1e-5; (b) 4 gloo processes on ``cuda:0``, 4,096 rows each of phase 7's
+   draw: the same checks, then each of the three FFM paths (``fit`` of 3
+   steps, losses held against phase 7's ``make_mesh(4)`` losses at rtol
+   1e-5; the replicated parameters bitwise equal on every rank; 1 warm-up
+   and 5 timed steps; one more step with the cross-process exchange timed
+   by part on the host clock: the dense all-reduce, the sparse gather,
+   the sharded fetch and return, the fold of the loss and w), the
+   sharded table gathered and its collective ``predict`` bitwise equal
+   on every rank and equal to a local scorer, each rank's peak memory;
+   linear over 4 ranks, 10 steps, against ``make_mesh(4)``; and
+   ``fit(comm=)`` on both families, whose ``sync_loss_history_`` must be
+   the mean of the ranks' losses. The phase's seconds are printed;
+10. one JSON line of kernels, then the card's ``nvidia-smi`` line, then
+    the ``{"ok": true, ...}`` line last.
 
 Any failed check raises, and the script exits non-zero without the ok
 line; so it does where CUDA is absent or the package is not beside it.
 A longer record goes to ``chiprun_out/chip_smoke.json``.
 
 Usage: ``python3 chip_smoke.py`` from the repo root (no arguments; the
-script starts itself with ``--rank-worker`` for phase 8).
+script starts itself with ``--rank-worker`` for phases 8 and 9).
 """
 
 import json
@@ -1200,6 +1221,20 @@ def ffm_small_card_equals_cpu():
               f"small FFM {name}: card {lc} != CPU {lp}")
 
 
+def criteo_data(cfg, dev):
+    """The FFM batch at Criteo width, drawn on the card from a seeded
+    generator: phase 7 and every process of phase 9 hold the same rows."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    K = cfg.max_nnz
+    return (torch.randint(0, cfg.n_features, (CRITEO_ROWS, K), device=dev,
+                          generator=gen, dtype=torch.int32),
+            torch.arange(K, dtype=torch.int32, device=dev).expand(
+                CRITEO_ROWS, K).contiguous(),
+            torch.ones((CRITEO_ROWS, K), device=dev),
+            torch.randint(0, 2, (CRITEO_ROWS,), device=dev,
+                          generator=gen).float())
+
+
 def run_ffm_criteo(dev):
     """FFM at Criteo width over 4 members: dense, sparse replicated and
     sparse sharded, the reference's equalities at this size (sparse ==
@@ -1209,15 +1244,8 @@ def run_ffm_criteo(dev):
     ffm_small_card_equals_cpu()
     cfg = FMConfig(**CRITEO)
     mesh = make_mesh(MEMBERS)
-    gen = torch.Generator(device=dev).manual_seed(0)
     K = cfg.max_nnz
-    data = (torch.randint(0, cfg.n_features, (CRITEO_ROWS, K), device=dev,
-                          generator=gen, dtype=torch.int32),
-            torch.arange(K, dtype=torch.int32, device=dev).expand(
-                CRITEO_ROWS, K).contiguous(),
-            torch.ones((CRITEO_ROWS, K), device=dev),
-            torch.randint(0, 2, (CRITEO_ROWS,), device=dev,
-                          generator=gen).float())
+    data = criteo_data(cfg, dev)
     t0 = time.perf_counter()
     p0 = FMTrainer(cfg, mesh=mesh).init_params(seed=0)
     init_s = time.perf_counter() - t0
@@ -1359,16 +1387,24 @@ def run_maps(dev):
             "int_chained_keys_s": c_rate}
 
 
+LINEAR_CFG = dict(n_features=F, loss="logistic", learning_rate=0.5)
+
+
+def linear_data(dev):
+    """The GBDT headline's rows as floats (bins / B) and labels (the
+    target > 0.5), on the card."""
+    bins, y = make_data(ROWS, F, B)
+    return (torch.from_numpy(bins).to(dev).float() / B,
+            (torch.from_numpy(y).to(dev) > 0.5).float())
+
+
 def run_linear(dev):
     """Logistic regression over the GBDT headline's rows as floats
     (bins / B; label bins[:, 0] / B + noise > 0.5), 4 members,
     LINEAR_STEPS steps: loss and steps/s; the first 100,000 rows' fit on
     the card equals the CPU's at rtol 1e-5."""
-    bins, y = make_data(ROWS, F, B)
-    x = torch.from_numpy(bins).to(dev).float() / B
-    yl = (torch.from_numpy(y).to(dev) > 0.5).float()
-    del bins, y
-    cfg = LinearConfig(n_features=F, loss="logistic", learning_rate=0.5)
+    x, yl = linear_data(dev)
+    cfg = LinearConfig(**LINEAR_CFG)
     tr = LinearTrainer(cfg, mesh=make_mesh(MEMBERS))
     tr.fit(x, yl, n_steps=1)                                  # warm-up
     torch.cuda.synchronize()
@@ -1524,17 +1560,18 @@ def rank_worker(job):
     return comm.final_code
 
 
-def run_processes(world, backend, ref, tag):
-    """Phase-8 job: ``world`` worker processes of this script on cuda:0,
-    meeting through a file store; every worker killed at the deadline.
-    Returns the ranks' records."""
+def spawn_workers(world, backend, tag, phase, **extra):
+    """``world`` worker processes of this script on cuda:0 (``--rank-worker``
+    with the job's dict: ``phase`` picks the worker function), meeting
+    through a file store under ``.chipwork/``; every worker killed at the
+    deadline. Their logs go to ``chiprun_out/workers_<tag>.log``. Returns
+    (the ranks' records, seconds)."""
     store = os.path.join(WORK_DIR, f"store_{tag}")
     if os.path.exists(store):
         os.remove(store)
-    jobs = [{"world": world, "rank": r, "backend": backend, "store": store,
-             "device": "cuda:0",
-             "ref": os.path.join(WORK_DIR, f"ref_{ref}.pkl"),
-             "out": os.path.join(WORK_DIR, f"{tag}_rank{r}.json")}
+    jobs = [dict(extra, world=world, rank=r, backend=backend, store=store,
+                 device="cuda:0", phase=phase,
+                 out=os.path.join(WORK_DIR, f"{tag}_rank{r}.json"))
             for r in range(world)]
     env = dict(os.environ, PYTHONUNBUFFERED="1")
     t0 = time.perf_counter()
@@ -1568,6 +1605,15 @@ def run_processes(world, backend, ref, tag):
     for j in jobs:
         with open(j["out"]) as f:
             recs.append(json.load(f))
+    return recs, took
+
+
+def run_processes(world, backend, ref, tag):
+    """Phase-8 job: ``world`` worker processes of this script on cuda:0
+    running :func:`rank_worker`; its checks. Returns the ranks'
+    records."""
+    recs, took = spawn_workers(world, backend, tag, 8,
+                               ref=os.path.join(WORK_DIR, f"ref_{ref}.pkl"))
     for rec in recs:
         check(rec["backend"] == (backend or "nccl"),
               f"{tag}: rank {rec['rank']} ran {rec['backend']}")
@@ -1617,6 +1663,328 @@ def run_multiprocess(mesh4_rates):
     return {"nccl_world1": nccl, "gloo": gloo, "mesh4": mesh4_rates}
 
 
+# ----------------------------------------------------------------------
+# slice 8: FM/FFM and linear over processes (worker processes)
+# ----------------------------------------------------------------------
+# the cross-process exchange of an FM step, by part: the module-level
+# function of models/fm.py that carries each (host ms, synchronized)
+FM_EXCHANGE = {"dense all-reduce": "_sum_table_grads",
+               "sparse gather": "_gather_updates",
+               "sharded fetch": "_fetch_rows_across",
+               "sharded return": "_return_grads_across",
+               "loss and w fold": "job_sum"}
+PROCESS_FM_TIMED = {"dense": FM_TIMED_STEPS, "sparse": FM_TIMED_STEPS,
+                    "sharded": FM_TIMED_STEPS}
+PREDICT_ROWS = 4096
+
+
+def exchange_timer(parts):
+    """Wrap the module functions of ``parts`` ({label: attribute of
+    models/fm.py}): each call's host ms, the card synchronized before and
+    after. Returns ({label: [ms]}, a function that unwraps them)."""
+    real = {label: getattr(fm_mod, attr) for label, attr in parts.items()}
+    ms = {label: [] for label in parts}
+
+    def timed(label):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real[label](*args, **kwargs)
+            torch.cuda.synchronize()
+            ms[label].append((time.perf_counter() - t) * 1e3)
+            return out
+        return call
+
+    for label, attr in parts.items():
+        setattr(fm_mod, attr, timed(label))
+
+    def restore():
+        for label, attr in parts.items():
+            setattr(fm_mod, attr, real[label])
+    return ms, restore
+
+
+def process_ffm_path(name, cfg, mesh, data, p0, timed_steps):
+    """One FFM gradient path over the processes of ``mesh``: ``fit``
+    (FM_FIT_STEPS, the public API; the losses phase 7 took over
+    ``make_mesh(4)``), the replicated parameters compared across the
+    ranks, then 1 warm-up and ``timed_steps`` steps timed (CUDA events),
+    and one more step with the cross-process exchange timed by part.
+    Returns (record, trainer, fitted params)."""
+    from ytk_mp4j_tpu_torch.check.checkdist import identical_across_ranks
+
+    tr = FMTrainer(cfg, mesh=mesh, **FM_PATHS[name])
+    params, losses = tr.fit(*data, n_steps=FM_FIT_STEPS, params=p0)
+    rec = {"losses": losses.tolist(), "finite": bool(
+        np.isfinite(losses).all())}
+    rec["replicated_bitwise"] = identical_across_ranks(
+        params[:2] if name == "sharded" else params, mesh.group)
+    rec["ms_per_step"], step, q, batch = trainer_step_ms(tr, data, p0,
+                                                         timed_steps)
+    ms, restore = exchange_timer(FM_EXCHANGE)
+    try:
+        step(q, batch)
+    finally:
+        restore()
+    rec["exchange_ms"] = {k: sum(v) for k, v in ms.items() if v}
+    del q, batch
+    return rec, tr, params
+
+
+def trainer_step_ms(tr, data, p0, steps):
+    """:func:`steps_ms` of an FM trainer's step on ``data`` from ``p0``;
+    returns (ms, step, params, batch)."""
+    batch = tr.shard_data(*data)
+    step = tr._step(int(batch[0].shape[1]) * tr.cfg.max_nnz)
+    q = tr._place_params(p0)
+    return steps_ms(step, q, batch, steps), step, q, batch
+
+
+def linear_fit_ms(tr, x, y):
+    """CUDA events around ``fit`` of LINEAR_STEPS steps, after a one-step
+    warm-up: (ms a step, params, losses)."""
+    tr.fit(x, y, n_steps=1)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    params, losses = tr.fit(x, y, n_steps=LINEAR_STEPS)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / LINEAR_STEPS, params, losses
+
+
+def comm_sync_ok(comm, dev):
+    """``fit(comm=)`` on both families, each rank on its own rows of
+    tests/test_trainer_overlap.py's data: ``sync_loss_history_`` equals
+    the mean of the ranks' losses (gathered here)."""
+    from ytk_mp4j_tpu_torch.device import make_mesh as mesh1
+
+    r, world = comm.rank, comm.slave_num
+    rng = np.random.default_rng(7)
+    cx = rng.standard_normal((64, 4)).astype(np.float32)
+    cy = cx @ np.array([1.0, -2.0, 0.5, 0.0], np.float32)
+    feats = np.random.default_rng(11).integers(0, 32, (48, 3)).astype(
+        np.int32)
+    fdata = (feats, np.broadcast_to(np.arange(3, dtype=np.int32) % 2,
+                                    (48, 3)).copy(),
+             np.ones((48, 3), np.float32),
+             ((feats[:, 0] + feats[:, 1]) % 2).astype(np.float32))
+    runs = [LinearTrainer(LinearConfig(n_features=4, loss="squared",
+                                       learning_rate=0.1),
+                          mesh=mesh1(1, dev)),
+            FMTrainer(FMConfig(n_features=32, n_fields=2, k=2, max_nnz=3,
+                               model="fm", learning_rate=0.3,
+                               init_scale=0.1), mesh=mesh1(1, dev))]
+    ok = True
+    for tr, data in zip(runs, ((cx, cy), fdata)):
+        _, losses = tr.fit(*(a[r::world] for a in data), n_steps=4,
+                           comm=comm)
+        buf = np.zeros(world * 4, np.float64)
+        buf[r * 4: (r + 1) * 4] = losses
+        comm.allgather_array(buf, Operands.DOUBLE)
+        mean = buf.reshape(world, 4).mean(0)
+        ok = ok and bool(np.allclose(tr.sync_loss_history_, mean,
+                                     rtol=1e-12, atol=0))
+    return ok
+
+
+def process_fm_worker(job):
+    """One rank of a phase-9 job: checkdist's FFM and dense-plane checks;
+    FFM at Criteo width over ``global_mesh()`` on each gradient path
+    (:func:`process_ffm_path`), the sharded table gathered and its
+    collective ``predict`` held against a local scorer; linear over the
+    headline rows; ``fit(comm=)``. At world size 1 each run is held
+    against the same trainer on ``make_mesh(1)`` here; over several
+    ranks the parent holds the losses against phase 7's ``make_mesh(4)``.
+    Writes its record to ``job["out"]``; returns the job-wide exit
+    code."""
+    from ytk_mp4j_tpu_torch.check import checkdist
+    from ytk_mp4j_tpu_torch.comm.distributed import (global_mesh,
+                                                     init_distributed)
+
+    torch.set_num_threads(1)
+    comm = init_distributed(num_processes=job["world"],
+                            process_id=job["rank"],
+                            init_method=f"file://{job['store']}",
+                            backend=job["backend"], device=job["device"],
+                            timeout=PROCESS_DEADLINE_S)
+    dev = comm.device
+    world = comm.slave_num
+    rec = {"rank": comm.rank, "backend": comm.backend, "ffm": {}}
+    t0 = time.perf_counter()
+    rec["check_failures"] = (checkdist.check_ffm_global_mesh(comm)
+                             + checkdist.check_ffm_round4_global_mesh(comm)
+                             + checkdist.check_dense_plane_timing(comm))
+    rec["checks_s"] = time.perf_counter() - t0
+
+    cfg = FMConfig(**CRITEO)
+    data = criteo_data(cfg, dev)
+    mesh = global_mesh()
+    p0 = FMTrainer(cfg, mesh=mesh).init_params(seed=0)  # the whole table
+    paths = ("sparse", "sharded") if world == 1 else tuple(FM_PATHS)
+    fitted = {}
+    for name in paths:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        r, tr, params = process_ffm_path(name, cfg, mesh, data, p0,
+                                         PROCESS_FM_TIMED[name])
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if world == 1:
+            one = FMTrainer(cfg, mesh=make_mesh(1), **FM_PATHS[name])
+            r["one_process_losses"] = one.fit(
+                *data, n_steps=FM_FIT_STEPS, params=p0)[1].tolist()
+            r["one_process_ms_per_step"] = trainer_step_ms(
+                one, data, p0, PROCESS_FM_TIMED[name])[0]
+            del one
+        if name == "sharded":
+            table = tr.full_table(params)                  # a collective
+            r["table_bitwise"] = checkdist.identical_across_ranks(
+                [torch.from_numpy(table).to(dev)], mesh.group)
+            r["table_vs_sparse"] = float(np.abs(
+                table - fitted["sparse"]).max())
+            rows = [a[:PREDICT_ROWS] for a in data[:3]]
+            got = tr.predict(params, *rows)                # a collective
+            want = FMTrainer(cfg, mesh=make_mesh(1)).predict(
+                (params[0], params[1], table), *rows)
+            r["predict_bitwise"] = checkdist.identical_across_ranks(
+                [got], mesh.group)
+            r["predict_max_diff"] = float((got - want).abs().max())
+            del table
+        elif name == "sparse":
+            fitted["sparse"] = tr.full_table(params)
+        rec["ffm"][name] = r
+        print(f"rank {comm.rank} FFM {name}: {r['ms_per_step']:.3f} ms a "
+              f"step; exchange {r['exchange_ms']}", flush=True)
+        del tr, params
+    del fitted, p0, data
+    torch.cuda.empty_cache()
+
+    x, yl = linear_data(dev)
+    lcfg = LinearConfig(**LINEAR_CFG)
+    torch.cuda.reset_peak_memory_stats()
+    ms, params, losses = linear_fit_ms(LinearTrainer(lcfg, mesh=mesh), x,
+                                       yl)
+    rec["linear"] = {"ms_per_step": ms, "losses": losses.tolist(),
+                     "bitwise": checkdist.identical_across_ranks(
+                         params, mesh.group),
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if world == 1:
+        ms, _, one = linear_fit_ms(LinearTrainer(lcfg, mesh=make_mesh(1)), x,
+                                   yl)
+        rec["linear"]["one_process_losses"] = one.tolist()
+        rec["linear"]["one_process_ms_per_step"] = ms
+    del x, yl
+    torch.cuda.empty_cache()
+    rec["comm_sync_ok"] = comm_sync_ok(comm, dev)
+    ffm = rec["ffm"]
+    ok = (rec["check_failures"] == 0 and rec["comm_sync_ok"]
+          and rec["linear"]["bitwise"]
+          and all(r["finite"] and r["replicated_bitwise"]
+                  for r in ffm.values())
+          and ffm["sharded"]["table_bitwise"]
+          and ffm["sharded"]["predict_bitwise"])
+    comm.close(0 if ok else 1)
+    rec["final_code"] = comm.final_code
+    with open(job["out"], "w") as f:
+        json.dump(rec, f)
+    return comm.final_code
+
+
+def losses_close(got, want, what):
+    check(np.allclose(got, want, rtol=1e-5, atol=1e-7),
+          f"{what}: losses {got} != {want} (rtol 1e-5)")
+
+
+def run_fm_processes(ffm_rec, linear_rec):
+    """Phase 9: (a) NCCL at world size 1, (b) PROCESSES gloo ranks on
+    cuda:0, each running :func:`process_fm_worker`; their checks."""
+    t0 = time.perf_counter()
+    out = {}
+    for tag, world, backend in (("fm_nccl1", 1, None),
+                                (f"fm_gloo{PROCESSES}", PROCESSES, "gloo")):
+        recs, took = spawn_workers(world, backend, tag, 9)
+        for rec in recs:
+            r = rec["rank"]
+            check(rec["backend"] == (backend or "nccl"),
+                  f"{tag}: rank {r} ran {rec['backend']}")
+            check(rec["check_failures"] == 0, f"{tag}: checkdist failed")
+            check(rec["comm_sync_ok"], f"{tag}: sync_loss_history_ != the "
+                  "mean of the ranks' losses")
+            check(rec["linear"]["bitwise"], f"{tag}: linear parameters "
+                  "differ across ranks")
+            for name, p in rec["ffm"].items():
+                check(p["finite"] and p["replicated_bitwise"],
+                      f"{tag}: rank {r} FFM {name}: non-finite losses or "
+                      "replicated parameters that differ across ranks")
+                want = (p["one_process_losses"] if world == 1
+                        else ffm_rec[name]["losses"])
+                losses_close(p["losses"], want, f"{tag} FFM {name}")
+            sh = rec["ffm"]["sharded"]
+            check(sh["table_bitwise"] and sh["predict_bitwise"],
+                  f"{tag}: the gathered table or predict differ across "
+                  "ranks")
+            check(sh["table_vs_sparse"] < 1e-4,
+                  f"{tag}: sharded table != replicated "
+                  f"({sh['table_vs_sparse']})")
+            check(sh["predict_max_diff"] < 1e-5,
+                  f"{tag}: sharded predict != local scorer "
+                  f"({sh['predict_max_diff']})")
+            losses_close(rec["linear"]["losses"],
+                         rec["linear"].get("one_process_losses",
+                                           linear_rec["losses"]),
+                         f"{tag} linear")
+        # the one-process yardstick: make_mesh(1) in the worker at world
+        # size 1, phase 7's make_mesh(4) over several ranks
+        one = ("make_mesh(1) in the worker" if world == 1
+               else f"phase 7's make_mesh({MEMBERS})")
+        paths = {}
+        for name in recs[0]["ffm"]:
+            parts = {}
+            for rec in recs:
+                for k, v in rec["ffm"][name]["exchange_ms"].items():
+                    parts[k] = max(parts.get(k, 0.0), v)
+            paths[name] = {
+                "ms_per_step": max(rec["ffm"][name]["ms_per_step"]
+                                   for rec in recs),
+                "one_process_ms_per_step": recs[0]["ffm"][name].get(
+                    "one_process_ms_per_step",
+                    ffm_rec[name]["ms_per_step"]),
+                "exchange_ms": parts,
+                "peak_gib": [rec["ffm"][name]["peak_gib"] for rec in recs]}
+        lin = max(rec["linear"]["ms_per_step"] for rec in recs)
+        lin_one = recs[0]["linear"].get("one_process_ms_per_step",
+                                        linear_rec["ms_per_step"])
+        out[tag] = {"world": world, "s": took, "ffm": paths,
+                    "linear_ms_per_step": lin,
+                    "linear_one_process_ms_per_step": lin_one,
+                    "linear_peak_gib": [rec["linear"]["peak_gib"]
+                                        for rec in recs],
+                    "ranks": recs}
+        print(f"{tag}: {world} process(es), backend "
+              f"{recs[0]['backend']}, {took:.1f} s in all (checks "
+              f"{max(r['checks_s'] for r in recs):.1f} s); FFM at Criteo "
+              "width, ms a step (slowest rank, CUDA events, "
+              f"{FM_TIMED_STEPS} steps after a warm-up) against {one}: "
+              + "; ".join(f"{n} {v['ms_per_step']:.3f} vs "
+                          f"{v['one_process_ms_per_step']:.3f}, exchange "
+                          + ", ".join(f"{k} {ms:.3f}" for k, ms in
+                                      v["exchange_ms"].items())
+                          + " ms (host, slowest rank), peak "
+                          f"{[round(g, 2) for g in v['peak_gib']]} GiB"
+                          for n, v in paths.items())
+              + f"; linear {lin:.3f} ms a step against {lin_one:.3f}, "
+              f"peak {[round(r['linear']['peak_gib'], 2) for r in recs]} "
+              f"GiB; losses within rtol 1e-5 of {one}; replicated "
+              "parameters bitwise on every rank; sync_loss_history_ == "
+              "the ranks' mean", flush=True)
+    s = time.perf_counter() - t0
+    print(f"phase 9 (FM/FFM and linear over processes): {s:.1f} s",
+          flush=True)
+    out["s"] = s
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1653,6 +2021,7 @@ def main():
     slice7 = run_multiprocess({
         "timed": dp_record["trees_per_s"],
         "turns": dp_record["turns"]["members_median"]})
+    slice8 = run_fm_processes(slice6["ffm_criteo"], slice6["linear"])
     hist_entry["max_abs_err"] = max(hist_entry["max_abs_err"],
                                     slice7["nccl_world1"]["max_abs_err"],
                                     slice7["gloo"]["max_abs_err"])
@@ -1664,7 +2033,7 @@ def main():
         json.dump({"device": kind, "nvidia_smi": smi, "gbdt": gbdt_record,
                    "data_parallel": dp_record, "train_raw": raw_record,
                    "entry": entry_record, "ring": ring_record,
-                   "slice6": slice6, "slice7": slice7,
+                   "slice6": slice6, "slice7": slice7, "slice8": slice8,
                    "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -1676,5 +2045,7 @@ def main():
 
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--rank-worker":
-        sys.exit(rank_worker(json.loads(sys.argv[2])))
+        job = json.loads(sys.argv[2])
+        worker = rank_worker if job["phase"] == 8 else process_fm_worker
+        sys.exit(worker(job))
     sys.exit(main())

@@ -257,18 +257,23 @@ def test_absmax_bits_follow_the_kernel_rule():
     assert all(torch.equal(x, z) for x, z in zip(a, b))
 
 
-def test_process_mesh_refused_by_the_other_trainers():
-    """Only GBDT trains over processes so far: a mesh with a process group
-    is refused by FM and linear rather than read as n local members."""
+def test_every_trainer_accepts_a_process_mesh():
+    """GBDT, FM and linear all train over processes: a mesh with a process
+    group is taken as it is, its local members and their device with it
+    (tests/test_torch_fm_procs.py and test_torch_linear_procs.py train
+    them over gloo jobs)."""
     from ytk_mp4j_tpu_torch.device import Mesh
-    from ytk_mp4j_tpu_torch.exceptions import Mp4jError
     from ytk_mp4j_tpu_torch.models.fm import FMConfig, FMTrainer
     from ytk_mp4j_tpu_torch.models.linear import LinearConfig, LinearTrainer
 
-    mesh = Mesh(2, torch.device("cpu"), (2,), object(), 0, 1)
-    with pytest.raises(Mp4jError, match="one-process mesh"):
-        LinearTrainer(LinearConfig(n_features=3), mesh=mesh)
-    with pytest.raises(Mp4jError, match="one-process mesh"):
-        FMTrainer(FMConfig(n_features=8, n_fields=2, k=2, max_nnz=2),
-                  mesh=mesh)
-    assert GBDTTrainer(GBDTConfig(n_features=3), mesh=mesh).mesh is mesh
+    mesh = Mesh(4, torch.device("cpu"), (2, 2), object(), 2, 2)
+    for tr in (GBDTTrainer(GBDTConfig(n_features=3), mesh=mesh),
+               LinearTrainer(LinearConfig(n_features=3), mesh=mesh),
+               FMTrainer(FMConfig(n_features=8, n_fields=2, k=2, max_nnz=2),
+                         mesh=mesh, sparse_grads=True,
+                         table_sharding="sharded")):
+        assert tr.mesh is mesh and tr.group is mesh.group
+        assert tr.n_shards == 4 and tr.device == mesh.device
+        # this process's members are global members 2 and 3: rows
+        # [2 * per, 4 * per) of the input, clipped to its N rows
+        assert tr._row_span(10) == (3, 6, 10)

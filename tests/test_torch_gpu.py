@@ -8,10 +8,13 @@ the binner's transform) and the collective driver; and the paths that
 have no kernel of their own -- the map collectives, the FM/FFM trainer on
 every gradient path, the linear trainer, their streaming fits and the
 libsvm parser's build -- on the card against the port's CPU path at small
-sizes; and the multi-process plane (``checkdist`` under NCCL at world size
-1 and under gloo with two ranks on one card, two NCCL ranks on one card
-refused, the kernel's scale seeded from the job). Every test skips where
-there is no CUDA device.
+sizes; the nonblocking family of the collective driver; and the
+multi-process plane (``checkdist`` under NCCL at world size 1 and under
+gloo with two ranks on one card -- GBDT, FFM on every gradient path and
+the dense plane over processes --, two NCCL ranks on one card refused,
+the kernel's scale seeded from the job, the in-order row adds that keep a
+replicated table identical on every rank). Every test skips where there
+is no CUDA device.
 
 This file imports neither jax nor the JAX package and uses no fixture of
 tests/conftest.py, so it also runs where JAX is not installed:
@@ -493,6 +496,61 @@ def test_gpu_comm_cluster_on_the_card(cuda):
     for a in arrs:
         np.testing.assert_allclose(a, exact, rtol=1e-5, atol=1e-5)
     cl.barrier()
+
+
+def test_gpu_comm_cluster_nonblocking_family_on_the_card(cuda):
+    """The i* twins equal their blocking twins bitwise on the card;
+    iallreduce_map is in flight, unresolved, until wait()."""
+    rng = np.random.default_rng(3)
+    cl = GpuCommCluster(3)
+    for name, twin in (("iallreduce", "allreduce_array"),
+                       ("ireduce_scatter", "reduce_scatter_array"),
+                       ("iallgather", "allgather_array"),
+                       ("igather", "gather_array")):
+        for operand in (Operands.FLOAT, Operands.LONG):
+            host = [rng.integers(1, 3, 1001).astype(operand.dtype)
+                    for _ in range(3)]
+            want = [a.copy() for a in host]
+            getattr(cl, twin)(want, operand)
+            got = [a.copy() for a in host]
+            getattr(cl, name)(got, operand).wait()
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a, b)
+    maps = [{int(k): float(k) for k in rng.integers(0, 900, 300)}
+            for _ in range(3)]
+    want = [dict(m) for m in maps]
+    cl.allreduce_map(want, Operands.DOUBLE)
+    fut = cl.iallreduce_map([dict(m) for m in maps], Operands.DOUBLE)
+    assert not fut.done()
+    for a, b in zip(fut.wait(), want):
+        assert a == b
+    cl.wait_all()
+
+
+def test_in_order_row_adds_repeat_bitwise_on_the_card(cuda):
+    """The replicated table's adds over processes (``fm._index_add`` with
+    ``in_order``): duplicate rows add in one fixed order, so two runs give
+    the same bits -- what keeps every rank's table identical -- and agree
+    with the CPU's stream-order ``index_add_`` to rounding: row 17 takes
+    666,667 adds, and two f32 orders of that many terms round apart by
+    about sqrt(666,667) * 2^-24 = 4.9e-5 of the sum."""
+    from ytk_mp4j_tpu_torch.models import fm
+
+    g = torch.Generator().manual_seed(0)
+    V = torch.randn(5000, 4, generator=g)
+    rows = torch.randint(0, 5000, (2_000_000,), generator=g,
+                         dtype=torch.int32)
+    rows[::3] = 17                       # one row everywhere
+    upd = torch.randn(rows.shape[0], 4, generator=g) * 1e-3
+    want = V.clone()
+    want.index_add_(0, rows.long(), upd)
+    runs = []
+    for _ in range(2):
+        Vc = V.to(cuda)
+        fm._index_add(Vc, rows.to(cuda), upd.to(cuda), in_order=True)
+        runs.append(Vc.cpu())
+    assert torch.equal(runs[0], runs[1])
+    torch.testing.assert_close(runs[0], want, rtol=1e-4, atol=1e-6)
 
 
 # ----------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Multi-process jobs of the port's ``torch.distributed`` plane for the
 tests (``test_torch_distributed.py``, ``test_torch_gbdt_procs.py``,
-``test_torch_binning_dist.py``).
+``test_torch_binning_dist.py``, ``test_torch_fm_procs.py``,
+``test_torch_linear_procs.py``).
 
 :func:`run_job` starts ``world`` fresh interpreters (``subprocess``, never a
 fork) that meet through a ``file://`` store under the caller's temporary
@@ -25,6 +26,7 @@ import time
 from pathlib import Path
 
 import numpy as np
+import torch
 
 REPO = Path(__file__).resolve().parent.parent
 JOB_TIMEOUT_S = 180.0
@@ -362,13 +364,172 @@ def scenario_binning(comm, out: Path) -> dict:
     return res
 
 
+def _mesh(intra: int):
+    from ytk_mp4j_tpu_torch.comm.distributed import (global_mesh,
+                                                     hier_global_mesh)
+
+    return hier_global_mesh(intra, "cpu") if intra else global_mesh("cpu")
+
+
+def _host(params):
+    return [np.asarray(p.numpy() if hasattr(p, "numpy") else p)
+            for p in params]
+
+
+def _fit_case(tr, case, comm):
+    """One case's run: ``fit`` or ``fit_stream`` over the case's data."""
+    if case.get("chunks") is not None:
+        return tr.fit_stream(iter(case["chunks"]), **case["fit"])
+    return tr.fit(*case["data"], **case["fit"])
+
+
+def _comm_runs(comm, make_trainer, cases, res):
+    """``fit(comm=)`` under MP4J_OVERLAP=0 and 1: each rank trains its own
+    rows on a one-member mesh (``rank_data``) and over the processes
+    (``data``); their params, losses and ``sync_loss_history_``."""
+    for flag in ("0", "1"):
+        os.environ["MP4J_OVERLAP"] = flag
+        for name, case in cases.items():
+            for where in ("rank", "global"):
+                tr = make_trainer(case, where)
+                data = (case["rank_data"][comm.rank] if where == "rank"
+                        else case["data"])
+                params, losses = tr.fit(*data, comm=comm, **case["fit"])
+                res["comm", name, where, flag] = {
+                    "params": _host(params), "losses": losses,
+                    "sync": tr.sync_loss_history_}
+    os.environ.pop("MP4J_OVERLAP")
+
+
+def scenario_fm(comm, out: Path) -> dict:
+    """FM/FFM over every process on the cases the test process wrote
+    (``fm_cases.pkl``): per case the losses, the replicated parameters,
+    this process's table and the gathered table, ``predict`` (a
+    collective on the sharded table) and the eval history; ``fit(comm=)``;
+    rank 0's model file; ``params_from_numpy`` on the process mesh."""
+    from ytk_mp4j_tpu_torch.device import make_mesh
+    from ytk_mp4j_tpu_torch.models.fm import (FMConfig, FMTrainer,
+                                              params_from_numpy)
+
+    with open(out.parent / "fm_cases.pkl", "rb") as f:
+        cases = pickle.load(f)
+    res: dict = {}
+    for name, case in cases["fit"].items():
+        mesh = _mesh(case["intra"])
+        tr = FMTrainer(FMConfig(**case["cfg"]), mesh=mesh, **case["path"])
+        params, losses = _fit_case(tr, case, comm)
+        res[name] = {"losses": losses, "params": _host(params),
+                     "table": tr.full_table(params),
+                     "predict": tr.predict(params,
+                                           *case["data"][:3]).numpy(),
+                     "eval_history": list(tr.eval_history_),
+                     "n_local": mesh.n_local}
+
+    def fm_trainer(case, where):
+        mesh = make_mesh(1, "cpu") if where == "rank" else _mesh(0)
+        return FMTrainer(FMConfig(**case["cfg"]), mesh=mesh, **case["path"])
+
+    _comm_runs(comm, fm_trainer, cases["comm"], res)
+    # every rank saves the sharded table; only rank 0 writes
+    case = cases["save"]
+    tr = FMTrainer(FMConfig(**case["cfg"]), mesh=_mesh(0), **case["path"])
+    params, _ = tr.fit(*case["data"], **case["fit"])
+    tr.save_params(str(out / f"fm_rank{comm.rank}.npz"), params)
+    comm.barrier()
+    res["saved"] = sorted(p.name for p in out.glob("fm_rank*.npz"))
+    res["save_table"] = tr.full_table(params)
+    # the reference's numpy parameters onto the process mesh: each
+    # process takes its members' blocks
+    cfg = FMConfig(**case["cfg"])
+    for intra in (0, 2):
+        mesh = _mesh(intra)
+        pp = params_from_numpy(case["host_params"], cfg, "sharded", mesh)
+        tr = FMTrainer(cfg, mesh=mesh, **case["path"])
+        res["from_numpy", intra] = {
+            "block": pp[2].numpy(), "table": tr.full_table(pp),
+            "predict": tr.predict(pp, *case["data"][:3]).numpy()}
+    comm.close(0)
+    return res
+
+
+def scenario_linear(comm, out: Path) -> dict:
+    """Linear over every process on the cases the test process wrote
+    (``linear_cases.pkl``): losses, parameters, ``predict`` and the eval
+    history of each case; ``fit(comm=)``."""
+    from ytk_mp4j_tpu_torch.device import make_mesh
+    from ytk_mp4j_tpu_torch.models.linear import (LinearConfig,
+                                                  LinearTrainer,
+                                                  params_from_numpy)
+
+    with open(out.parent / "linear_cases.pkl", "rb") as f:
+        cases = pickle.load(f)
+    res: dict = {}
+    for name, case in cases["fit"].items():
+        mesh = _mesh(case["intra"])
+        tr = LinearTrainer(LinearConfig(**case["cfg"]), mesh=mesh)
+        params, losses = _fit_case(tr, case, comm)
+        res[name] = {"losses": losses, "params": _host(params),
+                     "predict": tr.predict(params, case["data"][0]).numpy(),
+                     "eval_history": list(tr.eval_history_)}
+
+    def linear_trainer(case, where):
+        mesh = make_mesh(1, "cpu") if where == "rank" else _mesh(0)
+        return LinearTrainer(LinearConfig(**case["cfg"]), mesh=mesh)
+
+    _comm_runs(comm, linear_trainer, cases["comm"], res)
+    case = cases["fit"]["squared"]
+    pp = params_from_numpy(res["squared"]["params"],
+                           LinearConfig(**case["cfg"]), _mesh(0))
+    res["from_numpy"] = _host(pp)
+    comm.close(0)
+    return res
+
+
+def scenario_checks(comm, out: Path) -> dict:
+    """The three checks of checkdist ported with the FM and linear planes,
+    as they are and each with a fault planted: FFM's denominator taken per
+    rank, the sharded table's gradient rows never returned to their
+    owners, and a host fold that keeps only this rank's row."""
+    from ytk_mp4j_tpu_torch.check import checkdist
+    from ytk_mp4j_tpu_torch.models import fm
+
+    checks = {"ffm": checkdist.check_ffm_global_mesh,
+              "round4": checkdist.check_ffm_round4_global_mesh,
+              "dense_plane": lambda c: checkdist.check_dense_plane_timing(
+                  c, 1 << 12)}
+    res = {name: fn(comm) for name, fn in checks.items()}
+    real_sum, real_return = fm.job_sum, fm._return_grads_across
+
+    def per_rank_denominator(v, group):
+        folded = real_sum(v, group).clone()
+        folded[1] = v[1]                    # the rank's weight sum
+        return folded
+
+    fm.job_sum = per_rank_denominator
+    try:
+        res["planted", "ffm"] = checks["ffm"](comm)
+    finally:
+        fm.job_sum = real_sum
+    fm._return_grads_across = lambda g, route, group: torch.zeros(
+        (sum(route.recv), g.shape[1]), dtype=g.dtype)
+    try:
+        res["planted", "round4"] = checks["round4"](comm)
+    finally:
+        fm._return_grads_across = real_return
+    comm._reduce_rows = lambda rows, op, r=comm.rank: rows[r].copy()
+    res["planted", "dense_plane"] = checks["dense_plane"](comm)
+    del comm._reduce_rows
+    comm.close(0)
+    return res
+
+
 SCENARIOS = {"comm": scenario_comm, "gbdt": scenario_gbdt,
-             "binning": scenario_binning}
+             "binning": scenario_binning, "fm": scenario_fm,
+             "linear": scenario_linear, "checks": scenario_checks}
 
 
 def main(argv) -> int:
     scenario, store, world, rank, out = argv
-    import torch
 
     from ytk_mp4j_tpu_torch.comm.distributed import init_distributed
 

@@ -15,8 +15,20 @@ One ``main()`` per PROCESS joins a ``torch.distributed`` job
    the ranks, so the reference's looser test (training MSE within 10 %)
    is strengthened -- on the flat mesh, ``hier_global_mesh(2)`` and with
    subsampling;
-4. distributed quantile binning, including a weighted ``train_raw(comm=)``
-   (``check_binning_dist``).
+4. FFM over every process (``check_ffm_global_mesh``): the sparse path
+   over ``global_mesh`` against a one-process ``make_mesh(P)`` (rtol
+   1e-5) and the reference's looser bar (a local dense run's last loss
+   within 1e-3), the dense path beside it, and every rank's replicated
+   parameters bitwise equal;
+5. the sharded table over every process (``check_ffm_round4_global_mesh``):
+   its losses against ``make_mesh(P)``'s sharded run and the replicated
+   run, the collective ``predict`` against a local scorer on the gathered
+   table, and ``fit_stream`` replicated and sharded against ``fit``;
+6. distributed quantile binning, including a weighted ``train_raw(comm=)``
+   (``check_binning_dist``);
+7. the dense plane's backend all-reduce against the allgather and the
+   host fold in rank order (``check_dense_plane_timing``): equal to rtol
+   1e-5, both timed and logged.
 
 The job-wide verdict is the largest exit code of any rank
 (``DistributedComm.close``). Launch 2 processes on the CPU, through a
@@ -317,6 +329,121 @@ def check_gbdt_global_mesh(comm, rows: int = 512) -> int:
     return fails
 
 
+def ffm_data(N: int, F: int, seed: int, K: int = 3, nf: int = 3):
+    """The same seeded padded-sparse FFM data on every rank."""
+    rng = np.random.default_rng(seed)
+    feats = rng.integers(0, F, (N, K)).astype(np.int32)
+    fields = rng.integers(0, nf, (N, K)).astype(np.int32)
+    vals = rng.random((N, K)).astype(np.float32)
+    y = (rng.random(N) > 0.5).astype(np.float32)
+    return feats, fields, vals, y
+
+
+def identical_across_ranks(tensors, group) -> bool:
+    """Whether every rank holds the same bits of ``tensors``."""
+    from ytk_mp4j_tpu_torch.comm.distributed import all_gather_rows
+
+    flat = torch.cat([torch.as_tensor(t).reshape(-1).float()
+                      for t in tensors])
+    if group is None:
+        return True
+    rows = all_gather_rows(flat, group)
+    return all(torch.equal(rows[0], q) for q in rows[1:])
+
+
+def _close(a, b, rtol, atol) -> bool:
+    return (bool(np.isfinite(a).all())
+            and np.allclose(a, b, rtol=rtol, atol=atol))
+
+
+def check_ffm_global_mesh(comm) -> int:
+    """The sparse-gradient consumer over every process: FFM whose slots
+    are gathered from every rank must train to the losses of a one-process
+    ``make_mesh(P)`` (rtol 1e-5; the reference's bar, a local dense run's
+    last loss within 1e-3, is kept), the dense path over the processes
+    to the same losses (rtol 1e-4), and every rank must hold the same
+    replicated parameters, bit for bit."""
+    from ytk_mp4j_tpu_torch.comm.distributed import global_mesh
+    from ytk_mp4j_tpu_torch.device import make_mesh
+    from ytk_mp4j_tpu_torch.models.fm import FMConfig, FMTrainer
+
+    fails = 0
+    dev = comm.device
+    feats, fields, vals, y = data = ffm_data(256, 500, 77)
+    cfg = FMConfig(model="ffm", n_features=500, n_fields=3, k=3,
+                   max_nnz=3, learning_rate=0.2, l2=1e-4, init_scale=0.1)
+    mesh = global_mesh(dev)
+    runs = {}
+    for name, m, kw in (("sparse", mesh, dict(sparse_grads=True)),
+                        ("dense", mesh, {}),
+                        ("one", make_mesh(mesh.n, dev),
+                         dict(sparse_grads=True)),
+                        ("local_dense", make_mesh(1, dev), {})):
+        runs[name] = FMTrainer(cfg, mesh=m, **kw).fit(*data, n_steps=6,
+                                                     seed=5)
+    ls, lo = runs["sparse"][1], runs["one"][1]
+    if not (_close(ls, lo, 1e-5, 1e-7)
+            and _close(runs["dense"][1], ls, 1e-4, 1e-6)
+            and np.isfinite(runs["local_dense"][1][-1])
+            and abs(ls[-1] - runs["local_dense"][1][-1]) <= 1e-3):
+        comm.error(f"ffm global-mesh MISMATCH: sparse {ls} vs "
+                   f"make_mesh({mesh.n}) {lo}, dense {runs['dense'][1]}, "
+                   f"dense-local {runs['local_dense'][1][-1]}")
+        fails += 1
+    for name in ("sparse", "dense"):
+        if not identical_across_ranks(runs[name][0], mesh.group):
+            comm.error(f"ffm {name} parameters DIFFER across ranks")
+            fails += 1
+    return fails
+
+
+def check_ffm_round4_global_mesh(comm) -> int:
+    """The sharded table and the stream over every process: the sharded
+    run's losses equal ``make_mesh(P)``'s sharded run (rtol 1e-5) and the
+    replicated run over the processes (rtol 1e-4, the reference's bar);
+    the collective sharded ``predict`` equals a local scorer on the
+    gathered table; ``fit_stream`` of one full-batch chunk a step equals
+    ``fit``, replicated and sharded (rtol 1e-5)."""
+    from ytk_mp4j_tpu_torch.comm.distributed import global_mesh
+    from ytk_mp4j_tpu_torch.device import make_mesh
+    from ytk_mp4j_tpu_torch.models.fm import FMConfig, FMTrainer
+
+    fails = 0
+    dev = comm.device
+    feats, fields, vals, y = data = ffm_data(192, 300, 42)
+    cfg = FMConfig(model="ffm", n_features=300, n_fields=3, k=3,
+                   max_nnz=3, learning_rate=0.2, init_scale=0.1)
+    mesh = global_mesh(dev)
+    sharded = dict(sparse_grads=True, table_sharding="sharded")
+    rep = FMTrainer(cfg, mesh=mesh, sparse_grads=True)
+    _, l_rep = rep.fit(*data, n_steps=3, seed=11)
+    sh = FMTrainer(cfg, mesh=mesh, **sharded)
+    p_sh, l_sh = sh.fit(*data, n_steps=3, seed=11)
+    _, l_one = FMTrainer(cfg, mesh=make_mesh(mesh.n, dev), **sharded).fit(
+        *data, n_steps=3, seed=11)
+    if not (_close(l_sh, l_one, 1e-5, 1e-7)
+            and _close(l_sh, l_rep, 1e-4, 1e-6)):
+        comm.error(f"sharded-table global-mesh MISMATCH: {l_sh} vs "
+                   f"make_mesh({mesh.n}) {l_one}, replicated {l_rep}")
+        fails += 1
+    # the sharded predict is a collective: every rank scores its members'
+    # rows, and every rank gets all of them
+    got = sh.predict(p_sh, feats, fields, vals).cpu().numpy()
+    local = FMTrainer(cfg, mesh=make_mesh(1, dev))
+    want = local.predict((p_sh[0], p_sh[1], sh.full_table(p_sh)), feats,
+                         fields, vals).cpu().numpy()
+    if not np.allclose(got, want, rtol=1e-5, atol=1e-6):
+        comm.error("sharded predict global-mesh MISMATCH")
+        fails += 1
+    for name, tr in (("replicated", rep), ("sharded", sh)):
+        _, l_stream = tr.fit_stream((data for _ in range(3)), seed=11)
+        if not _close(l_stream, l_rep if tr is rep else l_sh, 1e-5, 1e-7):
+            comm.error(f"{name} fit_stream global-mesh MISMATCH: "
+                       f"{l_stream}")
+            fails += 1
+    return fails
+
+
 def check_binning_dist(comm) -> int:
     """Distributed quantile binning: each process sketches its own shard,
     ONE allgather merges the sketches, and every rank must end with (a)
@@ -384,12 +511,58 @@ def check_binning_dist(comm) -> int:
     return fails
 
 
+def check_dense_plane_timing(comm, elems: int = 1 << 20) -> int:
+    """The dense plane two ways on the same buffer: the backend all-reduce
+    (``allreduce_array``) against the allgather and the host fold in rank
+    order (``_allgather_rows`` + ``_reduce_rows``). Equality is asserted
+    (rtol 1e-5: the backend sums in its own order); both are timed on
+    the host clock, after a warm-up, and logged."""
+    import time
+
+    from ytk_mp4j_tpu_torch.operands import Operands
+    from ytk_mp4j_tpu_torch.operators import Operators
+
+    rng = np.random.default_rng(7 + comm.rank)
+    base = rng.standard_normal(elems).astype(np.float32)
+    reps = 3
+    comm.allreduce_array(base.copy(), Operands.FLOAT, Operators.SUM)
+    comm._reduce_rows(comm._allgather_rows(base.copy()), Operators.SUM)
+
+    comm.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dev = base.copy()
+        comm.allreduce_array(dev, Operands.FLOAT, Operators.SUM)
+    t_dev = (time.perf_counter() - t0) / reps
+
+    comm.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        host = comm._reduce_rows(comm._allgather_rows(base.copy()),
+                                 Operators.SUM)
+    t_host = (time.perf_counter() - t0) / reps
+
+    fails = 0
+    if not np.allclose(dev, host, rtol=1e-5, atol=1e-5):
+        comm.error("dense-plane all-reduce vs allgather and fold MISMATCH")
+        fails += 1
+    comm.info(f"dense plane {elems} f32 x {comm.slave_num} ranks "
+              f"({comm.backend}): all-reduce {t_dev * 1e3:.3f} ms, "
+              f"allgather + fold {t_host * 1e3:.3f} ms "
+              f"({t_host / max(t_dev, 1e-9):.2f}x)")
+    return fails
+
+
 def run_checks(comm, length: int = 97, gbdt_rows: int = 512) -> int:
-    """Every check of this program; returns the failure count."""
+    """Every check of this program, in the reference's order; returns the
+    failure count."""
     fails = check(comm, length)
     fails += check_global_mesh(comm)
     fails += check_gbdt_global_mesh(comm, gbdt_rows)
+    fails += check_ffm_global_mesh(comm)
+    fails += check_ffm_round4_global_mesh(comm)
     fails += check_binning_dist(comm)
+    fails += check_dense_plane_timing(comm)
     return fails
 
 

@@ -228,6 +228,38 @@ def all_gather_rows(t, group=None):
     return out.to(t.device, non_blocking=True)
 
 
+def exchange_counts(counts, group=None) -> list[int]:
+    """The all-to-all of row counts: ``counts[q]`` (a ``[world]`` integer
+    tensor, any device) is what this rank sends rank q; returns what
+    every rank p sends this one, as a host list (one host sync)."""
+    backend = dist.get_backend(group)
+    src = _staged(counts.to(torch.int64).contiguous(), backend)
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    return out.tolist()
+
+
+def all_to_all_rows(t, send_counts, recv_counts, group=None):
+    """The all-to-all across the ranks of ``group`` with split sizes (the
+    cross-process counterpart of ``ops.collectives.all_to_all``): rows
+    ``t`` [sum(send_counts), ...] go to their ranks in blocks, block q to
+    rank q; returns ``[sum(recv_counts), ...]`` on ``t``'s device, block
+    p from rank p, in rank order. ``recv_counts`` comes from
+    :func:`exchange_counts`. Any dtype: rows travel as bytes. NCCL
+    exchanges the device tensors; gloo a pinned host copy of a CUDA
+    tensor."""
+    t = t.contiguous()
+    row = int(np.prod(t.shape[1:], dtype=np.int64)) * t.element_size()
+    backend = dist.get_backend(group)
+    src = _staged(t, backend).reshape(-1).view(torch.uint8)
+    out = torch.empty(sum(recv_counts) * row, dtype=torch.uint8,
+                      device=src.device, pin_memory=src.is_pinned())
+    dist.all_to_all_single(out, src, [c * row for c in recv_counts],
+                           [c * row for c in send_counts], group=group)
+    out = out.view(t.dtype).reshape((sum(recv_counts),) + tuple(t.shape[1:]))
+    return out.to(t.device, non_blocking=True)
+
+
 def _reduce_op(operator: Operator):
     for builtin, op in _REDUCE_OPS:
         if operator is builtin:

@@ -21,8 +21,15 @@ Divergences from the reference, intended:
 - 8-byte operands need no switch (the reference needs jax x64);
 - under ``algo="rdma"`` a custom operator raises ``Mp4jError`` naming
   ``algo="ring"``: the kernel cannot run a Python function;
-- the ``i*`` futures (``iallreduce_map`` among them) and tracing are
-  not ported yet: they ride the progress plane (ROADMAP).
+- tracing (``trace.instrument``) is not ported yet.
+
+The nonblocking family (the reference's ``tpu_comm.py:806-852``) needs no
+progression thread: ``iallreduce`` / ``ireduce_scatter`` / ``iallgather``
+/ ``igather`` run their blocking twin at once (its in-place write-back
+included) and return a resolved future; ``iallreduce_map`` is a
+``DeferredFuture`` over :meth:`allreduce_map_async`, whose device work and
+copy to pinned memory are in flight when it returns, and it stays
+unresolved until ``wait()``; ``wait_all`` has nothing to drain.
 
 The map family (``allreduce_map`` ... ``scatter_map``, the reference's
 ``tpu_comm.py:526-800``) keeps the keys on the host, coded by one
@@ -40,6 +47,7 @@ import torch
 
 from ytk_mp4j_tpu_torch import meta
 from ytk_mp4j_tpu_torch.comm import keycodec
+from ytk_mp4j_tpu_torch.comm import progress as progress_mod
 from ytk_mp4j_tpu_torch.device import make_mesh
 from ytk_mp4j_tpu_torch.exceptions import Mp4jError
 from ytk_mp4j_tpu_torch.operands import Operand, Operands, to_numpy, \
@@ -562,6 +570,51 @@ class GpuCommCluster:
         grow without bound. The next map collective rebuilds from the
         live keys."""
         self._codecs.clear()
+
+    # -- nonblocking twins ---------------------------------------------
+    def iallreduce(self, arrs, operand: Operand = Operands.FLOAT,
+                   operator: Operator = Operators.SUM,
+                   from_: int = 0, to: int | None = None,
+                   algo: str = "auto"):
+        """Eager nonblocking :meth:`allreduce_array` (resolved future)."""
+        return progress_mod.eager_future(
+            self, "allreduce_array", arrs, operand, operator,
+            from_=from_, to=to, algo=algo)
+
+    def ireduce_scatter(self, arrs, operand: Operand = Operands.FLOAT,
+                        operator: Operator = Operators.SUM,
+                        ranges=None):
+        """Eager nonblocking :meth:`reduce_scatter_array`."""
+        return progress_mod.eager_future(
+            self, "reduce_scatter_array", arrs, operand, operator,
+            ranges=ranges)
+
+    def iallgather(self, arrs, operand: Operand = Operands.FLOAT,
+                   ranges=None):
+        """Eager nonblocking :meth:`allgather_array`."""
+        return progress_mod.eager_future(
+            self, "allgather_array", arrs, operand, ranges=ranges)
+
+    def igather(self, arrs, operand: Operand = Operands.FLOAT,
+                root: int = 0, ranges=None):
+        """Eager nonblocking :meth:`gather_array`."""
+        return progress_mod.eager_future(
+            self, "gather_array", arrs, operand, root=root, ranges=ranges)
+
+    def iallreduce_map(self, maps, operand: Operand = Operands.DOUBLE,
+                       operator: Operator = Operators.SUM):
+        """Nonblocking :meth:`allreduce_map` over
+        :meth:`allreduce_map_async`: the device reduction and the copy to
+        pinned memory are queued when this returns; ``wait()`` waits on
+        the copy, decodes and mutates the maps (the blocking twin's
+        post-state)."""
+        pending = self.allreduce_map_async(maps, operand, operator)
+        return progress_mod.DeferredFuture("allreduce_map", pending.result)
+
+    def wait_all(self, timeout: float | None = None) -> None:
+        """Collective-boundary drain: the dense twins are eager and
+        ``iallreduce_map`` resolves at its ``wait()``, so there is nothing
+        to drain; kept for portable code."""
 
     def barrier(self):
         """Wait until every member's queued work is done."""

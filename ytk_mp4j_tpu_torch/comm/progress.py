@@ -1,9 +1,14 @@
-"""Futures of the nonblocking collectives: ``CollectiveFuture`` and
-``eager_future``, copied from ``ytk_mp4j_tpu/comm/progress.py:99`` and
-``:174``. The rest of that module (the progression thread that drives
-outstanding collectives) comes with the host planes; until then every
-``i*`` method of the port runs its collective at once and returns a
-resolved future.
+"""Futures of the nonblocking collectives: ``CollectiveFuture``,
+``completed_future``, ``eager_future`` and ``DeferredFuture``, copied from
+``ytk_mp4j_tpu/comm/progress.py:99``, ``:165``, ``:174`` and ``:189``.
+
+The device comms need no progression thread: ``DistributedComm`` and
+``GpuCommCluster`` run a dense ``i*`` collective at once and return a
+resolved future (the card's queue already runs the work behind the
+caller), and ``GpuCommCluster.iallreduce_map`` returns a
+``DeferredFuture`` whose device work and copy to pinned memory are in
+flight when it returns. The progression thread of the reference's socket
+plane comes with the host planes.
 """
 
 from __future__ import annotations
@@ -71,6 +76,14 @@ class CollectiveFuture:
         self._done.set()
 
 
+def completed_future(op: str, value) -> CollectiveFuture:
+    """An already-resolved future: the collective ran synchronously, the
+    future API stays uniform."""
+    fut = CollectiveFuture(op)
+    fut._resolve(value)
+    return fut
+
+
 def eager_future(obj, name: str, *args, **kwargs) -> CollectiveFuture:
     """Run ``obj.<name>(*args, **kwargs)`` now and wrap the outcome in a
     resolved future: a backend whose collectives are synchronous keeps
@@ -82,3 +95,36 @@ def eager_future(obj, name: str, *args, **kwargs) -> CollectiveFuture:
     except Exception as e:
         fut._fail(e)
     return fut
+
+
+class DeferredFuture(CollectiveFuture):
+    """A future whose ``wait()`` runs ``fn()`` once, on the first waiter's
+    thread: it wraps ``GpuCommCluster``'s ``PendingMap`` (the device
+    collective is already in flight; only the wait on its copy and the
+    decode are deferred). ``done()`` is False until then."""
+
+    __slots__ = ("_lock", "_fn")
+
+    def __init__(self, op: str, fn):
+        super().__init__(op)
+        self._lock = threading.Lock()
+        self._fn = fn
+
+    def _force(self) -> None:
+        with self._lock:
+            if not self._done.is_set():
+                try:
+                    self._resolve(self._fn())
+                except BaseException as e:
+                    self._fail(e)
+
+    def wait(self, timeout: float | None = None):
+        self._force()
+        return super().wait(timeout)
+
+    def result(self, timeout: float | None = None):
+        return self.wait(timeout)
+
+    def exception(self, timeout: float | None = None):
+        self._force()
+        return super().exception(timeout)

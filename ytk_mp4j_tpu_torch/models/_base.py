@@ -4,8 +4,9 @@
 ``comm.distributed.global_mesh``), rows padded to a multiple of the
 member count with zero-weight padding, the per-step statistics exchange
 of a trainer handed a ``comm`` (:class:`StepStatsExchanger`), the
-streaming loop of the FM and linear ``fit_stream``, and ``.npz`` model
-persistence in the reference's format.
+streaming loop of the FM and linear ``fit_stream``, the fold across the
+processes of a job (:func:`fold_across`, :func:`job_sum`), and ``.npz``
+model persistence in the reference's format.
 
 Member m's shard is rows ``[m * per, (m + 1) * per)`` of the input (the
 reference's ``_put_sharded:327``). On a one-process mesh that is one
@@ -13,8 +14,11 @@ contiguous tensor on the mesh's device; on a mesh over processes every
 rank passes the same global arrays and stages only its own members' rows
 (:meth:`DataParallelTrainer._row_span`), and
 :meth:`DataParallelTrainer._gather_rows` gathers every member's rows onto
-every rank (``_to_host:371``'s counterpart). Only the GBDT trainer runs
-over processes so far; the others refuse such a mesh.
+every rank (``_to_host:371``'s counterpart). Every trainer runs over
+processes: each rank's partial sums (histograms and leaf sums; the
+weighted loss, the sample-weight sum and the small gradients) are gathered
+and folded in rank order, so every rank holds the same bits, and a step
+divides by the job's weight sum, never the rank's.
 
 The streaming loop (``_stream_fit``) keeps the reference's double
 buffer: while the device runs step k, the host stages chunk k + 1 (numpy
@@ -36,6 +40,7 @@ import torch.distributed as dist
 from ytk_mp4j_tpu_torch.device import make_mesh
 from ytk_mp4j_tpu_torch.exceptions import Mp4jError
 from ytk_mp4j_tpu_torch.operands import Operands
+from ytk_mp4j_tpu_torch.ops import collectives as coll
 
 
 _NP_DTYPES = {torch.int32: np.int32, torch.float32: np.float32}
@@ -81,6 +86,29 @@ def per_example_loss(z, y, loss: str):
     return 0.5 * (z - y) ** 2
 
 
+def fold_across(x, n_members: int, group):
+    """The rank-order fold over every member of a process ``group``: ``x``
+    holds this rank's ``n_members`` members' partials as rows ``[n_members
+    * k, ...]`` (member m's at ``[m * k, (m + 1) * k)``); every rank's are
+    gathered in rank order and all of them folded in rank order, so every
+    rank gets the same ``[k, ...]`` bits, those of a one-process fold of
+    the same members."""
+    from ytk_mp4j_tpu_torch.comm.distributed import all_gather_rows
+
+    every = all_gather_rows(x, group)
+    return coll.reduce_all(every.reshape(
+        (n_members * every.shape[0], -1) + tuple(x.shape[1:])))
+
+
+def job_sum(v, group):
+    """One rank's partial sum ``v`` (any shape) summed over the ranks of
+    ``group`` in rank order (:func:`fold_across` of one partial a rank);
+    ``v`` itself without a group."""
+    if group is None:
+        return v
+    return fold_across(v.reshape(1, -1), 1, group).reshape(v.shape)
+
+
 def stage_softmax_labels(y, n_classes: int) -> np.ndarray:
     """Validate + cast integer class labels: out-of-range ids would
     select silent garbage, so they must be an error."""
@@ -122,6 +150,7 @@ class StepStatsExchanger:
                         if overlap is None else bool(overlap))
         self._arrays: list[np.ndarray] = []
         self._maps: list[dict] = []
+        self._losses: list = []
 
     @property
     def active(self) -> bool:
@@ -163,6 +192,29 @@ class StepStatsExchanger:
             return np.zeros((0, 0), np.float64)
         n = self.comm.slave_num if self.active else 1
         return np.stack(self._arrays) / float(n)
+
+    def submit_loss(self, loss) -> None:
+        """A trainer's step loss (a 0-d tensor). With a comm it is summed
+        across the ranks at once (one host sync a step: the reference
+        fetches every step's loss); without one it is kept on the device
+        until :meth:`loss_history`."""
+        if self.comm is None:
+            self._losses.append(loss)
+        else:
+            self.submit(np.array([float(loss)], np.float64))
+
+    def loss_history(self) -> np.ndarray:
+        """The drained job-wide mean of every step loss submitted
+        (``sync_loss_history_``, [n_steps] f64): each rank's own losses
+        without a comm, as the reference's exchanger keeps them."""
+        if self.comm is None:
+            if not self._losses:
+                return np.zeros(0, np.float64)
+            return torch.stack(self._losses).cpu().numpy().astype(
+                np.float64)
+        self.drain()
+        hist = self.mean_history()
+        return hist[:, 0] if hist.size else np.zeros(0, np.float64)
 
     def mean_map_history(self) -> list[dict]:
         """Per-round job-wide mean of every map submitted so far."""
@@ -239,20 +291,15 @@ class DataParallelTrainer:
     ``mesh`` (from ``device.make_mesh`` / ``make_hier_mesh``) gives the
     members and their device; without one, ``n_devices`` members (default
     1) go on ``device`` (default ``cuda:0``). The reference's default is
-    every device, which on the port's one card is one member."""
-
-    # whether the family trains on a mesh over processes
-    over_processes = False
+    every device, which on the port's one card is one member. A mesh over
+    processes (``comm.distributed.global_mesh``) makes every method a
+    collective: every rank calls it together, with the same arguments."""
 
     def __init__(self, mesh=None, n_devices=None, device=None):
         if mesh is None:
             mesh = make_mesh(1 if n_devices is None else n_devices, device)
         elif n_devices is not None or device is not None:
             raise Mp4jError("give a mesh, or n_devices and device, not both")
-        if mesh.group is not None and not self.over_processes:
-            raise Mp4jError(
-                f"{type(self).__name__} trains on a one-process mesh; a "
-                "mesh over processes is not ported for it yet")
         self.mesh = mesh
         self.device = mesh.device
 
@@ -260,32 +307,41 @@ class DataParallelTrainer:
     def n_shards(self) -> int:
         return self.mesh.n
 
-    def _row_span(self, N: int):
+    @property
+    def group(self):
+        """The process group of a mesh over processes, else None."""
+        return self.mesh.group
+
+    def _row_span(self, N: int, per: int | None = None):
         """(rows per member, first row, end row) of this process's members
         for N input rows: rows ``[first * per, (first + n_local) * per)``
-        of the padded input, clipped to the N real ones."""
-        per = -(-N // self.n_shards)
+        of the padded input, clipped to the N real ones. ``per`` defaults
+        to ``ceil(N / n)``."""
+        if per is None:
+            per = -(-N // self.n_shards)
         first, n_local = self.mesh.first, self.mesh.n_local
         return per, min(first * per, N), min((first + n_local) * per, N)
 
-    def _local_rows(self, a, N: int):
+    def _local_rows(self, a, N: int, per: int | None = None):
         """This process's real rows of an [N, ...] array or tensor (all of
         them on a one-process mesh)."""
         if self.mesh.group is None:
             return a
-        _, lo, hi = self._row_span(N)
+        _, lo, hi = self._row_span(N, per)
         return a[lo:hi]
 
-    def _pad_rows(self, arrays, n_rows: int | None = None):
+    def _pad_rows(self, arrays, n_rows: int | None = None,
+                  per: int | None = None):
         """Pad dim 0 of each tensor -- this process's real rows of an
         ``n_rows``-row input (default: the tensors' own rows, the whole
         input of a one-process mesh) -- to its members' ``n_local * per``
-        rows with zeros, on its device; returns (padded tensors, rows per
-        member, [n_local * per] f32 sample weights: 1 on the real rows, 0
-        on the padding)."""
+        rows with zeros, on its device (``per`` defaults to ``ceil(n_rows
+        / n)``); returns (padded tensors, rows per member, [n_local * per]
+        f32 sample weights: 1 on the real rows, 0 on the padding)."""
         real = arrays[0].shape[0]
         N = real if n_rows is None else n_rows
-        per = -(-N // self.n_shards)
+        if per is None:
+            per = -(-N // self.n_shards)
         rows = per * self.mesh.n_local
         pad = rows - real
         sw = torch.ones(rows, dtype=torch.float32, device=self.device)
@@ -307,8 +363,9 @@ class DataParallelTrainer:
         return g.reshape((-1,) + tuple(t.shape[1:]))
 
     def _members(self, arrays, per: int):
-        """[n * per, ...] tensors as member tensors [n, per, ...]."""
-        n = self.n_shards
+        """[n_local * per, ...] tensors (this process's members' rows) as
+        member tensors [n_local, per, ...]."""
+        n = self.mesh.n_local
         return tuple(a.reshape((n, per) + tuple(a.shape[1:]))
                      for a in arrays)
 
@@ -360,29 +417,21 @@ class DataParallelTrainer:
         if event is not None:
             event.synchronize()
 
-    def _pad_stream_rows(self, arrays, batch_rows: int):
-        """Pad dim 0 of each chunk tensor up to ``batch_rows`` (raising
-        when the chunk is larger) with zeros, on its device; returns
-        (padded tensors, [batch_rows] f32 sample weights -- 0 on the
-        padding -- and rows per member)."""
-        N = arrays[0].shape[0]
+    def _stream_span(self, N: int, batch_rows: int) -> int:
+        """Rows per member of a chunk of N rows padded to ``batch_rows``
+        (raising when the chunk is larger)."""
         if N > batch_rows:
             raise Mp4jError(
                 f"chunk of {N} rows exceeds batch_rows={batch_rows}; "
                 "raise batch_rows or shrink the reader's chunk size")
-        pad = batch_rows - N
-        sw = torch.ones(batch_rows, dtype=torch.float32, device=self.device)
-        if pad:
-            arrays = [torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
-                      for a in arrays]
-            sw[N:] = 0.0
-        return arrays, sw, batch_rows // self.n_shards
+        return batch_rows // self.n_shards
 
-    def _weights(self, sample_weight, N: int):
+    def _weights(self, sample_weight, N: int, per: int | None = None):
         """Validated [N] instance weights (see :meth:`_stage_weights`):
-        this process's real rows of them, as a tensor on the device."""
+        this process's real rows of them (see :meth:`_row_span`), as a
+        tensor on the device."""
         w = self._stage_weights(as_numpy(sample_weight), N)
-        return torch.from_numpy(self._local_rows(w, N)).to(self.device)
+        return torch.from_numpy(self._local_rows(w, N, per)).to(self.device)
 
     def save_params(self, path: str, params) -> None:
         """Persist a flat tuple of parameters (tensors or arrays) and

@@ -1,25 +1,32 @@
 """Data-parallel factorization machines, FM and field-aware FFM (the port
-of ``ytk_mp4j_tpu/models/fm.py``), over a mesh of members on one device.
+of ``ytk_mp4j_tpu/models/fm.py``), over a mesh of members on one device or
+over the processes of a ``torch.distributed`` job.
 
 Instances are padded to ``max_nnz`` slots (feature id / field id / value
 / mask; a padded slot has value 0). Member m trains on rows ``[m * per,
-(m + 1) * per)``; a batch is a tuple of ``[n, per, ...]`` tensors. The
+(m + 1) * per)``; a batch is a tuple of ``[n_local, per, ...]`` tensors
+(this process's members; every member on a one-process mesh). The
 embedding-gradient exchange takes one of three forms:
 
 - **dense** (default): the full table's gradient, one autograd pass over
-  every member's rows (the reference's per-member gradients and
-  ``psum``);
+  the local members' rows (the reference's per-member gradients and
+  ``psum``); over processes each rank's table gradient is summed by one
+  backend all-reduce (:func:`_sum_table_grads`);
 - **sparse** (``sparse_grads=True``): autograd with respect to the
   gathered slot rows E, never through the table; each member's (row,
   gradient row) slots, merged locally by sort + segment reduction when
   ``sparse_capacity`` is below the member's slot count, are concatenated
-  in rank order (the reference's ``all_gather``) and added into the
-  table with one ``index_add_``;
+  in rank order (the reference's ``all_gather``; over processes
+  :func:`_gather_updates`) and added into the table with one
+  ``index_add_``;
 - **sharded table** (``table_sharding="sharded"``): member m owns table
-  rows ``[m * B, (m + 1) * B)``. Forward: every member's row ids are
-  seen by every owner, each owner answers with the rows it holds, and
-  ``ops.collectives.all_to_all`` delivers them ([n, n, S, k] blocks).
-  Backward: gradient rows go to their owners by ``all_to_all``, and each
+  rows ``[m * B, (m + 1) * B)``. Forward: on one process every owner sees
+  every member's row ids, answers with the rows it holds, and
+  ``ops.collectives.all_to_all`` delivers them ([n, n, S, k] blocks);
+  over processes each process holds its own members' blocks, and each
+  row id travels only to the process that owns it and its row back
+  (:func:`_fetch_rows_across`, an all-to-all with split sizes).
+  Backward: gradient rows go to their owners the same way, and each
   owner merges the rows it owns of what it received by sort + segment
   reduction into ``C = min(n * S, B)`` slots before adding them into its
   rows.
@@ -28,38 +35,69 @@ Scores: FM ``w0 + sum_i w_i x_i + sum_{a<b} <v_a, v_b> x_a x_b`` by the
 sum-of-squares identity; FFM ``sum_{a<b} <v_{a, field_b}, v_{b,
 field_a}> x_a x_b`` over the K^2 slot pairs.
 
-One copy of the replicated parameters serves every member, so one
-autograd pass over all members' rows already gives the sum the
-reference's explicit ``psum`` computes; nothing is folded n times.
+One copy of the replicated parameters serves every local member, so one
+autograd pass over their rows already gives the sum the reference's
+explicit ``psum`` computes; nothing is folded n times. Over processes
+each rank's weighted loss sum, sample-weight sum and the gradients of
+``w0`` and ``w`` are gathered and folded in rank order
+(``_base.job_sum``), and every step divides by the job's weight sum.
+Every rank holds the replicated parameters bit for bit: the folds and
+the all-reduce hand every rank the same sums, the gathered slots are the
+same bytes everywhere, and on a CUDA device the replicated sparse path
+adds them with ``index_put_(accumulate=True)`` (a sort of the rows, then
+each row's adds in one fixed order) where ``index_add_`` would add with
+atomics in an order that changes from run to run.
+On the CPU a slot's gradient is its instance's alone, so the table rows
+of the sparse and sharded paths get the same gradient rows and the same
+adds in the same order as on a one-process mesh of the same members;
+the first step's table is bitwise the one-process table, but the folded
+sums of ``w0``, ``w`` and the loss round apart from one autograd pass, so
+over several steps the runs agree to rounding (rtol 1e-5), not bitwise.
+
+Every method of a trainer over processes is a collective where the
+sharded table is concerned (``fit``, ``fit_stream``, ``predict``,
+``full_table``, ``save_params``): every rank calls it together, with the
+same global arrays. ``fit(comm=)`` sums each step's training loss over
+the comm's ranks into ``sync_loss_history_`` (their mean), through
+``_base.StepStatsExchanger``.
 
 Intended divergences from the reference:
 
 - the sparse steps update the embedding table in place (the trainer
   copies the parameters it is given once, at the start of ``fit`` and
   ``fit_stream``); the reference's step is functional;
-- ``predict`` returns a tensor on the device;
-- on a CUDA device the table updates add with atomics, in an order that
-  changes from run to run, so two runs of the same steps agree to float
-  rounding (rtol 1e-5 on the losses, as the reference's dry run holds
-  its stream to its full batch), not bitwise; on the CPU every add runs
-  in stream order and ``fit_stream`` over one full-batch chunk per epoch
-  equals ``fit`` bitwise;
-- no ``comm=`` argument and no ``FMServable``: they ride the host
-  planes (ROADMAP queue 1, "What rides the host planes").
+- ``predict`` returns a tensor on the device; on a mesh over processes
+  with the sharded table, ``fit`` returns this process's blocks of the
+  table (``full_table`` gathers them) and every other entry point takes
+  either those blocks or a whole table;
+- on a one-process mesh on a CUDA device the table updates add with
+  atomics, in an order that changes from run to run, so two runs of the
+  same steps agree to float rounding (rtol 1e-5 on the losses, as the
+  reference's dry run holds its stream to its full batch), not bitwise;
+  on the CPU every add runs in stream order and ``fit_stream`` over one
+  full-batch chunk per epoch equals ``fit`` bitwise;
+- no ``FMServable``: it rides the serve plane.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ytk_mp4j_tpu_torch.comm.distributed import (all_gather_rows,
+                                                 all_reduce_,
+                                                 all_to_all_rows,
+                                                 exchange_counts)
 from ytk_mp4j_tpu_torch.device import make_mesh
 from ytk_mp4j_tpu_torch.exceptions import Mp4jError
 from ytk_mp4j_tpu_torch.models._base import (DataParallelTrainer,
-                                             EarlyStopper, as_numpy,
-                                             as_tensor, per_example_loss)
+                                             EarlyStopper,
+                                             StepStatsExchanger, as_numpy,
+                                             as_tensor, job_sum,
+                                             per_example_loss)
 from ytk_mp4j_tpu_torch.operators import Operators
 from ytk_mp4j_tpu_torch.ops import sparse as sparse_ops
 from ytk_mp4j_tpu_torch.ops.collectives import all_to_all, flat_index
@@ -140,18 +178,28 @@ def _score(params, feats, fields, vals, mask, cfg: FMConfig):
     return _score_from_slots(w0, w, E, feats, xv, cfg)
 
 
-def _loss_and_grads(leaves, score_fn, y, sw, cfg: FMConfig):
-    """The weighted-mean loss over every member's rows and the gradients
-    of the weighted loss SUM with respect to ``leaves`` (one autograd
-    pass: one copy of the parameters serves every member, so this is
-    the sum over members). Returns (loss, grads, denom)."""
+def _loss_and_grads(leaves, score_fn, y, sw, cfg: FMConfig, group=None):
+    """The weighted-mean loss over the local members' rows and the
+    gradients of the weighted loss SUM with respect to ``leaves`` ``(w0,
+    w, X)`` (one autograd pass: one copy of the parameters serves every
+    member, so this is the sum over members). With a process ``group``
+    the loss sum, the weight sum and the gradients of w0 and w are the
+    job's (:func:`_base.job_sum`); X's stays the rank's. Returns (loss,
+    grads, denom)."""
     leaves = [t.detach().requires_grad_(True) for t in leaves]
     with torch.enable_grad():
         sum_loss = torch.sum(
             per_example_loss(score_fn(*leaves), y, cfg.loss) * sw)
-        grads = torch.autograd.grad(sum_loss, leaves)
-    denom = torch.clamp(torch.sum(sw), min=1.0)
-    return sum_loss.detach() / denom, grads, denom
+        grads = list(torch.autograd.grad(sum_loss, leaves))
+    sum_loss, sw_sum = sum_loss.detach(), torch.sum(sw)
+    if group is not None:
+        g0, gw = grads[0], grads[1]
+        flat = job_sum(torch.cat([sum_loss.reshape(1), sw_sum.reshape(1),
+                                  g0.reshape(1), gw.reshape(-1)]), group)
+        sum_loss, sw_sum = flat[0], flat[1]
+        grads[0], grads[1] = flat[2].reshape(g0.shape), flat[3:]
+    denom = torch.clamp(sw_sum, min=1.0)
+    return sum_loss / denom, grads, denom
 
 
 def _update_linear(w0, w, g0, gw, denom, cfg: FMConfig):
@@ -159,27 +207,59 @@ def _update_linear(w0, w, g0, gw, denom, cfg: FMConfig):
     return w0 - lr * (g0 / denom), w - lr * (gw / denom + cfg.l2 * w)
 
 
-def _add_rows(V, rows, upd):
-    """``V[rows] += upd`` for the live rows (SENTINEL rows are dropped),
-    folding duplicates in stream order on the CPU."""
+def _index_add(V, rows, upd, in_order: bool = False):
+    """``V[rows] += upd``. Duplicate rows add in stream order on the CPU;
+    on CUDA ``index_add_`` adds them with atomics, in an order that
+    changes from run to run, so where every rank must hold the same bits
+    (``in_order``) ``index_put_(accumulate=True)`` takes its place: a
+    sort of the rows, then each row's adds in one fixed order (the same
+    bits on every run; they round apart from the CPU's stream order)."""
+    if in_order and V.device.type == "cuda":
+        V.index_put_((rows.long(),), upd, accumulate=True)
+    else:
+        V.index_add_(0, rows.long(), upd)
+
+
+def _add_rows(V, rows, upd, in_order: bool = False):
+    """``V[rows] += upd`` for the live rows (SENTINEL rows are dropped);
+    see :func:`_index_add`."""
     keep = rows != sparse_ops.SENTINEL
-    V.index_add_(0, rows[keep].long(), upd[keep])
+    _index_add(V, rows[keep], upd[keep], in_order)
 
 
-def train_step_dense(params, batch, cfg: FMConfig):
-    """One step over member batches ``[n, per, ...]``; the embedding
-    gradient is the dense table's. Returns (params, loss)."""
+def _sum_table_grads(gV, group):
+    """The dense path's table gradient summed over the ranks of
+    ``group``, in place: one backend all-reduce, which hands every rank
+    the same sums. (The rank-order fold gathers P copies: 2.5 GB a rank
+    for the 624 MB table of Criteo width over 4 ranks.)"""
+    return all_reduce_(gV, Operators.SUM, group)
+
+
+def _gather_updates(ids, vals, group):
+    """Every rank's (row, gradient row) slots, concatenated in rank order
+    on every rank (the reference's ``all_gather``): ``([P * L], [P * L,
+    k])``."""
+    return (all_gather_rows(ids, group).reshape(-1),
+            all_gather_rows(vals, group).reshape(-1, vals.shape[-1]))
+
+
+def train_step_dense(params, batch, cfg: FMConfig, group=None):
+    """One step over member batches ``[n_local, per, ...]`` (this
+    process's members of the job of ``group``); the embedding gradient is
+    the dense table's. Returns (params, loss)."""
     feats, fields, vals, mask, y, sw = batch
     loss, (g0, gw, gV), denom = _loss_and_grads(
         params, lambda *p: _score(p, feats, fields, vals, mask, cfg),
-        y, sw, cfg)
+        y, sw, cfg, group)
+    if group is not None:
+        gV = _sum_table_grads(gV, group)
     w0, w, V = params
     w0, w = _update_linear(w0, w, g0, gw, denom, cfg)
     V = V - cfg.learning_rate * (gV / denom + cfg.l2 * V)
     return (w0, w, V), loss
 
 
-def _sparse_grads(params, batch, cfg: FMConfig, E):
+def _sparse_grads(params, batch, cfg: FMConfig, E, group=None):
     """Loss and gradients of the sparse steps, differentiated with
     respect to the gathered slot rows ``E``: (loss, g0, gw, gE, denom)."""
     feats, fields, vals, mask, y, sw = batch
@@ -188,25 +268,26 @@ def _sparse_grads(params, batch, cfg: FMConfig, E):
     loss, (g0, gw, gE), denom = _loss_and_grads(
         (w0, w, E),
         lambda a, b, c: _score_from_slots(a, b, c, feats, xv, cfg),
-        y, sw, cfg)
+        y, sw, cfg, group)
     return loss, g0, gw, gE, denom
 
 
-def train_step_sparse(params, batch, cfg: FMConfig, capacity: int):
+def train_step_sparse(params, batch, cfg: FMConfig, capacity: int,
+                      group=None):
     """One step whose embedding gradients ride the sparse path: each
     member's (row, gradient row) slots -- merged by sort + segment
     reduction into ``capacity`` slots when that is below the member's
-    slot count S -- are concatenated in rank order and added into the
-    table, which merges duplicate rows. Updates the table in place;
-    returns (params, loss)."""
+    slot count S -- are concatenated in rank order (over processes:
+    gathered from every rank) and added into the table, which merges
+    duplicate rows. Updates the table in place; returns (params, loss)."""
     feats, fields = batch[0], batch[1]
     V = params[2]
-    rows = _slot_rows(feats, fields, cfg)      # [n, per, K(, K)]
+    rows = _slot_rows(feats, fields, cfg)      # [n_local, per, K(, K)]
     n = rows.shape[0]
     S = rows[0].numel()
     k = V.shape[1]
     loss, g0, gw, gE, denom = _sparse_grads(params, batch, cfg,
-                                            _gather_slots(V, rows))
+                                            _gather_slots(V, rows), group)
     flat_rows = rows.reshape(n, S)
     flat_g = gE.reshape(n, S, k)
     w0, w = _update_linear(params[0], params[1], g0, gw, denom, cfg)
@@ -217,11 +298,17 @@ def train_step_sparse(params, batch, cfg: FMConfig, capacity: int):
         merged = [sparse_ops.segment_reduce_sorted(
             *sparse_ops.sort_by_key(flat_rows[m], flat_g[m]), capacity,
             Operators.SUM) for m in range(n)]
-        _add_rows(V, torch.cat([i for i, _ in merged]),
-                  -(lr / denom) * torch.cat([v for _, v in merged]))
+        ids = torch.cat([i for i, _ in merged])
+        upd = torch.cat([v for _, v in merged])
     else:                               # every slot is a live row
-        V.index_add_(0, flat_rows.reshape(-1).long(),
-                     -(lr / denom) * flat_g.reshape(n * S, k))
+        ids, upd = flat_rows.reshape(-1), flat_g.reshape(n * S, k)
+    if group is not None:
+        ids, upd = _gather_updates(ids, upd, group)
+    in_order = group is not None
+    if capacity < S:
+        _add_rows(V, ids, -(lr / denom) * upd, in_order)
+    else:
+        _index_add(V, ids, -(lr / denom) * upd, in_order)
     return (w0, w, V), loss
 
 
@@ -243,19 +330,97 @@ def _fetch_rows_sharded(Vs, gi):
     return torch.sum(recv, dim=1), owner, me
 
 
-def train_step_sparse_sharded(params, batch, cfg: FMConfig):
+class _Route(NamedTuple):
+    """How :func:`_fetch_rows_across` sent this rank's row ids: ``order``
+    sorts the local slots by owning rank, ``send`` / ``recv`` are the
+    all-to-all's split sizes, ``local`` the received ids as rows of this
+    process's blocks."""
+
+    order: torch.Tensor
+    send: list
+    recv: list
+    local: torch.Tensor
+
+
+def _fetch_rows_across(V, gi, base: int, span: int, group):
+    """Owner-routed row fetch from a table sharded over the processes of
+    ``group``: this process holds rows ``[base, base + span)`` of the
+    padded table as ``V`` [span, k] (its members' blocks), and ``gi``
+    [n_local, S] are its members' row ids. Each id travels only to the
+    process that owns it (rank ``id // span``) and its row comes back: an
+    all-to-all of the ids with split sizes, then one of the rows
+    (``comm.distributed.all_to_all_rows``; the one-process form's dense
+    [n, n, S, k] blocks would move n times the bytes). Returns ([n_local,
+    S, k] rows, the :class:`_Route` for the gradients' return)."""
+    world = torch.distributed.get_world_size(group)
+    ids = gi.reshape(-1)
+    dest = torch.div(ids, span, rounding_mode="floor")
+    order = torch.sort(dest, stable=True)[1]
+    counts = torch.bincount(dest, minlength=world)
+    send = counts.tolist()
+    recv = exchange_counts(counts, group)
+    local = all_to_all_rows(ids[order], send, recv, group) - base
+    back = all_to_all_rows(V[local], recv, send, group)
+    rows = torch.empty_like(back)
+    rows[order] = back
+    return rows.reshape(gi.shape + (V.shape[1],)), _Route(order, send, recv,
+                                                          local)
+
+
+def _return_grads_across(gE, route: _Route, group):
+    """The gradient rows ``gE`` [L, k] of the fetched slots back to the
+    processes that own them, along :func:`_fetch_rows_across`'s route:
+    the rows this process owns, aligned with ``route.local``."""
+    return all_to_all_rows(gE[route.order], route.send, route.recv, group)
+
+
+def _merge_owned(Vs, ids, g, m: int, C: int, scale):
+    """Member m's merge: the received gradient rows ``g`` of its local
+    rows ``ids`` (SENTINEL where another member owns the slot; those
+    are dropped first), sorted and segment-reduced into ``C`` slots,
+    then added into its block ``Vs[m]`` scaled by ``scale``."""
+    own = ids != sparse_ops.SENTINEL
+    li, lv = sparse_ops.segment_reduce_sorted(
+        *sparse_ops.sort_by_key(ids[own], g[own]), C, Operators.SUM)
+    _add_rows(Vs[m], li, scale * lv)
+
+
+def train_step_sparse_sharded(params, batch, cfg: FMConfig, group=None,
+                              first: int = 0):
     """One step with the embedding table sharded over the members:
-    member m owns rows ``[m * B, (m + 1) * B)`` of ``params[2]`` [n * B,
-    k]. Updates the table in place; returns (params, loss)."""
+    member m owns rows ``[m * B, (m + 1) * B)`` of the padded table. On
+    one process ``params[2]`` is the whole [n * B, k] table; over the
+    processes of ``group`` it is this process's blocks [n_local * B, k],
+    its members starting at global member ``first``. Updates the table in
+    place; returns (params, loss)."""
     feats, fields = batch[0], batch[1]
     V = params[2]
-    rows = _slot_rows(feats, fields, cfg)      # [n, per, K(, K)]
+    rows = _slot_rows(feats, fields, cfg)      # [n_local, per, K(, K)]
     n = rows.shape[0]
     S = rows[0].numel()
     k = V.shape[1]
     B = V.shape[0] // n
     Vs = V.view(n, B, k)
     gi = rows.reshape(n, S)
+    n_all = n if group is None else n * torch.distributed.get_world_size(
+        group)
+    C = min(n_all * S, B)
+    lr = cfg.learning_rate
+
+    if group is not None:
+        E, route = _fetch_rows_across(V, gi, first * B, n * B, group)
+        loss, g0, gw, gE, denom = _sparse_grads(
+            params, batch, cfg, E.reshape(rows.shape + (k,)), group)
+        recvg = _return_grads_across(gE.reshape(n * S, k), route, group)
+        w0, w = _update_linear(params[0], params[1], g0, gw, denom, cfg)
+        if cfg.l2:
+            V.mul_(1.0 - lr * cfg.l2)
+        member = torch.div(route.local, B, rounding_mode="floor")
+        for m in range(n):
+            ids = torch.where(member == m, route.local - m * B,
+                              sparse_ops.SENTINEL).to(torch.int32)
+            _merge_owned(Vs, ids, recvg, m, C, -(lr / denom))
+        return (w0, w, V), loss
 
     # forward: owner-routed row fetch
     E_flat, owner, me = _fetch_rows_sharded(Vs, gi)
@@ -270,9 +435,7 @@ def train_step_sparse_sharded(params, batch, cfg: FMConfig):
     # received row (j, s) carries my local row id iff I own gi[j, s]
     loc_ids = torch.where(owner.unsqueeze(0) == me, gi.unsqueeze(0) - me * B,
                           sparse_ops.SENTINEL).to(torch.int32)
-    C = min(n * S, B)
     w0, w = _update_linear(params[0], params[1], g0, gw, denom, cfg)
-    lr = cfg.learning_rate
     if cfg.l2:
         V.mul_(1.0 - lr * cfg.l2)
     for m in range(n):
@@ -280,12 +443,8 @@ def train_step_sparse_sharded(params, batch, cfg: FMConfig):
         # SENTINEL, which the reference sorts along in its static shapes
         # and whose segment it discards; here they are dropped first
         # (they would all add into one discarded slot)
-        ids = loc_ids[m].reshape(-1)
-        own = ids != sparse_ops.SENTINEL
-        li, lv = sparse_ops.segment_reduce_sorted(
-            *sparse_ops.sort_by_key(ids[own], recvg[m].reshape(n * S, k)[own]),
-            C, Operators.SUM)
-        _add_rows(Vs[m], li, -(lr / denom) * lv)
+        _merge_owned(Vs, loc_ids[m].reshape(-1), recvg[m].reshape(n * S, k),
+                     m, C, -(lr / denom))
     return (w0, w, V), loss
 
 
@@ -298,26 +457,50 @@ def predict(params, feats, fields, vals, mask, cfg: FMConfig):
 
 
 def _stage_params(params, cfg: FMConfig, n_rows_padded: int, device,
-                  sharded: bool, copy: bool):
+                  sharded: bool, copy: bool, block=None):
     """(w0, w, V) from numpy arrays or tensors as f32 tensors on
     ``device``; the table cut to its ``n_rows`` real rows, or padded
-    with zero rows to ``n_rows_padded`` when ``sharded``. ``copy``
-    leaves the caller's tensors untouched by later in-place steps."""
+    with zero rows to ``n_rows_padded`` when ``sharded``. ``block`` =
+    (lo, hi): the rows of the padded table this process holds (a sharded
+    table over processes); V is then either a whole table, whose block is
+    taken, or a table of fewer than ``n_rows`` rows, which must be the
+    block itself (what ``fit`` returns there). ``copy`` leaves the
+    caller's tensors untouched by later in-place steps."""
     def put(a):
         if not isinstance(a, torch.Tensor):
             a = torch.from_numpy(np.array(a, np.float32))
         t = a.detach().to(device=device, dtype=torch.float32)
         return t.clone() if copy and t.data_ptr() == a.data_ptr() else t
 
-    w0, w, V = (put(p) for p in params)
+    w0, w, V = params
     n_rows = n_table_rows(cfg)
-    if tuple(V.shape[1:]) != (cfg.k,) or V.shape[0] < n_rows:
+    if tuple(V.shape[1:]) != (cfg.k,):
         raise Mp4jError(f"the table must be [{n_rows}, {cfg.k}], got "
                         f"{tuple(V.shape)}")
-    V = V[:n_rows]
-    if sharded and n_rows_padded > n_rows:
-        V = torch.cat([V, V.new_zeros((n_rows_padded - n_rows, cfg.k))])
-    return w0, w, V.contiguous()
+    if block is not None and V.shape[0] < n_rows:
+        if V.shape[0] != block[1] - block[0]:
+            raise Mp4jError(
+                f"a table of {V.shape[0]} rows is neither the whole "
+                f"[{n_rows}, {cfg.k}] table nor this process's "
+                f"{block[1] - block[0]}-row block")
+        return put(w0), put(w), put(V).contiguous()
+    if V.shape[0] < n_rows:
+        raise Mp4jError(f"the table must be [{n_rows}, {cfg.k}], got "
+                        f"{tuple(V.shape)}")
+    lo, hi = (0, n_rows_padded) if block is None else block
+    V = put(V[lo: min(hi, n_rows)] if sharded else V[:n_rows])
+    if sharded and hi - lo > V.shape[0]:
+        V = torch.cat([V, V.new_zeros((hi - lo - V.shape[0], cfg.k))])
+    return put(w0), put(w), V.contiguous()
+
+
+def _block(mesh, n_rows_padded: int):
+    """The padded table's rows ``(lo, hi)`` that this process's members
+    own on a mesh over processes; None on a one-process mesh."""
+    if mesh.group is None:
+        return None
+    B = n_rows_padded // mesh.n
+    return mesh.first * B, (mesh.first + mesh.n_local) * B
 
 
 def params_from_numpy(params, cfg: FMConfig,
@@ -325,12 +508,15 @@ def params_from_numpy(params, cfg: FMConfig,
     """The reference's parameters ``(w0, w, V)`` as numpy arrays (as
     ``ytk_mp4j_tpu`` trains or loads them; the table [n_rows, k]) as the
     port's, on ``mesh``'s device (default: one member on ``cuda:0``),
-    the table padded for ``mesh``'s member count when sharded."""
+    the table padded for ``mesh``'s member count when sharded; on a mesh
+    over processes each process takes its own members' blocks."""
     mesh = make_mesh(1) if mesh is None else mesh
     n_rows = n_table_rows(cfg)
     padded = -(-n_rows // mesh.n) * mesh.n
-    return _stage_params(params, cfg, padded, mesh.device,
-                         table_sharding == "sharded", copy=True)
+    sharded = table_sharding == "sharded"
+    return _stage_params(params, cfg, padded, mesh.device, sharded,
+                         copy=True,
+                         block=_block(mesh, padded) if sharded else None)
 
 
 class FMTrainer(DataParallelTrainer):
@@ -398,18 +584,30 @@ class FMTrainer(DataParallelTrainer):
              np.zeros((self.cfg.n_features,), np.float32), V), copy=False)
 
     def _place_params(self, params, copy: bool = True):
-        return _stage_params(params, self.cfg, self.n_rows_padded,
-                             self.device, self._sharded, copy)
+        return _stage_params(
+            params, self.cfg, self.n_rows_padded, self.device, self._sharded,
+            copy, _block(self.mesh, self.n_rows_padded)
+            if self._sharded else None)
+
+    @property
+    def _sharded_across(self) -> bool:
+        """Whether the table is sharded over the processes of a job."""
+        return self._sharded and self.group is not None
 
     def full_table(self, params) -> np.ndarray:
         """The complete [n_rows, k] embedding table on the host, whatever
-        the sharding (the serve/save shape)."""
-        return as_numpy(params[2])[: self.n_rows]
+        the sharding (the serve/save shape). A collective where the table
+        is sharded over processes: every rank gets the gathered table."""
+        V = params[2]
+        if self._sharded_across:
+            V = self._gather_rows(V)
+        return as_numpy(V)[: self.n_rows]
 
     def save_params(self, path: str, params) -> None:
         """Persist with the table in its portable [n_rows, k] shape (a
-        sharded table is unpadded first, so the file loads at any member
-        count, in either package)."""
+        sharded table is gathered and unpadded first, so the file loads at
+        any member count, in either package); only rank 0 of a job
+        writes."""
         super().save_params(path, (params[0], params[1],
                                    self.full_table(params)))
 
@@ -418,10 +616,13 @@ class FMTrainer(DataParallelTrainer):
         The sparse capacity is computed anew for every batch shape: a
         stale, smaller one would drop gradient rows silently."""
         cfg = self.cfg
+        group = self.group
         if self._sharded:
-            return lambda p, b: train_step_sparse_sharded(p, b, cfg)
+            first = self.mesh.first
+            return lambda p, b: train_step_sparse_sharded(p, b, cfg, group,
+                                                          first)
         if not self.sparse_grads:
-            return lambda p, b: train_step_dense(p, b, cfg)
+            return lambda p, b: train_step_dense(p, b, cfg, group)
         cap = self.sparse_capacity
         if cap is None:
             # global unique touched rows can't exceed the step's slots,
@@ -430,7 +631,7 @@ class FMTrainer(DataParallelTrainer):
             if cfg.model == "ffm":
                 bound *= cfg.max_nnz
             cap = min(self.n_rows, bound)
-        return lambda p, b: train_step_sparse(p, b, cfg, cap)
+        return lambda p, b: train_step_sparse(p, b, cfg, cap, group)
 
     def _check_instances(self, feats, fields):
         """Id-range validation of fit and predict inputs (numpy, or
@@ -454,20 +655,29 @@ class FMTrainer(DataParallelTrainer):
         if cfg.model == "ffm" and (flo < 0 or fhi >= cfg.n_fields):
             raise Mp4jError("field id out of range")
 
-    def _stage_instances(self, feats, fields, vals):
+    def _stage_instances(self, feats, fields, vals, per=None,
+                         local: bool = False):
         """Validate padded-sparse instances, pad the slot axis to
         max_nnz, derive the nonzero mask (padded slots carry value 0),
-        on the device: (feats, fields, vals, mask) [N, max_nnz]."""
+        on the device: (feats, fields, vals, mask) [N, max_nnz]; with
+        ``local``, only this process's rows of them (see
+        :meth:`_row_span`)."""
         if isinstance(feats, torch.Tensor):
             fields = as_tensor(fields, torch.int32, feats.device)
         else:
             feats = np.asarray(feats, np.int32)
             fields = np.asarray(as_numpy(fields), np.int32)
+        if not isinstance(vals, torch.Tensor):
+            vals = np.asarray(vals, np.float32)
         if fields.shape != feats.shape:
             raise Mp4jError(
                 f"fields {tuple(fields.shape)} must match feats "
                 f"{tuple(feats.shape)}")
         self._check_instances(feats, fields)
+        if local:
+            N = feats.shape[0]
+            feats, fields, vals = (self._local_rows(a, N, per)
+                                   for a in (feats, fields, vals))
         feats = as_tensor(feats, torch.int32, self.device)
         fields = as_tensor(fields, torch.int32, self.device)
         vals = as_tensor(vals, torch.float32, self.device)
@@ -478,42 +688,58 @@ class FMTrainer(DataParallelTrainer):
                 for a in (feats, fields, vals))
         return feats, fields, vals, (vals != 0).to(torch.float32)
 
-    def _labels(self, y, N: int):
-        y = as_tensor(y, torch.float32, self.device)
+    def _labels(self, y, N: int, per=None, local: bool = False):
+        """Labels [N] on the device (this process's rows of them with
+        ``local``)."""
+        if not isinstance(y, torch.Tensor):
+            y = np.asarray(y, np.float32)
         if tuple(y.shape) != (N,):
             raise Mp4jError(f"y must be [N={N}], got {tuple(y.shape)}")
-        return y
+        if local:
+            y = self._local_rows(y, N, per)
+        return as_tensor(y, torch.float32, self.device)
+
+    def _stage_batch(self, feats, fields, vals, y, weights, per=None):
+        """This process's members' rows of padded-sparse instances as
+        member tensors ``(feats, fields, vals, mask, y, sw)``."""
+        N = len(feats)
+        staged = self._stage_instances(feats, fields, vals, per, local=True)
+        y = self._labels(y, N, per, local=True)
+        real = y.shape[0]
+        arrays, per, sw = self._pad_rows(list(staged) + [y], N, per)
+        if weights is not None:
+            sw[:real] *= self._weights(weights, N, per)
+        return self._members(arrays + [sw], per)
 
     def shard_data(self, feats, fields, vals, y, sample_weight=None):
         """Pad and shard padded-sparse instances (numpy or tensors):
         returns ``(feats, fields, vals, mask, y, sw)`` as member tensors
-        ``[n, per, ...]``. feats/fields: [N, K] int (K <= max_nnz);
-        vals: [N, K] float; y: [N]. ``sample_weight`` ([N]) scales each
-        example's loss and gradient (the step normalizes by the weight
-        sum, so integer weights train exactly like row duplication);
-        padding rows weigh 0."""
-        feats, fields, vals, mask = self._stage_instances(feats, fields,
-                                                          vals)
-        N = feats.shape[0]
-        y = self._labels(y, N)
-        arrays, per, sw = self._pad_rows([feats, fields, vals, mask, y])
-        if sample_weight is not None:
-            sw[:N] *= self._weights(sample_weight, N)
-        return self._members(arrays + [sw], per)
+        ``[n_local, per, ...]`` (this process's members). feats/fields:
+        [N, K] int (K <= max_nnz); vals: [N, K] float; y: [N].
+        ``sample_weight`` ([N]) scales each example's loss and gradient
+        (the step normalizes by the job's weight sum, so integer weights
+        train exactly like row duplication); padding rows weigh 0."""
+        return self._stage_batch(feats, fields, vals, y, sample_weight)
 
     def fit(self, feats, fields, vals, y, n_steps: int = 100, params=None,
             seed: int = 0, eval_set=None,
             early_stopping_rounds: int | None = None,
-            sample_weight=None):
+            sample_weight=None, comm=None):
         """Full-batch training; returns (params, losses as numpy).
 
         ``eval_set=(feats_va, fields_va, vals_va, y_va)`` evaluates the
-        held-out loss after every step (``self.eval_history_``);
-        ``early_stopping_rounds=k`` stops after k non-improving steps
-        and returns the best step's params; ``sample_weight`` ([N])
-        weights each example (integer weights == row duplication).
-        ``params`` (tensors or numpy, either package's) are copied, never
-        written to."""
+        held-out loss after every step (``self.eval_history_``, the same
+        on every rank); ``early_stopping_rounds=k`` stops after k
+        non-improving steps and returns the best step's params;
+        ``sample_weight`` ([N]) weights each example (integer weights ==
+        row duplication). ``params`` (tensors or numpy, either package's)
+        are copied, never written to.
+
+        ``comm`` (an mp4j comm; every rank calls ``fit`` together) sums
+        each step's training loss across the comm's ranks: the mean
+        history lands in ``self.sync_loss_history_``. Under
+        ``MP4J_OVERLAP=1`` the exchanges are drained at the loop's end
+        (the same results, bit for bit)."""
         if early_stopping_rounds is not None and eval_set is None:
             raise Mp4jError("early_stopping_rounds requires an eval_set")
         batch = self.shard_data(feats, fields, vals, y,
@@ -524,10 +750,12 @@ class FMTrainer(DataParallelTrainer):
         va = None if eval_set is None else self._prep_eval(*eval_set)
         stopper = EarlyStopper(early_stopping_rounds)
         self.eval_history_ = stopper.history
+        exchanger = StepStatsExchanger(comm)
         losses = []
         for i in range(n_steps):
             params, loss = step(params, batch)
             losses.append(loss)
+            exchanger.submit_loss(loss)
             if va is not None and stopper.update(
                     self._eval_loss(params, va), i,
                     state=(tuple(p.clone() for p in params)
@@ -536,6 +764,7 @@ class FMTrainer(DataParallelTrainer):
                     params = stopper.best_state
                     losses = losses[:stopper.best_round + 1]
                 break
+        self.sync_loss_history_ = exchanger.loss_history()
         if not losses:
             return params, np.zeros(0, np.float32)
         return params, torch.stack(losses).cpu().numpy()
@@ -553,7 +782,9 @@ class FMTrainer(DataParallelTrainer):
         chunk E times runs the same steps as ``fit(n_steps=E)``. The
         loop is double-buffered (``DataParallelTrainer._stream_fit``):
         at most ``max_in_flight`` steps are queued, 0 runs them one
-        after another. Returns (params, per-chunk losses)."""
+        after another. Over processes every rank streams the same
+        chunks and stages its members' rows of each. Returns (params,
+        per-chunk losses)."""
         state = [self.init_params(seed) if params is None
                  else self._place_params(params)]
 
@@ -570,20 +801,13 @@ class FMTrainer(DataParallelTrainer):
         """Host half of one stream step: validate, copy to the device,
         pad to ``batch_rows`` (resolved from the first chunk). Returns
         ((member batch, slots a member), batch_rows)."""
-        feats, fields, vals, y = chunk[:4]
-        weights = chunk[4] if len(chunk) > 4 else None
-        feats, fields, vals, mask = self._stage_instances(feats, fields,
-                                                          vals)
-        N = feats.shape[0]
-        y = self._labels(y, N)
+        N = len(chunk[0])
         if batch_rows is None:
             batch_rows = -(-N // self.n_shards) * self.n_shards
-        arrays, sw, per = self._pad_stream_rows(
-            [feats, fields, vals, mask, y], batch_rows)
-        if weights is not None:
-            sw[:N] *= self._weights(weights, N)
-        return ((self._members(arrays + [sw], per),
-                 per * self.cfg.max_nnz), batch_rows)
+        per = self._stream_span(N, batch_rows)
+        batch = self._stage_batch(*chunk[:4], chunk[4] if len(chunk) > 4
+                                  else None, per)
+        return (batch, per * self.cfg.max_nnz), batch_rows
 
     def _prep_eval(self, feats, fields, vals, y):
         """Stage a held-out batch once for the per-step evaluation."""
@@ -592,33 +816,46 @@ class FMTrainer(DataParallelTrainer):
 
     def _eval_loss(self, params, va) -> float:
         feats, fields, vals, mask, y = va
-        z = _score(params, feats, fields, vals, mask, self.cfg)
+        if self._sharded_across:
+            z = self._scores_sharded(params, feats, fields, vals, mask)
+        else:
+            z = _score(params, feats, fields, vals, mask, self.cfg)
         return float(torch.mean(per_example_loss(z, y, self.cfg.loss)))
 
-    def _predict_sharded(self, params, feats, fields, vals, mask):
-        """Owner-routed row fetch from the sharded table (no member
-        reads a row it does not own), one member a block of rows."""
+    def _scores_sharded(self, params, feats, fields, vals, mask):
+        """Scores of staged instances [N, ...] from the sharded table by
+        the owner-routed row fetch (no member reads a row it does not
+        own), one member a block of rows; over processes each rank scores
+        its members' rows and every rank gets all N scores (a
+        collective)."""
         N = feats.shape[0]
-        (f, fl, v, m), per, _ = self._pad_rows([feats, fields, vals, mask])
+        cfg = self.cfg
+        local = [self._local_rows(a, N) for a in (feats, fields, vals, mask)]
+        (f, fl, v, m), per, _ = self._pad_rows(local, N)
         f, fl, v, m = self._members([f, fl, v, m], per)
         w0, w, V = params
-        n = self.n_shards
-        rows = _slot_rows(f, fl, self.cfg)
-        E, _, _ = _fetch_rows_sharded(V.view(n, -1, self.cfg.k),
-                                      rows.reshape(n, -1))
-        z = _score_from_slots(w0, w, E.reshape(rows.shape + (self.cfg.k,)),
-                              f, v * m, self.cfg)
-        return _link(z, self.cfg).reshape(-1)[:N]
+        n = f.shape[0]
+        rows = _slot_rows(f, fl, cfg)
+        gi = rows.reshape(n, -1)
+        if self.group is None:
+            E, _, _ = _fetch_rows_sharded(V.view(n, -1, cfg.k), gi)
+        else:
+            E, _ = _fetch_rows_across(V, gi, self.mesh.first * V.shape[0]
+                                      // n, V.shape[0], self.group)
+        z = _score_from_slots(w0, w, E.reshape(rows.shape + (cfg.k,)),
+                              f, v * m, cfg)
+        return self._gather_rows(z.reshape(-1))[:N]
 
     def predict(self, params, feats, fields, vals):
         """Probabilities (logistic) or scores (squared) of the instances,
         a tensor [N] on the device. ``params`` may be either package's,
-        tensors or numpy."""
+        tensors or numpy. A collective on a table sharded over
+        processes."""
         feats, fields, vals, mask = self._stage_instances(feats, fields,
                                                           vals)
         params = self._place_params(params, copy=False)
         with torch.no_grad():
             if self._sharded:
-                return self._predict_sharded(params, feats, fields, vals,
-                                             mask)
+                return _link(self._scores_sharded(params, feats, fields,
+                                                  vals, mask), self.cfg)
             return predict(params, feats, fields, vals, mask, self.cfg)

@@ -63,10 +63,10 @@ from ytk_mp4j_tpu_torch.exceptions import Mp4jError
 from ytk_mp4j_tpu_torch.models._base import (DataParallelTrainer,
                                              EarlyStopper,
                                              StepStatsExchanger, as_numpy,
-                                             as_tensor, load_npz,
-                                             per_example_loss, save_npz,
-                                             stage_softmax_labels)
-from ytk_mp4j_tpu_torch.comm.distributed import all_gather_rows, all_reduce_
+                                             as_tensor, fold_across,
+                                             load_npz, per_example_loss,
+                                             save_npz, stage_softmax_labels)
+from ytk_mp4j_tpu_torch.comm.distributed import all_reduce_
 from ytk_mp4j_tpu_torch.models.binning import QuantileBinner
 from ytk_mp4j_tpu_torch.operators import Operators
 from ytk_mp4j_tpu_torch.ops import collectives as coll
@@ -312,13 +312,10 @@ def _fold(x, n_members: int):
     return coll.reduce_all(x.reshape((n_members, -1) + tuple(x.shape[1:])))
 
 
-def _fold_across(x, n_members: int, group):
-    """:func:`_fold` over every rank of a process ``group``: ``x`` holds
-    this rank's ``n_members`` members' partials; every rank's are gathered
-    in rank order, then all of them are folded in rank order."""
-    every = all_gather_rows(x, group)
-    return _fold(every.reshape((-1,) + tuple(x.shape[1:])),
-                 n_members * every.shape[0])
+# :func:`_fold` over every rank of a process group (``_base.fold_across``,
+# shared with the FM and linear trainers); a module global, so that a
+# caller can wrap it
+_fold_across = fold_across
 
 
 # ----------------------------------------------------------------------
@@ -569,8 +566,6 @@ class GBDTTrainer(DataParallelTrainer):
     ``comm.distributed.global_mesh`` / ``hier_global_mesh``). Without a
     mesh it runs ``n_devices`` members (default 1) on ``device`` (default
     ``cuda:0``; no CUDA and no ``device`` raises Mp4jError)."""
-
-    over_processes = True
 
     def __init__(self, cfg: GBDTConfig, mesh=None, n_devices=None,
                  device=None):

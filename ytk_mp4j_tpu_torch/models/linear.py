@@ -1,24 +1,34 @@
 """Data-parallel linear models (the port of
 ``ytk_mp4j_tpu/models/linear.py``): linear regression, logistic
-regression and multiclass softmax, over a mesh of members on one device.
+regression and multiclass softmax, over a mesh of members on one device
+or over the processes of a ``torch.distributed`` job.
 
 Member m trains on rows ``[m * per, (m + 1) * per)``; a batch is a tuple
-of ``[n, per, ...]`` tensors and the parameters are one replicated copy.
-One autograd pass over every member's rows gives the summed gradient the
-reference's explicit ``psum`` computes (it casts its parameters
+of ``[n_local, per, ...]`` tensors (this process's members; every member
+on a one-process mesh) and the parameters are one replicated copy. One
+autograd pass over the local members' rows gives their summed gradient,
+the reference's explicit ``psum`` on one process (it casts its parameters
 per-member so that the ``psum`` is the only cross-member sum, ``_mean_
-loss_grad:62``; here there is nothing to fold twice). The sums are
-divided by the total sample weight, so padding rows (weight 0) and
-integer instance weights train exactly like the unpadded, duplicated
-rows.
+loss_grad:62``; here there is nothing to fold twice). Over processes
+(``comm.distributed.global_mesh`` / ``hier_global_mesh``) each rank's
+weighted loss sum, sample-weight sum and gradients (F + 3 numbers;
+F * C + C + 2 for softmax) are gathered and folded in rank order
+(``_base.job_sum``), so every rank holds the same parameters bit for
+bit. The sums are divided by the job's total sample weight, so padding
+rows (weight 0) and integer instance weights train exactly like the
+unpadded, duplicated rows.
 
 Losses: ``squared``, ``logistic`` ({0, 1} labels) and ``softmax`` (w is
 [F, C], labels are class ids). L2 is a penalty gradient added before the
 momentum update (not on the bias); L1 a proximal shrink after the step.
 
+``fit(comm=)`` (an mp4j comm; every rank calls ``fit`` together) sums
+each step's training loss over the comm's ranks into
+``sync_loss_history_`` (their mean), through ``_base.StepStatsExchanger``
+(``MP4J_OVERLAP=1`` moves only the wait).
+
 Intended divergences from the reference: ``predict`` returns a tensor on
-the device; no ``comm=`` argument and no ``LinearServable`` (they ride
-the host planes: ROADMAP queue 1, "What rides the host planes").
+the device; no ``LinearServable`` (it rides the serve plane).
 """
 
 from __future__ import annotations
@@ -31,8 +41,10 @@ import torch
 from ytk_mp4j_tpu_torch.device import make_mesh
 from ytk_mp4j_tpu_torch.exceptions import Mp4jError
 from ytk_mp4j_tpu_torch.models._base import (DataParallelTrainer,
-                                             EarlyStopper, as_numpy,
-                                             as_tensor, per_example_loss,
+                                             EarlyStopper,
+                                             StepStatsExchanger, as_numpy,
+                                             as_tensor, job_sum,
+                                             per_example_loss,
                                              stage_softmax_labels)
 
 LOSSES = ("squared", "logistic", "softmax")
@@ -55,22 +67,31 @@ class LinearConfig:
             raise Mp4jError("softmax needs n_classes >= 2")
 
 
-def _mean_loss_grad(params, x, y, sw, cfg: LinearConfig):
-    """The weighted-mean loss (data term only) and its gradient over
-    every member's rows ``x`` [..., F]."""
+def _mean_loss_grad(params, x, y, sw, cfg: LinearConfig, group=None):
+    """The weighted-mean loss (data term only) and its gradient over the
+    local members' rows ``x`` [..., F]; with a process ``group``, the
+    job's: every rank's sums folded in rank order and divided by the
+    job's weight sum."""
     w, b = (p.detach().requires_grad_(True) for p in params)
     with torch.enable_grad():
         z = x @ w + b
         sum_loss = torch.sum(per_example_loss(z, y, cfg.loss) * sw)
         gw, gb = torch.autograd.grad(sum_loss, (w, b))
-    denom = torch.clamp(torch.sum(sw), min=1.0)
-    return sum_loss.detach() / denom, (gw / denom, gb / denom)
+    sum_loss, sw_sum = sum_loss.detach(), torch.sum(sw)
+    if group is not None:
+        flat = job_sum(torch.cat([sum_loss.reshape(1), sw_sum.reshape(1),
+                                  gw.reshape(-1), gb.reshape(-1)]), group)
+        sum_loss, sw_sum = flat[0], flat[1]
+        gw = flat[2: 2 + gw.numel()].reshape(gw.shape)
+        gb = flat[2 + gw.numel():].reshape(gb.shape)
+    denom = torch.clamp(sw_sum, min=1.0)
+    return sum_loss / denom, (gw / denom, gb / denom)
 
 
-def train_step_shard(params, vel, x, y, sw, cfg: LinearConfig):
-    """One optimization step over member batches. Returns (params, vel,
-    loss)."""
-    loss, (gw, gb) = _mean_loss_grad(params, x, y, sw, cfg)
+def train_step_shard(params, vel, x, y, sw, cfg: LinearConfig, group=None):
+    """One optimization step over member batches (this process's members
+    of the job of ``group``). Returns (params, vel, loss)."""
+    loss, (gw, gb) = _mean_loss_grad(params, x, y, sw, cfg, group)
     w, b = params
     gw = gw + cfg.l2 * w                      # L2 penalty (not on bias)
     vw, vb = vel
@@ -105,7 +126,8 @@ def _stage_params(params, device):
 def params_from_numpy(params, cfg: LinearConfig, mesh=None):
     """The reference's parameters ``(w, b)`` as numpy arrays (as
     ``ytk_mp4j_tpu`` trains or loads them) as the port's, on ``mesh``'s
-    device (default: one member on ``cuda:0``)."""
+    device (default: one member on ``cuda:0``; on a mesh over processes
+    every rank holds the whole replicated copy)."""
     mesh = make_mesh(1) if mesh is None else mesh
     w, b = _stage_params(params, mesh.device)
     want = ((cfg.n_features, cfg.n_classes) if cfg.loss == "softmax"
@@ -118,7 +140,7 @@ def params_from_numpy(params, cfg: LinearConfig, mesh=None):
 class LinearTrainer(DataParallelTrainer):
     """Data-parallel linear/logistic/softmax regression over a mesh of
     members (``mesh``, or ``n_devices`` members on ``device``; ``cuda:0``
-    unless ``device="cpu"``)."""
+    unless ``device="cpu"``), or over processes."""
 
     def __init__(self, cfg: LinearConfig, mesh=None, n_devices=None,
                  device=None):
@@ -159,29 +181,50 @@ class LinearTrainer(DataParallelTrainer):
                                               self.cfg.n_classes),
                          torch.int32, self.device)
 
-    def shard_data(self, x, y, sample_weight=None):
-        """Pad and shard ``x`` [N, F] and ``y`` [N] (numpy or tensors):
-        returns member tensors ``(x, y, sw)`` [n, per, ...]. Padding rows
-        weigh 0; ``sample_weight`` ([N]) scales each example's loss and
-        gradient (integer weights == row duplication)."""
-        x = self._stage_x(x)
+    def _stage_xy(self, x, y, per: int | None = None):
+        """Validate ``x`` [N, F] and labels [N] and stage this process's
+        rows of them (see :meth:`_row_span`) on the device; returns (x, y,
+        N)."""
+        if not isinstance(x, torch.Tensor):
+            x = np.asarray(x, np.float32)
+        if x.ndim != 2 or x.shape[1] != self.cfg.n_features:
+            raise Mp4jError(
+                f"x must be [N, {self.cfg.n_features}], got "
+                f"{tuple(x.shape)}")
         y = self._stage_labels(y)
         N = x.shape[0]
         if y.shape[0] != N:
             raise Mp4jError(f"y must be [N={N}], got {tuple(y.shape)}")
-        (x, y), per, sw = self._pad_rows([x, y])
+        return (as_tensor(self._local_rows(x, N, per), torch.float32,
+                          self.device), self._local_rows(y, N, per), N)
+
+    def shard_data(self, x, y, sample_weight=None):
+        """Pad and shard ``x`` [N, F] and ``y`` [N] (numpy or tensors):
+        returns member tensors ``(x, y, sw)`` [n_local, per, ...] (this
+        process's members). Padding rows weigh 0; ``sample_weight`` ([N])
+        scales each example's loss and gradient (integer weights == row
+        duplication)."""
+        x, y, N = self._stage_xy(x, y)
+        real = x.shape[0]
+        (x, y), per, sw = self._pad_rows([x, y], N)
         if sample_weight is not None:
-            sw[:N] *= self._weights(sample_weight, N)
+            sw[:real] *= self._weights(sample_weight, N)
         return self._members([x, y, sw], per)
 
     def fit(self, x, y, n_steps: int = 100, params=None, eval_set=None,
             early_stopping_rounds: int | None = None,
-            sample_weight=None):
+            sample_weight=None, comm=None):
         """Run ``n_steps`` full-batch steps; returns (params, losses as
         numpy). ``eval_set=(x_va, y_va)`` tracks the held-out loss per
-        step (``self.eval_history_``); ``early_stopping_rounds=k`` stops
-        after k non-improving steps and returns the best step's
-        params."""
+        step (``self.eval_history_``; every rank evaluates the whole
+        set); ``early_stopping_rounds=k`` stops after k non-improving
+        steps and returns the best step's params.
+
+        ``comm`` (an mp4j comm; every rank calls ``fit`` together) sums
+        each step's training loss across the comm's ranks: the mean
+        history lands in ``self.sync_loss_history_`` ([n_steps]). Under
+        ``MP4J_OVERLAP=1`` step k's exchange is posted nonblocking and
+        drained at the loop's end (the same results, bit for bit)."""
         if early_stopping_rounds is not None and eval_set is None:
             raise Mp4jError("early_stopping_rounds requires an eval_set")
         dx, dy, dsw = self.shard_data(x, y, sample_weight=sample_weight)
@@ -198,17 +241,20 @@ class LinearTrainer(DataParallelTrainer):
             va = (x_va, y_va)
         stopper = EarlyStopper(early_stopping_rounds)
         self.eval_history_ = stopper.history
+        exchanger = StepStatsExchanger(comm)
         losses = []
         for i in range(n_steps):
             params, vel, loss = train_step_shard(params, vel, dx, dy, dsw,
-                                                 self.cfg)
+                                                 self.cfg, self.group)
             losses.append(loss)
+            exchanger.submit_loss(loss)
             if va is not None and stopper.update(
                     self._eval_loss(params, va), i, state=(params, vel)):
                 if stopper.best_state is not None:
                     params, vel = stopper.best_state
                     losses = losses[:stopper.best_round + 1]
                 break
+        self.sync_loss_history_ = exchanger.loss_history()
         if not losses:
             return params, np.zeros(0, np.float32)
         return params, torch.stack(losses).cpu().numpy()
@@ -230,7 +276,7 @@ class LinearTrainer(DataParallelTrainer):
 
         def dispatch(staged):
             state[0], state[1], loss = train_step_shard(
-                state[0], state[1], *staged, self.cfg)
+                state[0], state[1], *staged, self.cfg, self.group)
             return loss
 
         losses = self._stream_fit(batches, self._stage_stream_chunk,
@@ -239,15 +285,17 @@ class LinearTrainer(DataParallelTrainer):
 
     def _stage_stream_chunk(self, chunk, batch_rows: int | None):
         """Host half of one stream step: validate, copy to the device,
-        pad to ``batch_rows`` (resolved from the first chunk)."""
-        x = self._stage_x(chunk[0])
-        y = self._stage_labels(chunk[1])
-        N = x.shape[0]
+        pad to ``batch_rows`` (resolved from the first chunk); this
+        process's members' rows of it."""
+        N = len(chunk[0])
         if batch_rows is None:
             batch_rows = -(-N // self.n_shards) * self.n_shards
-        (x, y), sw, per = self._pad_stream_rows([x, y], batch_rows)
+        per = self._stream_span(N, batch_rows)
+        x, y, _ = self._stage_xy(chunk[0], chunk[1], per)
+        real = x.shape[0]
+        (x, y), per, sw = self._pad_rows([x, y], N, per)
         if len(chunk) > 2:
-            sw[:N] *= self._weights(chunk[2], N)
+            sw[:real] *= self._weights(chunk[2], N, per)
         return self._members([x, y, sw], per), batch_rows
 
     def _eval_loss(self, params, va) -> float:
