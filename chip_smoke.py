@@ -34,6 +34,11 @@ Slice 8, FM/FFM and linear over processes: ``FMTrainer`` on its dense,
 sparse and sharded-table paths and ``LinearTrainer`` over
 ``global_mesh()``, ``fit(comm=)`` (no kernel of their own).
 
+Slice 9, the socket plane: the port's ``Master``, ``ProcessCommSlave``
+(TCP and shared-memory transports, the native merge and raw data plane,
+the progression engine) and ``ThreadCommSlave``, with the trainers'
+``comm=`` over it; GBDT runs the histogram kernel on every rank.
+
 Phases:
 
 1. build the kernels from the sources in this checkout (one ``nvcc``
@@ -125,7 +130,31 @@ Phases:
    linear over 4 ranks, 10 steps, against ``make_mesh(4)``; and
    ``fit(comm=)`` on both families, whose ``sync_loss_history_`` must be
    the mean of the ranks' losses. The phase's seconds are printed;
-10. one JSON line of kernels, then the card's ``nvidia-smi`` line, then
+10. the socket plane, in 4 worker processes of this script under the
+    port's ``Master`` in this process (the 300 s deadline of phase 8):
+    one job a transport -- TCP on the native data plane, TCP framed
+    (``native_transport=False``), shared memory where ``/dev/shm`` is
+    writable. (a) configs[0]: ``allreduce_array`` of 1M f32 SUM on every
+    job with ``algo`` rhd, ring, auto and tree: every rank's result
+    bitwise equal, within rtol 1e-6 of the f64 sum, the framed and shm
+    jobs bitwise the native TCP job; GB/s a rank as bench.py's
+    ``bench_socket_collective`` computes it, the median of 5; the native
+    merge must have built in every process. (b) configs[2]:
+    ``allreduce_map`` of 20,000 string keys a rank at 50 % overlap, equal
+    to the host merge; merged keys/s. (c) ``GBDTTrainer(cfg,
+    mesh=make_mesh(1)).train_raw(X_r, y_r, comm=slave)`` on phase 4's raw
+    features, 2.75M rows a rank: ``fit_distributed``'s edges bitwise on
+    every rank and equal to ``ThreadCommSlave.spawn_group(4)``'s in this
+    process; every histogram call of the warm-up tree held against the
+    plain version; 3 timed trees under ``MP4J_OVERLAP=0`` and ``=1``
+    (trees, margins and ``sync_round_history_`` bitwise between the two,
+    18 histogram launches a rank in each); trees/s and each round's stats
+    exchange in host ms. (d) ``ThreadCommSlave.spawn_group(4)`` in this
+    process on (a)'s payload: bitwise (a)'s tree schedule, whose fold
+    order it shares. (e) ``fit(comm=slave)`` on FM and linear:
+    ``sync_loss_history_`` the ranks' mean, overlap on and off within
+    rtol 1e-5;
+11. one JSON line of kernels, then the card's ``nvidia-smi`` line, then
     the ``{"ok": true, ...}`` line last.
 
 Any failed check raises, and the script exits non-zero without the ok
@@ -133,9 +162,11 @@ line; so it does where CUDA is absent or the package is not beside it.
 A longer record goes to ``chiprun_out/chip_smoke.json``.
 
 Usage: ``python3 chip_smoke.py`` from the repo root (no arguments; the
-script starts itself with ``--rank-worker`` for phases 8 and 9).
+script starts itself with ``--rank-worker`` for phases 8, 9 and 10).
 """
 
+import contextlib
+import hashlib
 import json
 import os
 import pickle
@@ -447,9 +478,10 @@ def split_line(rec):
             f"share {rec['idle_share']:.1%}")
 
 
-def record_levels(trainer, dbins, dy):
-    """Train one tree while keeping each histogram call's inputs (the
-    bins too: over processes they are the rank's rows)."""
+@contextlib.contextmanager
+def recording_histograms():
+    """Keep each histogram call's inputs (the bins too: over processes
+    they are the rank's rows) in the list it yields."""
     real = gbdt.build_histograms
     calls = []
 
@@ -459,10 +491,16 @@ def record_levels(trainer, dbins, dy):
 
     gbdt.build_histograms = recorder
     try:
-        trainer.train(dbins, dy, n_trees=1)
+        yield calls
     finally:
         gbdt.build_histograms = real
     torch.cuda.synchronize()
+
+
+def record_levels(trainer, dbins, dy):
+    """Train one tree while keeping each histogram call's inputs."""
+    with recording_histograms() as calls:
+        trainer.train(dbins, dy, n_trees=1)
     return calls
 
 
@@ -692,6 +730,14 @@ def run_data_parallel(dbins, dy, one_member):
                 tree_profile=profile)
 
 
+def raw_features(dbins):
+    """The raw f32 features of ``train_raw``: the bins plus uniform noise
+    in [0, 1) from a generator seeded 0 on the bins' device."""
+    gen = torch.Generator(device=dbins.device).manual_seed(0)
+    return dbins.float() + torch.rand(dbins.shape, generator=gen,
+                                      device=dbins.device)
+
+
 def run_train_raw(dev, dbins, dy):
     """``train_raw`` over MEMBERS members on raw f32 features (the bins
     plus uniform noise in [0, 1), so binning recovers the bins up to the
@@ -699,8 +745,7 @@ def run_train_raw(dev, dbins, dy):
     the card's transform of the first RAW_CHECK_ROWS rows bitwise equal to
     the CPU's, ``predict_raw`` and a ``save_model`` / ``load_model`` round
     trip equal to the training margins."""
-    gen = torch.Generator(device=dev).manual_seed(0)
-    X = dbins.float() + torch.rand(dbins.shape, generator=gen, device=dev)
+    X = raw_features(dbins)
     cfg = GBDTConfig(n_features=F, n_bins=B, depth=DEPTH, loss="squared")
     trainer = GBDTTrainer(cfg, mesh=make_mesh(MEMBERS))
     torch.cuda.synchronize()
@@ -1754,10 +1799,11 @@ def linear_fit_ms(tr, x, y):
     return start.elapsed_time(end) / LINEAR_STEPS, params, losses
 
 
-def comm_sync_ok(comm, dev):
+def fit_comm_runs(comm, dev):
     """``fit(comm=)`` on both families, each rank on its own rows of
-    tests/test_trainer_overlap.py's data: ``sync_loss_history_`` equals
-    the mean of the ranks' losses (gathered here)."""
+    tests/test_trainer_overlap.py's data. Per family: this rank's losses,
+    ``sync_loss_history_``, the mean of the ranks' losses (gathered
+    here) and the parameters on the host."""
     from ytk_mp4j_tpu_torch.device import make_mesh as mesh1
 
     r, world = comm.rank, comm.slave_num
@@ -1770,23 +1816,32 @@ def comm_sync_ok(comm, dev):
                                     (48, 3)).copy(),
              np.ones((48, 3), np.float32),
              ((feats[:, 0] + feats[:, 1]) % 2).astype(np.float32))
-    runs = [LinearTrainer(LinearConfig(n_features=4, loss="squared",
-                                       learning_rate=0.1),
-                          mesh=mesh1(1, dev)),
-            FMTrainer(FMConfig(n_features=32, n_fields=2, k=2, max_nnz=3,
-                               model="fm", learning_rate=0.3,
-                               init_scale=0.1), mesh=mesh1(1, dev))]
-    ok = True
-    for tr, data in zip(runs, ((cx, cy), fdata)):
-        _, losses = tr.fit(*(a[r::world] for a in data), n_steps=4,
-                           comm=comm)
+    runs = {"linear": LinearTrainer(LinearConfig(
+                n_features=4, loss="squared", learning_rate=0.1),
+                mesh=mesh1(1, dev)),
+            "fm": FMTrainer(FMConfig(n_features=32, n_fields=2, k=2,
+                                     max_nnz=3, model="fm",
+                                     learning_rate=0.3, init_scale=0.1),
+                            mesh=mesh1(1, dev))}
+    out = {}
+    for (name, tr), data in zip(runs.items(), ((cx, cy), fdata)):
+        params, losses = tr.fit(*(a[r::world] for a in data), n_steps=4,
+                                comm=comm)
         buf = np.zeros(world * 4, np.float64)
         buf[r * 4: (r + 1) * 4] = losses
         comm.allgather_array(buf, Operands.DOUBLE)
-        mean = buf.reshape(world, 4).mean(0)
-        ok = ok and bool(np.allclose(tr.sync_loss_history_, mean,
-                                     rtol=1e-12, atol=0))
-    return ok
+        out[name] = {"losses": np.asarray(losses, np.float64),
+                     "sync": np.asarray(tr.sync_loss_history_),
+                     "mean": buf.reshape(world, 4).mean(0),
+                     "params": [p.detach().cpu().numpy() for p in params]}
+    return out
+
+
+def comm_sync_ok(comm, dev):
+    """``sync_loss_history_`` equals the mean of the ranks' losses on
+    both families of :func:`fit_comm_runs`."""
+    return all(bool(np.allclose(f["sync"], f["mean"], rtol=1e-12, atol=0))
+               for f in fit_comm_runs(comm, dev).values())
 
 
 def process_fm_worker(job):
@@ -1985,6 +2040,468 @@ def run_fm_processes(ffm_rec, linear_rec):
     return out
 
 
+
+# -- phase 10: the socket plane (slice 9) -----------------------------------
+SOCKET_RANKS = 4                   # configs[0]: "4 local processes"
+SOCKET_ALGOS = ("rhd", "ring", "auto", "tree")
+SOCKET_REPS = 5                    # timed calls a figure (median)
+SOCKET_SEED = 900
+
+
+def socket_rank_array(q):
+    """configs[0]'s payload of rank q: 1M f32, uniform in [0, 1) (all
+    positive, so an f32 sum of 4 is within rtol 1e-6 of the f64 sum
+    element by element)."""
+    return np.random.default_rng(SOCKET_SEED + q).random(CONFIG0_LEN,
+                                                         dtype=np.float32)
+
+
+def digest(*arrays):
+    h = hashlib.sha256()
+    for a in arrays:
+        a = a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else a
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def socket_allreduce(slave):
+    """(a) configs[0] on one job: every algo, 1 warm-up and SOCKET_REPS
+    timed calls after a barrier each; the result's digest, its largest
+    relative error against the f64 sum, and each call's seconds."""
+    r, n = slave.rank, slave.slave_num
+    mine = socket_rank_array(r)
+    want = sum(socket_rank_array(q).astype(np.float64) for q in range(n))
+    out = {}
+    for algo in SOCKET_ALGOS:
+        secs = []
+        for rep in range(1 + SOCKET_REPS):
+            a = mine.copy()
+            slave.barrier()
+            t0 = time.perf_counter()
+            slave.allreduce_array(a, Operands.FLOAT, Operators.SUM,
+                                  algo=algo)
+            if rep:
+                secs.append(time.perf_counter() - t0)
+        out[algo] = {"digest": digest(a), "secs": secs,
+                     "max_rel": float(np.max(np.abs(a - want) / want))}
+    wire = {"tcp": 0, "shm": 0}
+    for fam in slave.stats().values():
+        wire["tcp"] += int(fam.get("wire_bytes_tcp", 0))
+        wire["shm"] += int(fam.get("wire_bytes_shm", 0))
+    return out, wire
+
+
+def socket_maps(slave):
+    """(b) configs[2]: 20,000 string keys a rank at 50 % overlap, DOUBLE
+    SUM; every result must equal the host merge. Seconds of each timed
+    call after a barrier."""
+    maps = overlap_maps(MAP_KEYS, lambda c: f"w{c}")
+    want = host_merge(maps)
+    secs, ok = [], True
+    for rep in range(1 + MAP_REPS):
+        d = dict(maps[slave.rank])
+        slave.barrier()
+        t0 = time.perf_counter()
+        slave.allreduce_map(d, Operands.DOUBLE, Operators.SUM)
+        if rep:
+            secs.append(time.perf_counter() - t0)
+        ok = ok and d == want
+    return {"secs": secs, "equal": bool(ok), "keys": len(want)}
+
+
+def raw_rows(dev, q=None, n=SOCKET_RANKS):
+    """Phase 4's raw f32 features (:func:`raw_features`) and labels on
+    the card; rank q's rows when q is given."""
+    bins, y = make_data(ROWS, F, B)
+    X = raw_features(torch.from_numpy(bins).to(dev))
+    del bins
+    dy = torch.from_numpy(y).to(dev)
+    if q is None:
+        return X, dy
+    per = ROWS // n
+    return (X[q * per:(q + 1) * per].clone(),
+            dy[q * per:(q + 1) * per].clone())
+
+
+def socket_gbdt(slave, dev):
+    """(c) ``train_raw(X_r, y_r, comm=slave)`` on this rank's 2.75M rows:
+    a warm-up tree that fits the binner through ``fit_distributed`` over
+    the socket plane (every histogram call recorded and held against the
+    plain version), then TIMED_TREES trees with the fitted binner under
+    ``MP4J_OVERLAP=0`` and ``=1``: each tree's device time (synchronized
+    on the host clock), each round's stats exchange on the host clock,
+    the launch counts, and digests of the trees and margins."""
+    from ytk_mp4j_tpu_torch.models import _base
+
+    X, y = raw_rows(dev, slave.rank, slave.slave_num)
+    cfg = GBDTConfig(n_features=F, n_bins=B, depth=DEPTH, loss="squared")
+    out = {}
+    os.environ["MP4J_OVERLAP"] = "0"
+    trainer = GBDTTrainer(cfg, mesh=make_mesh(1, dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording_histograms() as calls:
+        trainer.train_raw(X, y, n_trees=1, comm=slave,
+                          bin_sample=RAW_FIT_SAMPLE)
+    out["warmup_s"] = time.perf_counter() - t0
+    binner = trainer.binner_
+    out["edges"] = digest(binner.edges)
+    errs = [level_errors(c) for c in calls]
+    out["hist_levels_checked"] = len(errs)
+    out["hist_max_abs_err"] = max(e for lv in errs for e, _ in lv)
+    out["hist_misses"] = [f"level {d} {'gh'[k]}: {e} > {tol}"
+                          for d, lv in enumerate(errs)
+                          for k, (e, tol) in enumerate(lv) if not e <= tol]
+    del calls
+
+    real_tree = gbdt.train_tree_shard
+    real_submit = _base.StepStatsExchanger.submit_map
+    real_drain = _base.StepStatsExchanger.drain
+    for flag in ("0", "1"):
+        os.environ["MP4J_OVERLAP"] = flag
+        tree_s, exch_ms, drain_ms = [], [], []
+
+        def timed_tree(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = real_tree(*a, **k)
+            torch.cuda.synchronize()
+            tree_s.append(time.perf_counter() - t)
+            return res
+
+        def timed_submit(self, d):
+            t = time.perf_counter()
+            res = real_submit(self, d)
+            exch_ms.append((time.perf_counter() - t) * 1e3)
+            return res
+
+        def timed_drain(self):
+            t = time.perf_counter()
+            real_drain(self)
+            drain_ms.append((time.perf_counter() - t) * 1e3)
+
+        gbdt.train_tree_shard = timed_tree
+        _base.StepStatsExchanger.submit_map = timed_submit
+        _base.StepStatsExchanger.drain = timed_drain
+        tr = GBDTTrainer(cfg, mesh=make_mesh(1, dev))
+        zero_counts()
+        try:
+            trees, margins = tr.train_raw(X, y, n_trees=TIMED_TREES,
+                                          comm=slave, binner=binner)
+            torch.cuda.synchronize()
+        finally:
+            gbdt.train_tree_shard = real_tree
+            _base.StepStatsExchanger.submit_map = real_submit
+            _base.StepStatsExchanger.drain = real_drain
+        launches = read_counts()["hist_kernel"]
+        mse0 = float(y.double().pow(2).mean())
+        mse = float((margins - y).double().pow(2).mean())
+        out[f"overlap{flag}"] = {
+            "launches": launches, "tree_s": tree_s, "exchange_ms": exch_ms,
+            "drain_ms": drain_ms, "trees": digest(*[a for t in trees
+                                                    for a in t]),
+            "margins": digest(margins),
+            "history": tr.sync_round_history_,
+            "finite": bool(torch.isfinite(margins).all()),
+            "loss_down": mse < mse0}
+    os.environ.pop("MP4J_OVERLAP", None)
+    return out
+
+
+def socket_fit_comm(slave, dev):
+    """(e) ``fit(comm=slave)`` on FM and linear under ``MP4J_OVERLAP=0``
+    and ``=1``: the synced history against the ranks' mean (rtol 1e-12)
+    and the two modes against each other (rtol 1e-5)."""
+    runs = {}
+    for flag in ("0", "1"):
+        os.environ["MP4J_OVERLAP"] = flag
+        runs[flag] = fit_comm_runs(slave, dev)
+    os.environ.pop("MP4J_OVERLAP", None)
+    out = {}
+    for name in runs["0"]:
+        off, on = runs["0"][name], runs["1"][name]
+        out[name] = {
+            "sync_is_mean": all(bool(np.allclose(r[name]["sync"],
+                                                 r[name]["mean"],
+                                                 rtol=1e-12, atol=0))
+                                for r in runs.values()),
+            "modes_agree": bool(
+                np.allclose(on["losses"], off["losses"], rtol=1e-5,
+                            atol=1e-7)
+                and np.allclose(on["sync"], off["sync"], rtol=1e-5,
+                                atol=1e-7)
+                and all(np.allclose(a, b, rtol=1e-5, atol=1e-6)
+                        for a, b in zip(on["params"], off["params"]))),
+            "sync": off["sync"].tolist()}
+    return out
+
+
+def socket_worker(job):
+    """One rank of the phase-10 job: a ``ProcessCommSlave`` of the port
+    for each of ``job["socket_jobs"]`` (one master each, in order), with
+    (a) on every one and (b), (c), (e) on the full one. The audit plane
+    is off, as in bench.py's socket legs (its default digest mode hashes
+    every map entry: ~2 s a call of configs[2]). Writes its record to
+    ``job["out"]``; returns 0, or raises."""
+    from ytk_mp4j_tpu_torch.comm.process_comm import ProcessCommSlave
+    from ytk_mp4j_tpu_torch.utils import native
+
+    torch.set_num_threads(2)
+    dev = torch.device(job["device"])
+    rec = {"have_native": native.ensure_loaded()}
+    for spec in job["socket_jobs"]:
+        slave = ProcessCommSlave("127.0.0.1", spec["port"],
+                                 timeout=PROCESS_DEADLINE_S,
+                                 peer_timeout=PROCESS_DEADLINE_S / 2,
+                                 shm=spec["shm"],
+                                 native_transport=spec["native"],
+                                 audit="off")
+        try:
+            res = {"rank": slave.rank}
+            res["allreduce"], res["wire"] = socket_allreduce(slave)
+            if spec["full"]:
+                res["maps"] = socket_maps(slave)
+                res["gbdt"] = socket_gbdt(slave, dev)
+                res["fit_comm"] = socket_fit_comm(slave, dev)
+        except BaseException:
+            slave.close(1)
+            raise
+        slave.close(0)
+        rec[spec["name"]] = res
+    with open(job["out"], "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def on_threads(group, body):
+    """``body(slave)`` on one thread per slave of a thread group; its
+    results by rank."""
+    import threading
+
+    res = [None] * len(group)
+
+    def run(s):
+        res[s.rank] = body(s)
+
+    ts = [threading.Thread(target=run, args=(s,)) for s in group]
+    for th in ts:
+        th.start()
+    for th in ts:
+        th.join(PROCESS_DEADLINE_S)
+    check(all(r is not None for r in res), "a thread slave failed or hung")
+    return res
+
+
+def thread_group_allreduce(n):
+    """(d) ``ThreadCommSlave.spawn_group(n)`` in this process on (a)'s
+    payload: the digest of every thread's result, the largest relative
+    error against the f64 sum, and seconds of each timed call."""
+    from ytk_mp4j_tpu_torch.comm.thread_comm import ThreadCommSlave
+
+    want = sum(socket_rank_array(q).astype(np.float64) for q in range(n))
+
+    def body(s):
+        secs = []
+        for rep in range(1 + SOCKET_REPS):
+            a = socket_rank_array(s.rank)
+            s.barrier()
+            t0 = time.perf_counter()
+            s.allreduce_array(a, Operands.FLOAT, Operators.SUM)
+            if rep:
+                secs.append(time.perf_counter() - t0)
+        return digest(a), float(np.max(np.abs(a - want) / want)), secs
+
+    return on_threads(ThreadCommSlave.spawn_group(n), body)
+
+
+def thread_group_edges(dev):
+    """``fit_distributed``'s edges from ``ThreadCommSlave.spawn_group(4)``
+    in this process on the four ranks' rows of (c)."""
+    from ytk_mp4j_tpu_torch.comm.thread_comm import ThreadCommSlave
+
+    X, _ = raw_rows(dev)
+    per = ROWS // SOCKET_RANKS
+
+    def body(s):
+        b = QuantileBinner(n_bins=B, missing_bucket=False)
+        b.fit_distributed(X[s.rank * per:(s.rank + 1) * per], s,
+                          sample=RAW_FIT_SAMPLE, seed=0)
+        return digest(b.edges)
+
+    edges = on_threads(ThreadCommSlave.spawn_group(SOCKET_RANKS), body)
+    del X
+    torch.cuda.empty_cache()
+    return edges
+
+
+def median_rate(recs, job, algo, nbytes):
+    """bench.py ``bench_socket_collective``'s GB/s a rank (bytes over
+    the slowest rank's seconds), the median of the timed calls."""
+    secs = [max(r[job]["allreduce"][algo]["secs"][k] for r in recs)
+            for k in range(SOCKET_REPS)]
+    return float(np.median([nbytes / s / 1e9 for s in secs]))
+
+
+def run_socket_plane():
+    """Phase 10: the port's ``Master`` here and SOCKET_RANKS worker
+    processes of this script on cuda:0, over one job for each transport:
+    TCP on the native data plane (a), (b), (c), (e); TCP framed (a); and
+    shared memory (a) where /dev/shm is writable. Then (d) in this
+    process, and the checks."""
+    from ytk_mp4j_tpu_torch.comm.master import Master
+    from ytk_mp4j_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    check(native.ensure_loaded() and native.HAVE_NATIVE,
+          "the native merge did not build: the socket plane would take "
+          "the numpy path")
+    specs = [dict(name="tcp", shm=False, native=True, full=True),
+             dict(name="tcp_framed", shm=False, native=False, full=False)]
+    shm_ok = os.access("/dev/shm", os.W_OK)
+    if shm_ok:
+        specs.append(dict(name="shm", shm=True, native=True, full=False))
+    masters = []
+    for spec in specs:
+        m = Master(SOCKET_RANKS, timeout=PROCESS_DEADLINE_S)
+        spec["port"] = m.port
+        masters.append(m.serve_in_thread())
+    recs, took = spawn_workers(SOCKET_RANKS, None, "socket4", 10,
+                               socket_jobs=specs)
+    for m in masters:
+        m.join(60)
+        check(m.final_code == 0, f"a socket master ended {m.final_code}")
+    for rec in recs:
+        check(rec["have_native"], "a rank's native merge did not build")
+    names = [s["name"] for s in specs]
+    by_rank = {name: sorted((r[name] for r in recs), key=lambda x:
+                            x["rank"]) for name in names}
+    # (a) every rank's bits equal, within rtol 1e-6 of the f64 sum, the
+    # framed plane and shm equal to the native TCP plane, algo by algo
+    out = {"transports": names, "s": None}
+    for name in names:
+        for algo in SOCKET_ALGOS:
+            ds = {r["allreduce"][algo]["digest"] for r in by_rank[name]}
+            check(len(ds) == 1, f"{name} {algo}: ranks' results differ")
+            rel = max(r["allreduce"][algo]["max_rel"] for r in by_rank[name])
+            check(rel <= 1e-6, f"{name} {algo}: rel err {rel} > 1e-6")
+            ref = by_rank["tcp"][0]["allreduce"][algo]["digest"]
+            check(ds == {ref}, f"{name} {algo} != the native TCP plane")
+    wire = {name: [r["wire"] for r in by_rank[name]] for name in names}
+    check(all(w["shm"] == 0 and w["tcp"] > 0 for w in wire["tcp"]),
+          f"the TCP job moved bytes over shm: {wire['tcp']}")
+    if shm_ok:
+        check(all(w["shm"] > 0 for w in wire["shm"]),
+              f"the shm job moved no bytes over shm: {wire['shm']}")
+    nbytes = CONFIG0_LEN * 4
+    rates = {name: {algo: median_rate(recs, name, algo, nbytes)
+                    for algo in SOCKET_ALGOS} for name in names}
+    out["allreduce_gbs"] = rates
+    out["wire"] = wire
+    print(f"socket plane (a) configs[0]: {SOCKET_RANKS} ProcessCommSlave "
+          f"processes, 1M f32 SUM, transports {names} (/dev/shm "
+          f"{'writable' if shm_ok else 'not writable'}); GB/s a rank "
+          f"(median of {SOCKET_REPS}, slowest rank): "
+          + "; ".join(f"{n}: " + ", ".join(f"{a} {v:.4f}" for a, v in
+                                           rates[n].items())
+                      for n in names)
+          + "; every rank bitwise equal, within rtol 1e-6 of the f64 sum, "
+          "the framed plane and shm bitwise the native TCP plane; "
+          "native merge built on every rank", flush=True)
+
+    # (b) configs[2]
+    full = by_rank["tcp"]
+    check(all(r["maps"]["equal"] for r in full),
+          "allreduce_map != the host merge")
+    msecs = [max(r["maps"]["secs"][k] for r in full)
+             for k in range(MAP_REPS)]
+    keys = full[0]["maps"]["keys"]
+    map_rate_s = float(np.median([keys / s for s in msecs]))
+    out["map_keys_s"] = map_rate_s
+    out["map_call_ms"] = float(np.median(msecs)) * 1e3
+    print(f"socket plane (b) configs[2]: allreduce_map of {MAP_KEYS} "
+          f"string keys a rank, 50 % overlap (union {keys}): "
+          f"{map_rate_s:.0f} merged keys/s (median of {MAP_REPS}, "
+          f"{out['map_call_ms']:.2f} ms a call, slowest rank); every rank "
+          "== the host merge", flush=True)
+
+    # (c) GBDT over the socket plane
+    g = [r["gbdt"] for r in full]
+    check(len({x["edges"] for x in g}) == 1,
+          "fit_distributed's edges differ across ranks")
+    thread_edges = thread_group_edges(torch.device("cuda", 0))
+    check(set(thread_edges) == {g[0]["edges"]},
+          "fit_distributed over ProcessCommSlave != ThreadCommSlave's")
+    for r, x in enumerate(g):
+        check(not x["hist_misses"], f"rank {r}: {x['hist_misses']}")
+        off, on = x["overlap0"], x["overlap1"]
+        for mode in (off, on):
+            check(mode["launches"] == DEPTH * TIMED_TREES,
+                  f"rank {r}: {mode['launches']} histogram launches, want "
+                  f"{DEPTH * TIMED_TREES}")
+            check(mode["finite"] and mode["loss_down"],
+                  f"rank {r}: margins not finite or the loss not lower")
+        check(off["trees"] == on["trees"] and off["margins"] ==
+              on["margins"] and off["history"] == on["history"],
+              f"rank {r}: MP4J_OVERLAP=1 != 0")
+        check(off["history"] == [{"trees": 1.0}] * TIMED_TREES,
+              f"rank {r}: sync_round_history_ {off['history']}")
+    gb = {}
+    for flag in ("0", "1"):
+        tree_s = [float(np.mean(x[f"overlap{flag}"]["tree_s"])) for x in g]
+        gb[flag] = {
+            "trees_per_s": 1 / max(tree_s),
+            "exchange_ms": [max(x[f"overlap{flag}"]["exchange_ms"][k]
+                                for x in g) for k in range(TIMED_TREES)],
+            "drain_ms": max(sum(x[f"overlap{flag}"]["drain_ms"])
+                            for x in g)}
+    out["gbdt"] = gb
+    out["gbdt_launches"] = [x["overlap0"]["launches"] for x in g]
+    out["gbdt_max_abs_err"] = max(x["hist_max_abs_err"] for x in g)
+    out["gbdt_warmup_s"] = max(x["warmup_s"] for x in g)
+    print(f"socket plane (c) GBDT train_raw over {SOCKET_RANKS} ranks on "
+          f"cuda:0, {ROWS // SOCKET_RANKS} x {F} raw f32 a rank: "
+          f"fit_distributed's edges bitwise on every rank and "
+          f"ThreadCommSlave's; warm-up (fit, transform, 1 tree) "
+          f"{out['gbdt_warmup_s']:.2f} s; {TIMED_TREES} trees a mode, "
+          f"trees/s a rank (slowest): overlap off "
+          f"{gb['0']['trees_per_s']:.3f}, on {gb['1']['trees_per_s']:.3f};"
+          f" each round's stats exchange, host ms (slowest rank): off "
+          f"{[round(v, 3) for v in gb['0']['exchange_ms']]}, on "
+          f"{[round(v, 3) for v in gb['1']['exchange_ms']]} + drain "
+          f"{gb['1']['drain_ms']:.3f}; trees, margins and history bitwise "
+          f"between the modes; launches {out['gbdt_launches']} a mode; "
+          f"{g[0]['hist_levels_checked']} histogram calls a rank vs plain: "
+          f"max abs err {out['gbdt_max_abs_err']:.3e}", flush=True)
+
+    # (d) the thread plane in this process
+    th = thread_group_allreduce(SOCKET_RANKS)
+    check(len({d for d, _, _ in th}) == 1, "thread ranks differ")
+    check(max(e for _, e, _ in th) <= 1e-6, "thread group rel err > 1e-6")
+    check(th[0][0] == by_rank["tcp"][0]["allreduce"]["tree"]["digest"],
+          "ThreadCommSlave group != the process plane's tree allreduce")
+    tsecs = [max(x[2][k] for x in th) for k in range(SOCKET_REPS)]
+    out["thread_gbs"] = float(np.median([nbytes / s / 1e9 for s in tsecs]))
+    print(f"socket plane (d) ThreadCommSlave.spawn_group({SOCKET_RANKS}) "
+          f"in one process: {out['thread_gbs']:.4f} GB/s a rank; bitwise "
+          "the process plane's tree schedule (its fold order), within "
+          "rtol 1e-6 of the f64 sum", flush=True)
+
+    # (e) fit(comm=) on FM and linear
+    for r in full:
+        for name, v in r["fit_comm"].items():
+            check(v["sync_is_mean"], f"{name}: sync_loss_history_ != mean")
+            check(v["modes_agree"], f"{name}: overlap on != off (1e-5)")
+    out["fit_comm"] = {n: v["sync"] for n, v in full[0]["fit_comm"].items()}
+    print("socket plane (e) fit(comm=ProcessCommSlave) on FM and linear, "
+          f"{SOCKET_RANKS} ranks: sync_loss_history_ == the ranks' mean, "
+          "overlap on == off to rtol 1e-5", flush=True)
+    out["s"] = time.perf_counter() - t0
+    out["workers_s"] = took
+    out["ranks"] = recs
+    print(f"phase 10 (the socket plane): {out['s']:.1f} s", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2022,18 +2539,22 @@ def main():
         "timed": dp_record["trees_per_s"],
         "turns": dp_record["turns"]["members_median"]})
     slice8 = run_fm_processes(slice6["ffm_criteo"], slice6["linear"])
+    slice9 = run_socket_plane()
     hist_entry["max_abs_err"] = max(hist_entry["max_abs_err"],
                                     slice7["nccl_world1"]["max_abs_err"],
-                                    slice7["gloo"]["max_abs_err"])
+                                    slice7["gloo"]["max_abs_err"],
+                                    slice9["gbdt_max_abs_err"])
     hist_entry["process_path_launches"] = {
         "nccl_world1": [r["launches"] for r in slice7["nccl_world1"]["ranks"]],
-        f"gloo{PROCESSES}": [r["launches"] for r in slice7["gloo"]["ranks"]]}
+        f"gloo{PROCESSES}": [r["launches"] for r in slice7["gloo"]["ranks"]],
+        f"socket{SOCKET_RANKS}": slice9["gbdt_launches"]}
 
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": kind, "nvidia_smi": smi, "gbdt": gbdt_record,
                    "data_parallel": dp_record, "train_raw": raw_record,
                    "entry": entry_record, "ring": ring_record,
                    "slice6": slice6, "slice7": slice7, "slice8": slice8,
+                   "slice9": slice9,
                    "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -2046,6 +2567,7 @@ def main():
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--rank-worker":
         job = json.loads(sys.argv[2])
-        worker = rank_worker if job["phase"] == 8 else process_fm_worker
+        worker = {8: rank_worker, 9: process_fm_worker,
+                  10: socket_worker}[job["phase"]]
         sys.exit(worker(job))
     sys.exit(main())

@@ -163,8 +163,9 @@ def test_dense_chunks_match_reference():
 def test_parser_builds_into_the_ports_build_dir():
     path = native.build()
     assert path.parent == native.BUILD_DIR
-    assert path.parent.parent == native.SOURCE.parent
-    assert path.name.startswith("libmp4j_parse-") and path.exists()
+    assert {s.parent for s in native.SOURCES} == {path.parent.parent}
+    assert "mp4j_parse.cpp" in {s.name for s in native.SOURCES}
+    assert path.name.startswith("libmp4j_native-") and path.exists()
     assert native.build() == path            # an unchanged source: reused
 
 
@@ -179,7 +180,7 @@ def test_parser_build_failure_raises(monkeypatch, tmp_path):
     bad = tmp_path / "bad.cpp"
     bad.write_text("this is not C++\n")
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(native, "SOURCE", bad)
+    monkeypatch.setattr(native, "SOURCES", (bad,))
     with pytest.raises(Mp4jError, match="building bad.cpp failed"):
         native.build()
     assert not list((tmp_path / "build").glob("*.tmp"))

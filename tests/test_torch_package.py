@@ -63,9 +63,33 @@ def test_imports_and_trains_with_jax_blocked():
         assert binning.QuantileBinner(8).fit(X).transform(
             X, device="cpu").shape == (256, 3)
         entry.dryrun(4, device="cpu")
+        import threading
+        from ytk_mp4j_tpu_torch import obs, resilience, transport
+        from ytk_mp4j_tpu_torch.comm.master import Master
+        from ytk_mp4j_tpu_torch.comm.process_comm import ProcessCommSlave
+        from ytk_mp4j_tpu_torch.comm.thread_comm import ThreadCommSlave
+        from ytk_mp4j_tpu_torch.obs import cli
+        assert transport.TcpChannel and resilience.FaultPlan and cli.main
+        m = Master(2, timeout=60).serve_in_thread()
+        out = {}
+        def slave():
+            s = ProcessCommSlave("127.0.0.1", m.port, timeout=60)
+            a = np.full(7, s.rank + 1.0)
+            s.allreduce_array(a, p.Operands.DOUBLE, p.Operators.SUM)
+            out[s.rank] = a
+            s.close(0)
+        ts = [threading.Thread(target=slave) for _ in range(2)]
+        [t.start() for t in ts]
+        [t.join(60) for t in ts]
+        m.join(60)
+        assert m.final_code == 0 and all((out[r] == 3.0).all()
+                                         for r in (0, 1)), out
+        group = ThreadCommSlave.spawn_group(1)
+        group[0].allreduce_map({"k": 1.0}, p.Operands.DOUBLE)
         import importlib, pkgutil
         for mod in pkgutil.walk_packages(p.__path__, "ytk_mp4j_tpu_torch."):
-            importlib.import_module(mod.name)
+            if not mod.name.endswith(".__main__"):   # runs a command line
+                importlib.import_module(mod.name)
         bad = [k for k in sys.modules
                if k.split(".")[0] in ("jax", "jaxlib", "ytk_mp4j_tpu")]
         assert not bad, bad
@@ -88,7 +112,19 @@ def test_no_source_imports_jax_or_the_jax_package():
                  "models/linear.py", "utils/libsvm.py", "utils/native.py",
                  "comm/distributed.py", "comm/context.py",
                  "comm/progress.py", "check/checkdist.py",
-                 "check/_oracle.py", "utils/tuning.py"):
+                 "check/_oracle.py", "utils/tuning.py",
+                 "comm/process_comm.py", "comm/master.py",
+                 "comm/thread_comm.py", "transport/__init__.py",
+                 "transport/channel.py", "transport/tcp.py",
+                 "transport/shm.py", "obs/__init__.py", "obs/cli.py",
+                 "obs/spans.py", "obs/metrics.py", "obs/critpath.py",
+                 "obs/health.py", "obs/telemetry.py", "obs/postmortem.py",
+                 "obs/sink.py", "obs/audit.py", "obs/fleet.py",
+                 "obs/benchdiff.py", "resilience/__init__.py",
+                 "resilience/faults.py", "resilience/membership.py",
+                 "resilience/recovery.py", "resilience/autoscaler.py",
+                 "utils/stats.py", "utils/trace.py", "utils/tuner.py",
+                 "check/checkthread.py", "check/checkprocess.py"):
         assert PKG / name in files, name
     for path in files:
         assert not pat.search(path.read_text()), path

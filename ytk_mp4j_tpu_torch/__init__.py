@@ -23,8 +23,15 @@ multi-process plane over ``torch.distributed`` (``comm/distributed.py``:
 processes with the histograms and leaf sums folded across the ranks in
 rank order, ``train(comm=)`` / ``train_raw(comm=)`` and
 ``QuantileBinner.fit_distributed``, and the check program
-``check/checkdist.py``. It imports torch and numpy, never jax
-and nothing of ``ytk_mp4j_tpu``. Entry points run on ``cuda:0`` unless
+``check/checkdist.py``. Slice 8: FM/FFM and linear over processes.
+Slice 9: the socket plane, copied from the reference -- the rendezvous
+``comm/master.py``, ``comm/process_comm.ProcessCommSlave`` over the TCP
+and shared-memory transports (``transport/``) with the native merge and
+raw data plane (``csrc/mp4j_native.cpp``, ``csrc/mp4j_transport.cpp``),
+the progression engine (``comm/progress.py``),
+``comm/thread_comm.ThreadCommSlave``, and the ``obs/`` and
+``resilience/`` planes they import. It imports torch and numpy, never
+jax and nothing of ``ytk_mp4j_tpu``. Entry points run on ``cuda:0`` unless
 the caller passes ``device="cpu"``.
 """
 

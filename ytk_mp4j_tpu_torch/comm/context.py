@@ -2,10 +2,18 @@
 ``CommSlave:26``): rank and size, the collectives, ``barrier``,
 ``info`` / ``error`` and ``close(code)``.
 
-Backends of the port: :class:`~ytk_mp4j_tpu_torch.comm.gpu_comm.GpuCommCluster`
-(a single-controller cluster over n members of one device) and
-:class:`~ytk_mp4j_tpu_torch.comm.distributed.DistributedComm` (one rank a
-process, over ``torch.distributed``).
+Backends of the port:
+
+- :class:`~ytk_mp4j_tpu_torch.comm.gpu_comm.GpuCommCluster`, a
+  single-controller cluster over n members of one device;
+- :class:`~ytk_mp4j_tpu_torch.comm.distributed.DistributedComm`, one rank
+  a process, over ``torch.distributed``;
+- the socket plane: ``comm.process_comm.ProcessCommSlave`` (one rank a
+  process, over the TCP and shared-memory transports, with a
+  ``comm.master.Master`` for rendezvous) and
+  ``comm.thread_comm.ThreadCommSlave`` (thread ranks nested over a
+  process slave, or a standalone thread group). They override ``info``
+  / ``error`` to forward to the master's console.
 """
 
 from __future__ import annotations

@@ -6,9 +6,8 @@ describe how an array range ``[from, to)`` is split across ranks for
 reduce-scatter / scatter / gather, and how map keys are partitioned.
 
 A copy of ``ytk_mp4j_tpu/meta.py`` (numpy-free, framework-free); the port
-imports nothing of the JAX package. Both packages share
-this partition math, so that differential tests compare
-bit-identical segment layouts.
+imports nothing of the JAX package. Both packages share this partition
+math, so that differential tests compare bit-identical segment layouts.
 
 Block distribution rule: for ``n`` elements over ``p`` ranks, ranks
 ``0..(n % p - 1)`` get ``ceil(n / p)`` elements and the rest get

@@ -10,6 +10,10 @@ of its own), as in the reference; every other operand needs numpy
 alone. :func:`to_tensor` and :func:`to_numpy` move host arrays to and
 from the device, bf16 included (as its 16 bits).
 
+``compress`` (:meth:`Operands.compressed`) and ``columnar_maps`` are
+read by the socket plane (``comm/process_comm.py``); ``GpuCommCluster``
+ignores ``compress``, as the reference's device cluster does.
+
 Divergence from the reference: 8-byte operands need no switch here
 (the reference rejects them unless ``jax_enable_x64`` is on).
 """
@@ -49,10 +53,22 @@ class Operand:
     # optional user codec for OBJECT operands: (dumps, loads) over bytes
     dumps: Callable[[Any], bytes] | None = None
     loads: Callable[[bytes], Any] | None = None
+    # zlib-compress this operand's payloads on the socket transports; the
+    # device collectives ignore it. See Operands.compressed().
+    compress: bool = False
 
     @property
     def is_numeric(self) -> bool:
         return self.dtype is not None
+
+    @property
+    def columnar_maps(self) -> bool:
+        """Whether the socket plane's map collectives may ship this operand
+        as a columnar (codes: int32, values: [n, *vshape]) pair: numeric
+        operands only, since STRING / OBJECT values have no column form
+        and keep the pickled-dict path. A pure function of the operand,
+        so both ends of an exchange derive the same wire decision."""
+        return self.is_numeric
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -105,6 +121,14 @@ class Operands:
     BYTE = Operand("BYTE", np.dtype(np.int8))
     STRING = Operand("STRING", None)
     BFLOAT16 = Operand("BFLOAT16", _BF16) if _BF16 is not None else None
+
+    @staticmethod
+    def compressed(operand: Operand) -> Operand:
+        """A copy of ``operand`` whose payloads are zlib-compressed on the
+        socket transports (the device collectives are unaffected)."""
+        from dataclasses import replace
+
+        return replace(operand, compress=True)
 
     @staticmethod
     def DOUBLE_OPERAND() -> Operand:

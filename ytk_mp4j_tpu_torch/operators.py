@@ -10,8 +10,10 @@ An :class:`Operator` is dtype-generic: the element type lives on the
 - ``identity(dtype)`` -- the identity element, used for padding so that
   padded lanes never change a result,
 - ``kernel_code`` -- the operator's code in the CUDA ring kernels
-  (``ops/csrc/ring_cluster.cu``, ``ops/csrc/ring_kernel.cu``), or None
-  for a custom operator, which the kernels cannot run.
+  (``ops/csrc/ring_cluster.cu``, ``ops/csrc/ring_kernel.cu``) and in the
+  socket plane's native merge (``csrc/mp4j_native.cpp``, where the
+  reference names the same ids ``native_code``), or None for a custom
+  operator, which neither can run.
 
 ``identity`` takes a numpy dtype (a 0-d numpy scalar comes back, as in
 the reference) or a torch dtype (a Python number comes back). The
@@ -35,8 +37,8 @@ import torch
 
 from ytk_mp4j_tpu_torch.exceptions import Mp4jError
 
-# kernel_code ids must match the op codes of ops/csrc/ring_cluster.cu and
-# ops/csrc/ring_kernel.cu.
+# kernel_code ids must match the op codes of ops/csrc/ring_cluster.cu,
+# ops/csrc/ring_kernel.cu and csrc/mp4j_native.cpp.
 _SUM, _PROD, _MAX, _MIN = 0, 1, 2, 3
 
 
