@@ -39,6 +39,10 @@ Slice 9, the socket plane: the port's ``Master``, ``ProcessCommSlave``
 the progression engine) and ``ThreadCommSlave``, with the trainers'
 ``comm=`` over it; GBDT runs the histogram kernel on every rank.
 
+Slice 10, the serve plane and the check suites: ``ServeFrontend`` /
+``serve_worker`` over the socket plane with the GBDT, FFM and linear
+servables, then ``check.checkgpu`` and ``check.checkaot``.
+
 Phases:
 
 1. build the kernels from the sources in this checkout (one ``nvcc``
@@ -154,7 +158,33 @@ Phases:
     order it shares. (e) ``fit(comm=slave)`` on FM and linear:
     ``sync_loss_history_`` the ranks' mean, overlap on and off within
     rtol 1e-5;
-11. one JSON line of kernels, then the card's ``nvidia-smi`` line, then
+11. the serve plane: 4 ``ProcessCommSlave`` threads of this process under
+    the port's ``Master`` (elastic, health, tuner, shm and audit off, as
+    bench.py's ``_serve_threads_job``), the launch counts set to 0 just
+    before and read just after. (a) GBDT over the reduce plane: 32
+    headline trees trained on the card on phase 3's rows (192 histogram
+    launches), 1,024 of those rows served with ``max_batch`` 32 and 64 in
+    flight: bitwise the same requests served one a round (each rank sums
+    its own trees, the reduce adds the ranks' partials, so the answers
+    are the single-rank oracle's f64 sum regrouped by rank: within 1e-12
+    of ``servable.link(servable.partial_margins(bins, 0, 1))``), that
+    oracle within 1e-5 of ``GBDTTrainer.predict`` on the card, a servable
+    of card tensors bitwise one of numpy arrays, every worker answering.
+    (b) FFM at Criteo width over the pull plane: phase 7's sparse-path
+    parameters, 1,024 rows of ``criteo_data``: bitwise the sequential
+    oracle (a row map of the touched ids only), within rtol 1e-5 of
+    ``FMTrainer.predict``; then bench.py ``bench_serve_latency_qps``'s
+    figures on that traffic (batched, one pull round a request, a warm
+    replay with the cache sized to the touched rows; the speedup is
+    printed, not checked). (c) linear: phase 7's parameters, 256 rows,
+    bitwise the sequential oracle, within rtol 1e-5 of ``predict``;
+12. the check suites: ``checkgpu --n 8 --cpu-mesh-n 8`` on cuda:0 (every
+    check passes on the card and on the CPU; the ring kernels launched
+    on the card at 8 members and at one, counted) and ``checkaot`` (every
+    source compiled for sm_90a; each kernel's registers, shared memory
+    and spills printed); artifacts in ``chiprun_out/checkgpu.json`` and
+    ``checkaot.json``;
+13. one JSON line of kernels, then the card's ``nvidia-smi`` line, then
     the ``{"ok": true, ...}`` line last.
 
 Any failed check raises, and the script exits non-zero without the ok
@@ -1340,9 +1370,10 @@ def run_ffm_criteo(dev):
           f"(rtol 1e-5; bitwise: replicated "
           f"{rec['sparse']['stream_bitwise']}, sharded "
           f"{rec['sharded']['stream_bitwise']})", flush=True)
+    serve_params = runs["sparse"][1]          # phase 11 (b) serves these
     del runs, p0, data
     torch.cuda.empty_cache()
-    return rec
+    return rec, serve_params
 
 
 def run_ffm_config4(dev):
@@ -1476,7 +1507,7 @@ def run_linear(dev):
     del x, yl
     torch.cuda.empty_cache()
     return {"ms_per_step": ms, "steps_s": 1e3 / ms,
-            "losses": losses.tolist()}
+            "losses": losses.tolist()}, params
 
 
 # ----------------------------------------------------------------------
@@ -2502,6 +2533,397 @@ def run_socket_plane():
     return out
 
 
+
+# -- phase 11: the serve plane (slice 10) -----------------------------------
+SERVE_RANKS = 4                    # bench.py _serve_threads_job's procs
+SERVE_TREES = 32                   # bench.py:1375's ensemble size
+SERVE_GBDT_REQS = 1024
+SERVE_FFM_REQS = 1024
+SERVE_LINEAR_REQS = 256
+SERVE_WINDOW = 64                  # bench_serve_latency_qps's in-flight
+SERVE_DEADLINE_MS = 2.0
+SERVE_MAX_BATCH = 32
+SERVE_SEED = 1100
+SPEEDUP_BAR = 1.5                  # bench.py:1526, the reference's bar
+
+
+def serve_threads_job(servable, frontend_body, max_batch, cache_rows=0):
+    """One serve job on threads (bench.py ``_serve_threads_job``'s shape):
+    the port's ``Master`` and SERVE_RANKS ``ProcessCommSlave`` threads of
+    this process; rank 0 builds the ``ServeFrontend`` and runs
+    ``frontend_body(fe)``, every other rank answers rounds in
+    ``serve_worker`` until the frontend's STOP. Every wait is bounded by
+    phase 10's deadline, and a hung job fails the phase. Returns the
+    frontend body's result and the workers' round counters."""
+    import threading
+
+    from ytk_mp4j_tpu_torch.comm.master import Master
+    from ytk_mp4j_tpu_torch.comm.process_comm import ProcessCommSlave
+    from ytk_mp4j_tpu_torch.serve import ServeFrontend, serve_worker
+
+    master = Master(SERVE_RANKS, timeout=PROCESS_DEADLINE_S, elastic="off",
+                    health=False, autoscale="off",
+                    tuner="off").serve_in_thread()
+    out, workers, errs = {}, {}, []
+
+    def rank():
+        try:
+            slave = ProcessCommSlave(
+                "127.0.0.1", master.port, timeout=PROCESS_DEADLINE_S,
+                elastic="off", async_collectives=False, health=False,
+                tuner="off", shm=False, audit="off", sink_dir="")
+            if slave.rank == 0:
+                fe = ServeFrontend(slave, servable,
+                                   deadline_ms=SERVE_DEADLINE_MS,
+                                   max_batch=max_batch,
+                                   cache_rows=cache_rows)
+                try:
+                    out["result"] = frontend_body(fe)
+                finally:
+                    fe.close()
+            else:
+                workers[slave.rank] = serve_worker(slave, servable,
+                                                   max_batch=max_batch)
+            slave.close(0)
+        except Exception as e:
+            errs.append(repr(e))
+
+    threads = [threading.Thread(target=rank, daemon=True)
+               for _ in range(SERVE_RANKS)]
+    for th in threads:
+        th.start()
+    end = time.monotonic() + PROCESS_DEADLINE_S
+    for th in threads:
+        th.join(max(0.1, end - time.monotonic()))
+    master.join(60)
+    check(not errs, f"serve job failed: {errs}")
+    check(not any(th.is_alive() for th in threads) and "result" in out,
+          "serve job hung")
+    check(master.final_code == 0, f"serve master ended {master.final_code}")
+    return out["result"], [workers[r] for r in sorted(workers)]
+
+
+def serve_all(fe, reqs, window=None):
+    """Submit ``reqs`` in order (at most ``window`` in flight: the open
+    loop of bench_serve_latency_qps) and wait for every answer; returns
+    the answers, the wall seconds and each request's enqueue-to-resolve
+    seconds (the batcher's own latency hook)."""
+    import collections
+
+    lats = []
+    orig = fe._batcher._on_latency
+    fe._batcher._on_latency = lambda s: (lats.append(s), orig(s))
+    window = window or len(reqs)
+    got = []
+    futs = collections.deque()
+    t0 = time.perf_counter()
+    for r in reqs:
+        futs.append(fe.submit(r))
+        if len(futs) >= window:
+            got.append(futs.popleft().wait(PROCESS_DEADLINE_S))
+    while futs:
+        got.append(futs.popleft().wait(PROCESS_DEADLINE_S))
+    return got, time.perf_counter() - t0, lats
+
+
+def bitwise_answers(got, want, what):
+    check(len(got) == len(want), f"{what}: {len(got)} answers for "
+          f"{len(want)} requests")
+    for k, (g, w) in enumerate(zip(got, want)):
+        check(g.dtype == w.dtype and np.array_equal(g, w),
+              f"{what}: answer {k} {g} != the sequential oracle's {w}")
+
+
+def serve_checked(servable, reqs, want, what):
+    """The requests through a serve job (SERVE_WINDOW in flight,
+    max_batch SERVE_MAX_BATCH, cache off): the answers bitwise the
+    sequential oracle ``want``, every worker answered at least one round.
+    Returns (wall seconds, each request's latency, worker rounds)."""
+    (got, wall, lats), workers = serve_threads_job(
+        servable, lambda fe: serve_all(fe, reqs, SERVE_WINDOW),
+        SERVE_MAX_BATCH)
+    bitwise_answers(got, want, what)
+    rounds = [w["rounds"] for w in workers]
+    check(min(rounds) >= 1, f"{what}: a worker answered no round: {rounds}")
+    return wall, lats, rounds
+
+
+def run_serve_gbdt(dev):
+    """(a) GBDT over the reduce plane: SERVE_TREES headline trees trained
+    on the card on phase 3's rows (the histogram kernel in every level),
+    served for SERVE_GBDT_REQS of those rows."""
+    dbins, dy = device_data(dev)
+    cfg = GBDTConfig(n_features=F, n_bins=B, depth=DEPTH,
+                     n_trees=SERVE_TREES, loss="squared")
+    trainer = GBDTTrainer(cfg)
+    t0 = time.perf_counter()
+    trees, margins = trainer.train(dbins, dy)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    rows = torch.from_numpy(np.random.default_rng(SERVE_SEED).choice(
+        ROWS, SERVE_GBDT_REQS, replace=False)).to(dev)
+    req_bins = dbins[rows]
+    want_dev = trainer.predict(req_bins, trees).double().cpu().numpy()
+    check(torch.equal(margins[rows], trainer.predict(req_bins, trees)),
+          "predict != the training margins on the served rows")
+    x_linear = (dbins[rows[:SERVE_LINEAR_REQS]].float() / B).cpu().numpy()
+    del dbins, dy, margins
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    servable = gbdt.servable(trees, cfg)
+    host_s = time.perf_counter() - t0
+    np_servable = gbdt.servable(
+        [tuple(a.cpu().numpy() for a in tree) for tree in trees], cfg)
+    bins = req_bins.cpu().numpy().astype(np.int64)
+    reqs = list(bins)
+    single = np.concatenate(
+        servable.link(servable.partial_margins(bins, 0, 1)))
+    check(np.array_equal(servable.partial_margins(bins, 0, 1),
+                         np_servable.partial_margins(bins, 0, 1)),
+          "a servable of card tensors != one of the same arrays in numpy")
+    err = float(np.max(np.abs(single - want_dev)))
+    check(np.allclose(single, want_dev, rtol=1e-5, atol=1e-5),
+          f"GBDT servable != GBDTTrainer.predict on the card ({err})")
+    # the plane's sequential oracle: one request a round (max_batch 1);
+    # each rank sums its own trees and the reduce adds the ranks' partials,
+    # so an answer is the single-rank sum regrouped by rank (f64)
+    (seq, seq_wall, _), _ = serve_threads_job(
+        servable, lambda fe: serve_all(fe, reqs, 1), 1)
+    seq_all = np.concatenate(seq)
+    regroup = float(np.max(np.abs(seq_all - single)))
+    n_bitwise = int(np.sum(seq_all == single))
+    check(np.allclose(seq_all, single, rtol=1e-12, atol=1e-12),
+          f"GBDT serve != the single-rank oracle beyond f64 regrouping "
+          f"({regroup})")
+    wall, _, rounds = serve_checked(servable, reqs, seq, "GBDT serve")
+    print(f"serve plane (a) GBDT reduce plane: {SERVE_TREES} trees of "
+          f"depth {DEPTH} at {F} x {B}, trained on the card in "
+          f"{train_s:.2f} s on {ROWS} rows; host copy {host_s * 1e3:.1f} "
+          f"ms; {SERVE_GBDT_REQS} requests over {SERVE_RANKS} ranks "
+          f"(max_batch {SERVE_MAX_BATCH}, deadline {SERVE_DEADLINE_MS} ms, "
+          f"{SERVE_WINDOW} in flight) in {wall:.3f} s "
+          f"({SERVE_GBDT_REQS / wall:.1f} QPS), bitwise the same requests "
+          f"served one a round ({seq_wall:.3f} s); against the single-rank "
+          f"oracle {n_bitwise} of {len(seq)} bitwise, max abs err "
+          f"{regroup:.3e} (rtol 1e-12, atol 1e-12: the f64 sum regrouped "
+          f"by rank); single-rank oracle vs GBDTTrainer.predict on the card "
+          f"max abs err {err:.3e} (rtol 1e-5, atol 1e-5; f64 against f32 "
+          f"sums); worker rounds {rounds}", flush=True)
+    return {"train_s": train_s, "host_copy_s": host_s, "wall_s": wall,
+            "qps": SERVE_GBDT_REQS / wall, "sequential_wall_s": seq_wall,
+            "max_abs_err_vs_predict": err,
+            "max_abs_err_vs_single_rank": regroup,
+            "bitwise_vs_single_rank": n_bitwise,
+            "worker_rounds": rounds}, x_linear
+
+
+def touched_rowmap(servable, reqs):
+    """The sequential oracle's rows: only the ids the requests touch."""
+    ids = np.unique(np.concatenate([servable.row_ids(r) for r in reqs]))
+    mat = servable.rows(ids)
+    return {int(i): mat[j] for j, i in enumerate(ids)}, ids.shape[0]
+
+
+def run_serve_ffm(dev, params, smi):
+    """(b) FFM at Criteo width over the pull plane: phase 7's sparse-path
+    parameters, SERVE_FFM_REQS rows of ``criteo_data``; then the figures
+    of bench.py ``bench_serve_latency_qps`` on that traffic."""
+    cfg = FMConfig(**CRITEO)
+    t0 = time.perf_counter()
+    servable = fm_mod.servable(params, cfg)
+    host_s = time.perf_counter() - t0
+    feats, fields, vals, _ = criteo_data(cfg, dev)
+    n = SERVE_FFM_REQS
+    want_dev = FMTrainer(cfg, mesh=make_mesh(MEMBERS),
+                         sparse_grads=True).predict(
+        params, feats[:n], fields[:n], vals[:n]).double().cpu().numpy()
+    f_h = feats[:n].cpu().numpy().astype(np.int64)
+    fl_h = fields[:n].cpu().numpy()
+    v_h = vals[:n].cpu().numpy()
+    reqs = [(f_h[i], fl_h[i], v_h[i]) for i in range(n)]
+    del feats, fields, vals
+    rowmap, touched = touched_rowmap(servable, reqs)
+    t0 = time.perf_counter()
+    want = servable.predict_sharded(reqs, rowmap)
+    oracle_s = time.perf_counter() - t0
+    oracle = np.concatenate(want)
+    err = float(np.max(np.abs(oracle - want_dev)))
+    check(np.allclose(oracle, want_dev, rtol=1e-5, atol=0),
+          f"FFM servable != FMTrainer.predict on the card ({err})")
+    # the batched leg of bench_serve_latency_qps is this job
+    wall_b, lats, rounds = serve_checked(servable, reqs, want, "FFM serve")
+    print(f"serve plane (b) FFM pull plane at Criteo width ({cfg.n_features}"
+          f" x {cfg.n_fields} fields, k {cfg.k}): host copy of the table "
+          f"{host_s:.2f} s; {n} requests touching {touched} rows; answers "
+          f"bitwise the sequential oracle ({oracle_s:.2f} s single-thread "
+          f"scoring); servable vs FMTrainer.predict on the card max abs err "
+          f"{err:.3e} (rtol 1e-5); worker rounds {rounds}", flush=True)
+
+    # the rest of bench_serve_latency_qps on this traffic: one pull round
+    # a request (max_batch 1, cache off), then a warm replay
+    (one, wall_u, _), _ = serve_threads_job(
+        servable, lambda fe: serve_all(fe, reqs, SERVE_WINDOW), 1)
+    bitwise_answers(one, want, "FFM serve, max_batch 1")
+
+    def warm(fe):
+        serve_all(fe, reqs)
+        cold = fe.cache_stats()
+        again, wall, _ = serve_all(fe, reqs)
+        return again, wall, cold, fe.cache_stats()
+
+    (again, wall_w, cold, hot), _ = serve_threads_job(
+        servable, warm, SERVE_MAX_BATCH, cache_rows=touched)
+    bitwise_answers(again, want, "FFM serve, warm cache")
+    check(len(lats) == n, f"{len(lats)} latencies for {n} requests")
+    lat = sorted(lats)
+    d = {k: hot[k] - cold[k] for k in ("hits", "misses")}
+    fig = {
+        "serve_batched_qps": n / wall_b,
+        "serve_unbatched_qps": n / wall_u,
+        "serve_speedup": wall_u / wall_b,
+        "serve_p50_ms": lat[len(lat) // 2] * 1e3,
+        "serve_p99_ms": lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3,
+        "serve_warm_qps": n / wall_w,
+        "serve_warm_hit_rate": d["hits"] / max(1, d["hits"] + d["misses"]),
+        "serve_cold_hit_rate": cold["hit_rate"],
+        "reqs": n, "procs": SERVE_RANKS, "touched_rows": touched}
+    print(f"serve plane (b) bench_serve_latency_qps on this traffic, "
+          f"{smi} ({SERVE_WINDOW} in flight, deadline {SERVE_DEADLINE_MS} ms, "
+          f"cache off; max_batch {SERVE_MAX_BATCH} vs 1; warm replay with "
+          f"the cache sized to the {touched} touched rows): "
+          + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else
+                      f"{k} {v}" for k, v in fig.items())
+          + f" (the reference's bar on serve_speedup: {SPEEDUP_BAR}, not "
+          "checked here)", flush=True)
+    return dict(fig, host_copy_s=host_s, oracle_s=oracle_s,
+                max_abs_err_vs_predict=err, worker_rounds=rounds)
+
+
+def run_serve_linear(dev, params, x):
+    """(c) Linear over the pull plane: phase 7's parameters,
+    SERVE_LINEAR_REQS of (a)'s rows as floats (bins / B, phase 7's
+    features)."""
+    from ytk_mp4j_tpu_torch.models import linear as linear_mod
+
+    cfg = LinearConfig(**LINEAR_CFG)
+    servable = linear_mod.servable(params, cfg)
+    ids = np.arange(F, dtype=np.int64)
+    zeros = np.zeros(F, np.int32)
+    reqs = [(ids, zeros, x[i]) for i in range(x.shape[0])]
+    rowmap, _ = touched_rowmap(servable, reqs)
+    want = servable.predict_sharded(reqs, rowmap)
+    want_dev = LinearTrainer(cfg, mesh=make_mesh(MEMBERS)).predict(
+        params, torch.from_numpy(x).to(dev)).double().cpu().numpy()
+    err = float(np.max(np.abs(np.concatenate(want) - want_dev)))
+    check(np.allclose(np.concatenate(want), want_dev, rtol=1e-5, atol=0),
+          f"linear servable != LinearTrainer.predict on the card ({err})")
+    wall, _, rounds = serve_checked(servable, reqs, want, "linear serve")
+    print(f"serve plane (c) linear pull plane: {len(reqs)} requests of "
+          f"{F} features in {wall:.3f} s; answers bitwise the sequential "
+          f"oracle; vs LinearTrainer.predict on the card max abs err "
+          f"{err:.3e} (rtol 1e-5); worker rounds {rounds}", flush=True)
+    return {"wall_s": wall, "max_abs_err_vs_predict": err,
+            "worker_rounds": rounds}
+
+
+def run_serve_plane(dev, ffm_params, linear_params, smi):
+    """Phase 11, with every launch count set to 0 just before and read
+    just after: the histogram kernel runs in every level of (a)'s
+    training, and nothing else of the serve plane touches a kernel."""
+    t0 = time.perf_counter()
+    zero_counts()
+    out = {}
+    out["gbdt"], x_linear = run_serve_gbdt(dev)
+    out["ffm"] = run_serve_ffm(dev, ffm_params, smi)
+    out["linear"] = run_serve_linear(dev, linear_params, x_linear)
+    counts = read_counts()
+    out["launches"] = counts
+    check(counts["hist_kernel"] == DEPTH * SERVE_TREES,
+          f"{counts['hist_kernel']} histogram launches in phase 11, want "
+          f"{DEPTH * SERVE_TREES}")
+    out["s"] = time.perf_counter() - t0
+    print(f"phase 11 (the serve plane): {out['s']:.1f} s; launches "
+          f"{counts}", flush=True)
+    return out
+
+
+# -- phase 12: the device check suites (slice 10) ---------------------------
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output captured (the suites print
+    their whole artifact as one line); returns (result, output)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn(*args)
+    return res, buf.getvalue()
+
+
+def run_check_suites():
+    """Phase 12: ``checkgpu`` on cuda:0 (8 members, the CPU section at 8,
+    the ring kernels launched on the card) and ``checkaot`` (every source
+    compiled for sm_90a), with the launch counts set to 0 just before
+    checkgpu and read just after."""
+    from ytk_mp4j_tpu_torch.check import checkaot, checkgpu
+
+    t0 = time.perf_counter()
+    gpath = os.path.join(OUT_DIR, "checkgpu.json")
+    zero_counts()
+    rc, _ = quiet(checkgpu.main, ["--n", "8", "--cpu-mesh-n", "8",
+                                  "--out", gpath])
+    counts = read_counts()
+    with open(gpath) as f:
+        g = json.load(f)
+    hw = g.get("ring_kernel_hw", {})
+    check(rc == 0 and g["ok"], f"checkgpu returned {rc}: failures "
+          f"{g['failures']}, cpu {g['cpu_mesh'].get('failures')}, hw "
+          f"{ {k: v['failures'] for k, v in hw.items()} }, error "
+          f"{g['error']}")
+    check(set(hw) == {"n8", "n1"}, f"ring hardware sections {sorted(hw)}")
+    for name in RING_COUNTERS:
+        check(counts[name] >= 1, f"checkgpu launched no {name}")
+    g_s = time.perf_counter() - t0
+    print(f"checkgpu on {g['device_kind']}, {g['n_members']} members: "
+          f"{g['passed']} passed on the card, "
+          f"{g['cpu_mesh']['passed']} on the CPU (8 members), ring "
+          f"hardware {hw['n8']['passed']} (n=8, cluster path) + "
+          f"{hw['n1']['passed']} (n=1), 0 failures; launches {counts}; "
+          f"{g_s:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    apath = os.path.join(OUT_DIR, "checkaot.json")
+    rc, _ = quiet(checkaot.main, ["--out", apath])
+    with open(apath) as f:
+        a = json.load(f)
+    check(rc == 0 and a["ok"] and sorted(a["programs"]) == _build.sources(),
+          f"checkaot returned {rc}: "
+          f"{ {k: v.get('error', '')[-300:] for k, v in a['programs'].items()} }")
+    for src, rec in a["programs"].items():
+        check(rec["kernels"], f"{src}.cu: ptxas reported no kernel")
+        by = {}
+        for k in rec["kernels"].values():
+            by.setdefault(k["kernel"], []).append(k)
+        for name, ks in sorted(by.items()):
+            regs = [k["registers"] for k in ks]
+            smem = [k["smem_bytes"] for k in ks]
+            print(f"checkaot {src}.cu {name}: {len(ks)} instantiation(s), "
+                  f"registers {min(regs)}-{max(regs)}, smem "
+                  f"{min(smem)}-{max(smem)} B, spill stores "
+                  f"{max(k['spill_stores'] for k in ks)} B, spill loads "
+                  f"{max(k['spill_loads'] for k in ks)} B (max)", flush=True)
+    a_s = time.perf_counter() - t1
+    print(f"checkaot: {len(a['programs'])} sources compiled for sm_90a "
+          f"({a['nvcc_version']}) in {a_s:.1f} s", flush=True)
+    s = time.perf_counter() - t0
+    print(f"phase 12 (the check suites): {s:.1f} s", flush=True)
+    return {"checkgpu": {k: g[k] for k in ("passed", "n_members",
+                                           "device_kind")},
+            "checkgpu_cpu_passed": g["cpu_mesh"]["passed"],
+            "checkgpu_hw_passed": {k: v["passed"] for k, v in hw.items()},
+            "launches": counts, "checkgpu_s": g_s,
+            "checkaot": {src: rec["kernels"] for src, rec in
+                         a["programs"].items()}, "checkaot_s": a_s, "s": s}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2532,14 +2954,20 @@ def main():
     entry_record = run_entry()
     ring_entries, ring_record = run_ring(dev)
     kernels = [hist_entry] + ring_entries
-    slice6 = {"ffm_criteo": run_ffm_criteo(dev),
-              "ffm_config4": run_ffm_config4(dev), "maps": run_maps(dev),
-              "linear": run_linear(dev)}
+    ffm_rec, ffm_params = run_ffm_criteo(dev)
+    slice6 = {"ffm_criteo": ffm_rec, "ffm_config4": run_ffm_config4(dev),
+              "maps": run_maps(dev)}
+    slice6["linear"], linear_params = run_linear(dev)
     slice7 = run_multiprocess({
         "timed": dp_record["trees_per_s"],
         "turns": dp_record["turns"]["members_median"]})
     slice8 = run_fm_processes(slice6["ffm_criteo"], slice6["linear"])
     slice9 = run_socket_plane()
+    slice10 = {"serve": run_serve_plane(dev, ffm_params, linear_params,
+                                        smi)}
+    del ffm_params, linear_params
+    torch.cuda.empty_cache()
+    slice10["checks"] = run_check_suites()
     hist_entry["max_abs_err"] = max(hist_entry["max_abs_err"],
                                     slice7["nccl_world1"]["max_abs_err"],
                                     slice7["gloo"]["max_abs_err"],
@@ -2548,13 +2976,17 @@ def main():
         "nccl_world1": [r["launches"] for r in slice7["nccl_world1"]["ranks"]],
         f"gloo{PROCESSES}": [r["launches"] for r in slice7["gloo"]["ranks"]],
         f"socket{SOCKET_RANKS}": slice9["gbdt_launches"]}
+    hist_entry["serve_path_launches"] = slice10["serve"]["launches"][
+        "hist_kernel"]
+    for e in ring_entries:
+        e["check_path_launches"] = slice10["checks"]["launches"][e["name"]]
 
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": kind, "nvidia_smi": smi, "gbdt": gbdt_record,
                    "data_parallel": dp_record, "train_raw": raw_record,
                    "entry": entry_record, "ring": ring_record,
                    "slice6": slice6, "slice7": slice7, "slice8": slice8,
-                   "slice9": slice9,
+                   "slice9": slice9, "slice10": slice10,
                    "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

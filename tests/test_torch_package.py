@@ -86,6 +86,19 @@ def test_imports_and_trains_with_jax_blocked():
                                          for r in (0, 1)), out
         group = ThreadCommSlave.spawn_group(1)
         group[0].allreduce_map({"k": 1.0}, p.Operands.DOUBLE)
+        from ytk_mp4j_tpu_torch.models import linear
+        from ytk_mp4j_tpu_torch.serve import ServeFrontend, framing
+        lin = linear.servable((np.ones(4, np.float32), np.float32(0)),
+                              p.LinearConfig(n_features=4))
+        req = framing.decode_request(framing.encode_request(
+            "linear", 1, [1, 2], None, [1.0, 2.0]))[2:]
+        m = Master(1, timeout=60).serve_in_thread()
+        s = ProcessCommSlave("127.0.0.1", m.port, timeout=60)
+        fe = ServeFrontend(s, lin, deadline_ms=1.0)
+        assert fe.predict((req[0], req[1], req[2]), timeout=60)[0] == 3.0
+        fe.close()
+        s.close(0)
+        m.join(60)
         import importlib, pkgutil
         for mod in pkgutil.walk_packages(p.__path__, "ytk_mp4j_tpu_torch."):
             if not mod.name.endswith(".__main__"):   # runs a command line
@@ -124,7 +137,10 @@ def test_no_source_imports_jax_or_the_jax_package():
                  "resilience/faults.py", "resilience/membership.py",
                  "resilience/recovery.py", "resilience/autoscaler.py",
                  "utils/stats.py", "utils/trace.py", "utils/tuner.py",
-                 "check/checkthread.py", "check/checkprocess.py"):
+                 "check/checkthread.py", "check/checkprocess.py",
+                 "check/checkgpu.py", "check/checkaot.py",
+                 "serve/__init__.py", "serve/batcher.py", "serve/cache.py",
+                 "serve/dispatcher.py", "serve/framing.py"):
         assert PKG / name in files, name
     for path in files:
         assert not pat.search(path.read_text()), path

@@ -76,7 +76,12 @@ Intended divergences from the reference:
   reference's dry run holds its stream to its full batch), not bitwise;
   on the CPU every add runs in stream order and ``fit_stream`` over one
   full-batch chunk per epoch equals ``fit`` bitwise;
-- no ``FMServable``: it rides the serve plane.
+- :class:`FMServable` (:func:`servable`, the serve plane's pull-mode
+  adapter, scoring on the host in numpy as the reference does) takes the
+  port's tensors on any device, keeping detached float32 host copies, or
+  numpy arrays, where the reference fetches with ``jax.device_get``; a
+  table sharded over processes goes through :meth:`FMTrainer.full_table`
+  first (a process's blocks alone are refused).
 """
 
 from __future__ import annotations
@@ -859,3 +864,120 @@ class FMTrainer(DataParallelTrainer):
                 return _link(self._scores_sharded(params, feats, fields,
                                                   vals, mask), self.cfg)
             return predict(params, feats, fields, vals, mask, self.cfg)
+
+
+# ----------------------------------------------------------------------
+# serve adapter: the pull-mode sharded entry point
+# ----------------------------------------------------------------------
+class FMServable:
+    """Row-pull serve adapter for a trained FM / FFM model -- the host
+    twin of :meth:`FMTrainer._scores_sharded` (the owner-routed row
+    fetch): the full table is never materialized on the frontend; a
+    batch pulls exactly the rows it touches, owner-routed by ``row_id %
+    size`` over the columnar map plane, and hot rows come out of the
+    frontend cache instead.
+
+    A pull ROW is one feature's whole serve payload: ``[w[f]]`` + its
+    embedding row(s) -- ``1 + k`` floats for FM, ``1 + n_fields * k`` for
+    FFM (feature f's rows against every field, flattened). Scoring is per
+    example in slot order, so batched and sequential serve predictions
+    are bitwise identical by construction. ``params`` are ``(w0, w, V)``
+    tensors on any device or numpy arrays; a table padded for a sharded
+    trainer on one process is cut to its first ``n_features * nf`` rows.
+    """
+
+    kind = "pull"
+
+    def __init__(self, params, cfg: FMConfig):
+        w0, w, V = params
+        self.cfg = cfg
+        self.family = cfg.model
+        self._w0 = float(as_numpy(w0))
+        self._w = np.asarray(as_numpy(w), np.float32)
+        V = np.asarray(as_numpy(V), np.float32)
+        nf = cfg.n_fields if cfg.model == "ffm" else 1
+        if V.shape[0] < cfg.n_features * nf:
+            raise Mp4jError(
+                f"FMServable needs the whole [{cfg.n_features * nf}, "
+                f"{cfg.k}] table, got {tuple(V.shape)} (a table sharded "
+                "over processes: pass FMTrainer.full_table(params))")
+        # [n_features, nf * k]: feature f's embedding payload
+        self._E = np.ascontiguousarray(
+            V[:cfg.n_features * nf].reshape(cfg.n_features,
+                                            nf * cfg.k))
+        self.n_rows = cfg.n_features
+        self.row_width = 1 + nf * cfg.k
+        self.resp_width = 1
+
+    def row_ids(self, req) -> np.ndarray:
+        """Unique features an instance's ACTIVE slots touch."""
+        feats, _fields, vals = req
+        return np.unique(np.asarray(feats, np.int64)[
+            np.asarray(vals, np.float32) != 0])
+
+    def rows(self, ids) -> np.ndarray:
+        ids = np.asarray(ids, np.int64)
+        return np.concatenate(
+            [self._w[ids, None], self._E[ids]],
+            axis=1).astype(np.float64)
+
+    def predict_sharded(self, reqs, rowmap) -> list:
+        """Score a batch from pulled rows, one example at a time in slot
+        order (the FFM pair loop's order is what makes batched equal
+        sequential bitwise); a row missing from ``rowmap`` scores as
+        zeros."""
+        out = []
+        k = self.cfg.k
+        zero = np.zeros(self.row_width, np.float32)
+        for feats, fields, vals in reqs:
+            feats = np.asarray(feats, np.int64)
+            fields = np.asarray(fields, np.int32)
+            vals = np.asarray(vals, np.float32)
+            act = np.flatnonzero(vals != 0)
+            rows = [rowmap.get(int(feats[a]))
+                    for a in act]
+            rows = [zero if r is None else r.astype(np.float32)
+                    for r in rows]
+            z = np.float32(self._w0)
+            for r, a in zip(rows, act):
+                z += r[0] * vals[a]
+            if self.cfg.model == "fm":
+                # 0.5 * ((sum_a v_a x_a)^2 - sum_a (v_a x_a)^2) over k
+                s = np.zeros(k, np.float32)
+                ss = np.zeros(k, np.float32)
+                for r, a in zip(rows, act):
+                    ex = r[1:] * vals[a]
+                    s += ex
+                    ss += ex * ex
+                z += np.float32(0.5) * np.sum(s * s - ss)
+            else:
+                # FFM: sum_{a<b} <E[f_a, fl_b], E[f_b, fl_a]> x_a x_b
+                for i in range(len(act)):
+                    for j in range(i + 1, len(act)):
+                        a, b = act[i], act[j]
+                        ra = rows[i][1 + fields[b] * k:
+                                     1 + (fields[b] + 1) * k]
+                        rb = rows[j][1 + fields[a] * k:
+                                     1 + (fields[a] + 1) * k]
+                        z += np.dot(ra, rb) * vals[a] * vals[b]
+            out.append(_serve_link(z, self.cfg.loss))
+        return out
+
+
+def _serve_link(z, loss: str) -> np.ndarray:
+    """Overflow-safe host link on a scalar margin."""
+    z = float(z)
+    if loss == "logistic":
+        if z >= 0:
+            p = 1.0 / (1.0 + np.exp(-z))
+        else:
+            e = np.exp(z)
+            p = e / (1.0 + e)
+        return np.asarray([p], np.float64)
+    return np.asarray([z], np.float64)
+
+
+def servable(params, cfg: FMConfig) -> FMServable:
+    """The serve plane's per-family entry point -- covers both
+    ``model="fm"`` and ``model="ffm"``."""
+    return FMServable(params, cfg)

@@ -48,7 +48,11 @@ Intended divergences from the reference:
 - leaf sums accumulate in float64 and round once to float32;
 - over processes the trees and margins equal one process's bit for bit
   (the reference's global mesh sums by ``psum``, in its own order);
-- no ``GBDTServable`` (the serve plane) yet.
+- :class:`GBDTServable` (:func:`servable`, the serve plane's reduce-mode
+  adapter, routing on the host in numpy as the reference does) takes the
+  port's trees on any device, keeping detached host copies (int32 split
+  components, float32 leaves), or the reference's numpy trees, where the
+  reference fetches with ``jax.device_get``.
 """
 
 from __future__ import annotations
@@ -923,3 +927,112 @@ def trees_from_numpy(trees, cfg: GBDTConfig, device=None):
     if cfg.loss == "softmax":
         return [tuple(one(t) for t in rnd) for rnd in trees]
     return [one(t) for t in trees]
+
+
+# ----------------------------------------------------------------------
+# serve adapter: the reduce-mode sharded entry point
+# ----------------------------------------------------------------------
+class GBDTServable:
+    """Tree-shard serve adapter for a trained ensemble.
+
+    ``kind="reduce"``: unlike the embedding families there is no row to
+    pull -- every example visits every tree -- so the serve dispatcher
+    shards the ENSEMBLE (round ``t`` lives on rank ``t % size``), each
+    rank routes the batch through its own trees, and the per-rank partial
+    margins meet in one fixed-shape ``allreduce``. The host router
+    mirrors :func:`predict_tree` exactly (ordered splits, categorical
+    equality splits, the learned missing-bucket direction, the B-1 freeze
+    sentinel), and margins accumulate per example in float64 in fixed
+    tree order -- so partial sums are independent of batch composition
+    and batched == sequential stays bitwise true through the
+    deterministic reduce. ``trees`` are the port's (tensors on any
+    device) or the reference's numpy trees.
+    """
+
+    kind = "reduce"
+    family = "gbdt"
+
+    def __init__(self, trees, cfg: GBDTConfig):
+        self.cfg = cfg
+        self.n_rounds = len(trees)
+        self.req_width = cfg.n_features
+        self.resp_width = (cfg.n_classes if cfg.loss == "softmax"
+                           else 1)
+        dtypes = (np.int32, np.int32, np.int32, np.float32)
+
+        # [T, C, ...] host component arrays (C=1 unless softmax)
+        def _host(rnd):
+            per_class = rnd if cfg.loss == "softmax" else (rnd,)
+            return [tuple(np.asarray(as_numpy(a), dt)
+                          for a, dt in zip(cls, dtypes))
+                    for cls in per_class]
+        self._trees = [_host(rnd) for rnd in trees]
+        self._cat_mask = cfg._cat_mask()
+
+    def _route(self, bins: np.ndarray, tree) -> np.ndarray:
+        """[N] leaf values -- numpy mirror of :func:`predict_tree`."""
+        cfg = self.cfg
+        tree_feat, tree_bin, tree_dir, leaf_val = tree
+        N = bins.shape[0]
+        node = np.zeros(N, np.int64)
+        rows = np.arange(N)
+        start = 0
+        for d in range(cfg.depth):
+            n_nodes = 2 ** d
+            f = np.asarray(tree_feat[start:start + n_nodes])[node]
+            b = np.asarray(tree_bin[start:start + n_nodes])[node]
+            v = bins[rows, f]
+            go_right = v > b
+            if cfg.missing_bin:
+                dd = np.asarray(
+                    tree_dir[start:start + n_nodes])[node]
+                go_right = np.where(v == 0, dd > 0, go_right)
+            if self._cat_mask is not None:
+                sc = self._cat_mask[f]
+                go_right = np.where(
+                    sc, (v == b) & (b != cfg.n_bins - 1), go_right)
+            node = node * 2 + go_right.astype(np.int64)
+            start += n_nodes
+        return np.asarray(leaf_val)[node]
+
+    def partial_margins(self, bins: np.ndarray, rank: int,
+                        size: int) -> np.ndarray:
+        """[N, resp_width] float64 margins over THIS rank's tree shard
+        (rounds ``t % size == rank``); summing the partials of all ranks
+        reproduces :meth:`GBDTTrainer.predict`'s raw margins up to the
+        f32->f64 accumulation swap."""
+        bins = np.asarray(bins, np.int64)
+        out = np.zeros((bins.shape[0], self.resp_width), np.float64)
+        lr = np.float64(self.cfg.learning_rate)
+        for t in range(rank, self.n_rounds, size):
+            for c, cls in enumerate(self._trees[t]):
+                out[:, c] += lr * self._route(bins, cls).astype(
+                    np.float64)
+        return out
+
+    def link(self, margins: np.ndarray) -> list:
+        """Frontend head: margins [N, resp_width] -> one float64
+        prediction vector per example (proba via the two-branch sigmoid /
+        max-shifted softmax; squared stays the raw margin)."""
+        out = []
+        for m in margins:
+            if self.cfg.loss == "logistic":
+                z = float(m[0])
+                if z >= 0:
+                    p = 1.0 / (1.0 + np.exp(-z))
+                else:
+                    e = np.exp(z)
+                    p = e / (1.0 + e)
+                out.append(np.asarray([p], np.float64))
+            elif self.cfg.loss == "softmax":
+                z = m - m.max()
+                e = np.exp(z)
+                out.append(e / e.sum())
+            else:
+                out.append(np.asarray([float(m[0])], np.float64))
+        return out
+
+
+def servable(trees, cfg: GBDTConfig) -> GBDTServable:
+    """The serve plane's per-family entry point."""
+    return GBDTServable(trees, cfg)

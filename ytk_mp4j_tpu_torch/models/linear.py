@@ -27,8 +27,14 @@ each step's training loss over the comm's ranks into
 ``sync_loss_history_`` (their mean), through ``_base.StepStatsExchanger``
 (``MP4J_OVERLAP=1`` moves only the wait).
 
+:class:`LinearServable` (:func:`servable`) is the serve plane's pull-mode
+adapter (``serve/dispatcher.py``): it scores on the host in numpy, one
+example at a time in slot order, as the reference does.
+
 Intended divergences from the reference: ``predict`` returns a tensor on
-the device; no ``LinearServable`` (it rides the serve plane).
+the device; :class:`LinearServable` takes the port's tensors (on any
+device: it keeps a detached float32 host copy) or numpy arrays, where the
+reference fetches its arrays with ``jax.device_get``.
 """
 
 from __future__ import annotations
@@ -310,3 +316,92 @@ class LinearTrainer(DataParallelTrainer):
         with torch.no_grad():
             return predict(_stage_params(params, self.device),
                            self._stage_x(x), self.cfg)
+
+
+# ----------------------------------------------------------------------
+# serve adapter: the pull-mode sharded entry point
+# ----------------------------------------------------------------------
+class LinearServable:
+    """Row-pull serve adapter for a trained linear model.
+
+    ``kind="pull"``: the serve dispatcher shards the weight table by
+    ``row_id % size`` across the job's ranks and the frontend pulls
+    only the rows a batch touches over the columnar map plane. A row
+    here is one feature's weight(s): width 1, or ``n_classes`` for
+    softmax. Scoring is per example (never across the batch), so
+    batched and sequential serve predictions are bitwise identical by
+    construction. ``params`` are ``(w, b)`` tensors on any device or
+    numpy arrays; the servable holds float32 host copies.
+    """
+
+    kind = "pull"
+    family = "linear"
+
+    def __init__(self, params, cfg: LinearConfig):
+        w, b = params
+        self.cfg = cfg
+        w = np.asarray(as_numpy(w), np.float32)
+        self._w = w if w.ndim == 2 else w[:, None]     # [D, width]
+        self._b = np.atleast_1d(np.asarray(as_numpy(b), np.float32))
+        self.n_rows = self._w.shape[0]
+        self.row_width = self._w.shape[1]
+        self.resp_width = (cfg.n_classes if cfg.loss == "softmax"
+                           else 1)
+
+    def row_ids(self, req) -> np.ndarray:
+        """Unique table rows one request touches (active slots only --
+        a zero-valued slot contributes nothing, so its row is never
+        pulled)."""
+        ids, _fields, vals = req
+        return np.unique(np.asarray(ids, np.int64)[
+            np.asarray(vals, np.float32) != 0])
+
+    def rows(self, ids) -> np.ndarray:
+        """Float64 row vectors for the pull plane (the wire operand of
+        ``allreduce_map`` is DOUBLE)."""
+        return self._w[np.asarray(ids, np.int64)].astype(np.float64)
+
+    def predict_sharded(self, reqs, rowmap) -> list:
+        """Score a batch from pulled rows; one float64 vector per
+        request. A row missing from ``rowmap`` scores as zeros -- the
+        degraded-but-deliverable contract the dispatcher's status byte
+        reports."""
+        out = []
+        zero = np.zeros(self.row_width, np.float32)
+        for ids, _fields, vals in reqs:
+            ids = np.asarray(ids, np.int64)
+            vals = np.asarray(vals, np.float32)
+            z = self._b.astype(np.float32).copy()
+            if self.cfg.loss != "softmax":
+                z = z[:1].copy()
+            for a in range(ids.shape[0]):
+                if vals[a] == 0:
+                    continue
+                row = rowmap.get(int(ids[a]))
+                row = zero if row is None else row.astype(np.float32)
+                z += row * vals[a]
+            out.append(_link(z, self.cfg.loss))
+        return out
+
+
+def _link(z: np.ndarray, loss: str) -> np.ndarray:
+    """The prediction link on a host margin vector (numpy mirror of
+    :func:`predict`'s heads, overflow-safe)."""
+    z = np.asarray(z, np.float32)
+    if loss == "logistic":
+        p = np.empty_like(z, np.float64)
+        pos = z >= 0
+        p[pos] = 1.0 / (1.0 + np.exp(-z[pos].astype(np.float64)))
+        e = np.exp(z[~pos].astype(np.float64))
+        p[~pos] = e / (1.0 + e)
+        return p
+    if loss == "softmax":
+        s = z.astype(np.float64) - z.max()
+        e = np.exp(s)
+        return e / e.sum()
+    return z.astype(np.float64)
+
+
+def servable(params, cfg: LinearConfig) -> LinearServable:
+    """The serve plane's per-family entry point."""
+    return LinearServable(params, cfg)
