@@ -43,6 +43,11 @@ Slice 10, the serve plane and the check suites: ``ServeFrontend`` /
 ``serve_worker`` over the socket plane with the GBDT, FFM and linear
 servables, then ``check.checkgpu`` and ``check.checkaot``.
 
+Slice 11, the examples and tracing: the eleven mirrors of the reference's
+examples (``examples/torch/``) run on the card, the port's entry points
+as a user calls them, and the device planes' collectives traced
+(``trace_collectives``).
+
 Phases:
 
 1. build the kernels from the sources in this checkout (one ``nvcc``
@@ -184,7 +189,22 @@ Phases:
     source compiled for sm_90a; each kernel's registers, shared memory
     and spills printed); artifacts in ``chiprun_out/checkgpu.json`` and
     ``checkaot.json``;
-13. one JSON line of kernels, then the card's ``nvidia-smi`` line, then
+13. the examples and the traces on the card: each of the eleven mirrors
+    in ``examples/torch/`` run in this process (``runpy``, ``sys.argv``
+    set to ``--device cuda`` and, where the script takes it, ``--n 8``),
+    the launch counts set to 0 just before each and read just after; the
+    example's own asserts must hold, 01 must launch ``ring_kernel``, 08
+    ``ring_kernel`` and ``ring_kernel_bidir``, 05, 07 and 11 the
+    histogram kernel; each example's seconds and launches are printed and
+    its output goes to ``chiprun_out/examples.log``. Then
+    ``GpuCommCluster(4, "cuda")`` ``allreduce_array`` (``algo="rdma"``) and
+    ``broadcast_array`` of 1024-element f32 arrays inside
+    ``trace_collectives()`` must give exactly the two rows
+    ``GpuCommCluster.<method>`` with the reference's payload bytes (4 x
+    4096); phase 8's workers each trace one ``DistributedComm``
+    collective, whose one row each must be ``DistributedComm.
+    allreduce_array`` (NCCL at world 1 and gloo at 4);
+14. one JSON line of kernels, then the card's ``nvidia-smi`` line, then
     the ``{"ok": true, ...}`` line last.
 
 Any failed check raises, and the script exits non-zero without the ok
@@ -197,9 +217,11 @@ script starts itself with ``--rank-worker`` for phases 8, 9 and 10).
 
 import contextlib
 import hashlib
+import io
 import json
 import os
 import pickle
+import runpy
 import subprocess
 import sys
 import tempfile
@@ -220,6 +242,7 @@ from ytk_mp4j_tpu_torch.ops import _build
 from ytk_mp4j_tpu_torch.ops import hist_kernel as hk
 from ytk_mp4j_tpu_torch.ops import ring_kernel as rk
 from ytk_mp4j_tpu_torch.ops import sparse as sparse_ops
+from ytk_mp4j_tpu_torch.utils import trace as collective_trace
 
 ROWS = 11_000_000
 F, B, DEPTH = 28, 256, 6
@@ -1548,6 +1571,12 @@ def rank_worker(job):
     fails = checkdist.run_checks(comm)
     rec["checks_s"] = time.perf_counter() - t0
     rec["check_failures"] = fails
+    # the device plane's collectives are traced: one row a call
+    with collective_trace.trace_collectives():
+        comm.allreduce_array(np.ones(1024, np.float32), Operands.FLOAT,
+                             Operators.SUM)
+    rec["trace_rows"] = [(name, nb)
+                         for name, _s, nb in collective_trace.events()]
 
     bins, y = make_data(ROWS, F, B)
     dbins = torch.from_numpy(bins).to(comm.device)
@@ -1694,6 +1723,8 @@ def run_processes(world, backend, ref, tag):
         check(rec["backend"] == (backend or "nccl"),
               f"{tag}: rank {rec['rank']} ran {rec['backend']}")
         check(rec["check_failures"] == 0, f"{tag}: checkdist failed")
+        check([tuple(r) for r in rec["trace_rows"]] == TRACE_DIST_ROWS,
+              f"{tag}: rank {rec['rank']} traced {rec['trace_rows']}")
         check(rec["hist_seeded"], f"{tag}: rank {rec['rank']}'s histogram "
               "calls were not seeded with the job's scale")
         check(not rec["hist_misses"], f"{tag}: rank {rec['rank']}: "
@@ -1708,6 +1739,7 @@ def run_processes(world, backend, ref, tag):
     err = max(rec["hist_max_abs_err"] for rec in recs)
     differ = [int(np.sum(rec["unseeded_cells_differing"])) for rec in recs]
     cells = 2 * F * B * (2 ** DEPTH - 1)      # g and h, every level's nodes
+    print(f"{tag}: every rank traced {TRACE_DIST_ROWS}", flush=True)
     print(f"{tag}: {world} process(es), backend {recs[0]['backend']}, "
           f"{took:.1f} s in all (checks {max(r['checks_s'] for r in recs):.1f}"
           f" s); {TIMED_TREES} trees at {rate:.3f} trees/s (slowest rank), "
@@ -2924,6 +2956,91 @@ def run_check_suites():
                          a["programs"].items()}, "checkaot_s": a_s, "s": s}
 
 
+# ----------------------------------------------------------------------
+# slice 11: the examples and the traces on the card
+# ----------------------------------------------------------------------
+EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "examples", "torch")
+EXAMPLE_MEMBERS = 8                # the reference's 8-device rig
+HOST_EXAMPLES = ("03", "04")       # socket / thread planes: no --n
+EXAMPLE_KERNELS = {"01": ("ring_kernel",), "05": ("hist_kernel",),
+                   "07": ("hist_kernel",),
+                   "08": ("ring_kernel", "ring_kernel_bidir"),
+                   "11": ("hist_kernel",)}
+TRACE_MEMBERS = 4
+TRACE_ROWS = [("GpuCommCluster.allreduce_array", TRACE_MEMBERS * 4096),
+              ("GpuCommCluster.broadcast_array", TRACE_MEMBERS * 4096)]
+TRACE_DIST_ROWS = [("DistributedComm.allreduce_array", 4096)]
+
+
+def run_example(path):
+    """One mirror in this process, as ``python path --device cuda`` would
+    run it, between the launch counts. Returns (seconds, counts, its
+    standard output)."""
+    key = os.path.basename(path)[:2]
+    argv = [path, "--device", "cuda"]
+    if key not in HOST_EXAMPLES:
+        argv += ["--n", str(EXAMPLE_MEMBERS)]
+    saved, sys.argv = sys.argv, argv
+    buf = io.StringIO()
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(path, run_name="__main__")
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        sys.argv = saved
+    return took, counts, buf.getvalue()
+
+
+def run_examples_and_traces():
+    """Phase 13: every mirror of ``examples/torch`` on the card (its own
+    asserts, the launches its path must make), then the trace rows of
+    ``GpuCommCluster`` on the card."""
+    t0 = time.perf_counter()
+    paths = sorted(os.path.join(EXAMPLES_DIR, f)
+                   for f in os.listdir(EXAMPLES_DIR) if f.endswith(".py"))
+    check(len(paths) == 11, f"{len(paths)} example mirrors, want 11")
+    recs, log = {}, []
+    for path in paths:
+        name = os.path.basename(path)
+        took, counts, out = run_example(path)
+        for kernel in EXAMPLE_KERNELS.get(name[:2], ()):
+            check(counts[kernel] >= 1, f"{name} launched no {kernel}")
+        launches = {k: counts[k] for k in COUNTERS}
+        recs[name] = {"s": took, "launches": launches}
+        log.append(f"==== {name} ({took:.3f} s, launches {launches})\n"
+                   + out)
+        print(f"example {name}: {took:.3f} s, launches {launches}",
+              flush=True)
+    with open(os.path.join(OUT_DIR, "examples.log"), "w") as f:
+        f.write("\n".join(log))
+
+    cl = GpuCommCluster(TRACE_MEMBERS, "cuda")
+    arrs = [np.full(1024, r + 1, np.float32) for r in range(TRACE_MEMBERS)]
+    zero_counts()
+    with collective_trace.trace_collectives():
+        cl.allreduce_array(arrs, Operands.FLOAT, Operators.SUM, algo="rdma")
+        cl.broadcast_array(arrs, Operands.FLOAT, root=0)
+    counts = read_counts()
+    events = collective_trace.events()
+    rows = [(name, nb) for name, _s, nb in events]
+    check(rows == TRACE_ROWS, f"trace rows on the card {rows}, want "
+          f"{TRACE_ROWS}")
+    want = sum(range(1, TRACE_MEMBERS + 1))
+    check(all((a == want).all() for a in arrs), "traced allreduce wrong")
+    check(counts["ring_kernel"] >= 1, "the traced allreduce launched no "
+          "ring_kernel")
+    print(f"traces on the card: {rows}, host ms "
+          f"{[round(sec * 1e3, 3) for _n, sec, _b in events]}", flush=True)
+    s = time.perf_counter() - t0
+    print(f"phase 13 (the examples and the traces): {s:.1f} s", flush=True)
+    return {"examples": recs, "trace_rows": rows, "s": s}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2968,6 +3085,7 @@ def main():
     del ffm_params, linear_params
     torch.cuda.empty_cache()
     slice10["checks"] = run_check_suites()
+    slice11 = run_examples_and_traces()
     hist_entry["max_abs_err"] = max(hist_entry["max_abs_err"],
                                     slice7["nccl_world1"]["max_abs_err"],
                                     slice7["gloo"]["max_abs_err"],
@@ -2980,6 +3098,11 @@ def main():
         "hist_kernel"]
     for e in ring_entries:
         e["check_path_launches"] = slice10["checks"]["launches"][e["name"]]
+    for e in kernels:
+        e["example_path_launches"] = {
+            name: rec["launches"][e["name"]]
+            for name, rec in slice11["examples"].items()
+            if rec["launches"][e["name"]]}
 
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": kind, "nvidia_smi": smi, "gbdt": gbdt_record,
@@ -2987,7 +3110,7 @@ def main():
                    "entry": entry_record, "ring": ring_record,
                    "slice6": slice6, "slice7": slice7, "slice8": slice8,
                    "slice9": slice9, "slice10": slice10,
-                   "kernels": kernels}, f, indent=1)
+                   "slice11": slice11, "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

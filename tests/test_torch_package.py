@@ -116,7 +116,10 @@ def test_imports_and_trains_with_jax_blocked():
 def test_no_source_imports_jax_or_the_jax_package():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|ytk_mp4j_tpu)\b"
                      r"(?!_torch)", re.M)
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    examples = sorted((REPO / "examples" / "torch").glob("*.py"))
+    assert len(examples) == 11
+    files = (sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + examples)
     assert len(files) >= 15
     for name in ("operators.py", "operands.py", "meta.py",
                  "comm/gpu_comm.py", "ops/ring.py", "ops/collectives.py",
@@ -140,7 +143,11 @@ def test_no_source_imports_jax_or_the_jax_package():
                  "check/checkthread.py", "check/checkprocess.py",
                  "check/checkgpu.py", "check/checkaot.py",
                  "serve/__init__.py", "serve/batcher.py", "serve/cache.py",
-                 "serve/dispatcher.py", "serve/framing.py"):
+                 "serve/dispatcher.py", "serve/framing.py",
+                 "analysis/__init__.py", "analysis/cli.py",
+                 "analysis/callgraph.py", "analysis/engine.py",
+                 "analysis/baseline.py", "analysis/rules/__init__.py",
+                 "analysis/rules/r17_metric_doc.py"):
         assert PKG / name in files, name
     for path in files:
         assert not pat.search(path.read_text()), path
@@ -150,8 +157,8 @@ def test_exports():
     assert sorted(ytk_mp4j_tpu_torch.__all__) == [
         "FMConfig", "FMTrainer", "GBDTConfig", "GBDTTrainer",
         "GpuCommCluster", "LinearConfig", "LinearTrainer", "Mp4jError",
-        "Operand", "Operands", "Operator", "Operators", "meta",
-        "trees_from_numpy"]
+        "Operand", "Operands", "Operator", "Operators", "meta", "trace",
+        "trace_collectives", "trees_from_numpy"]
     for name in ytk_mp4j_tpu_torch.__all__:
         assert getattr(ytk_mp4j_tpu_torch, name)
 
@@ -255,6 +262,9 @@ def test_chip_smoke_alone_fails(tmp_path):
 
 def test_packaging_names_the_port():
     text = (REPO / "pyproject.toml").read_text()
-    assert ('ytk_mp4j_tpu_torch = ["ops/csrc/*.cu", "csrc/*.cpp"]'
+    assert ('ytk_mp4j_tpu_torch = ["ops/csrc/*.cu", "csrc/*.cpp", '
+            '"analysis/*.toml",\n                      "analysis/*.json"]'
             in text)
+    for name in ("baseline.toml", "sarif-2.1.0-subset.json"):
+        assert (PKG / "analysis" / name).is_file(), name
     assert re.search(r"torch\s*=\s*\[\s*\"torch", text)

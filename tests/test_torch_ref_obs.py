@@ -22,12 +22,20 @@ FILES = {
     "test_tuner": 38,
     "test_obs": 11,
     "test_health": 35,
+    "test_fleet": 13,
 }
 
 DESELECT = {
     "test_health": [
         ("test_chaos_slow_rank_reaches_suspect_within_bound",
          "a timing test that also fails in the reference's own runs"),
+    ],
+    "test_fleet": [
+        ("test_fleet_two_real_jobs_shared_host_then_sigkill",
+         "its jobs run in child interpreters of _JOB_DRIVER, whose imports "
+         "load ytk_mp4j_tpu.comm.master outside the redirect: they would "
+         "run the reference; tests/test_torch_fleet.py runs the same case "
+         "on the port"),
     ],
 }
 

@@ -30,7 +30,11 @@ and shared-memory transports (``transport/``) with the native merge and
 raw data plane (``csrc/mp4j_native.cpp``, ``csrc/mp4j_transport.cpp``),
 the progression engine (``comm/progress.py``),
 ``comm/thread_comm.ThreadCommSlave``, and the ``obs/`` and
-``resilience/`` planes they import. It imports torch and numpy, never
+``resilience/`` planes they import. Slice 10: the serve plane
+(``serve/``) and the check suites. Slice 11: per-collective tracing on
+every plane (``trace``, ``trace_collectives``; ``utils/trace.py``) and
+the ``mp4j-lint`` static analyzer (``analysis/``, run as ``python -m
+ytk_mp4j_tpu_torch.analysis``). It imports torch and numpy, never
 jax and nothing of ``ytk_mp4j_tpu``. Entry points run on ``cuda:0`` unless
 the caller passes ``device="cpu"``.
 """
@@ -44,8 +48,10 @@ from ytk_mp4j_tpu_torch.models.gbdt import (GBDTConfig, GBDTTrainer,
 from ytk_mp4j_tpu_torch.models.linear import LinearConfig, LinearTrainer
 from ytk_mp4j_tpu_torch.operands import Operand, Operands
 from ytk_mp4j_tpu_torch.operators import Operator, Operators
+from ytk_mp4j_tpu_torch.utils import trace
+from ytk_mp4j_tpu_torch.utils.trace import trace_collectives
 
 __all__ = ["FMConfig", "FMTrainer", "GBDTConfig", "GBDTTrainer",
            "GpuCommCluster", "LinearConfig", "LinearTrainer", "Mp4jError",
-           "Operand", "Operands", "Operator", "Operators", "meta",
-           "trees_from_numpy"]
+           "Operand", "Operands", "Operator", "Operators", "meta", "trace",
+           "trace_collectives", "trees_from_numpy"]

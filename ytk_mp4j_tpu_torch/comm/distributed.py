@@ -51,9 +51,11 @@ Intended divergences from the reference:
   them); ``torch.distributed`` takes MAX and MIN natively on both
   backends, so there is no probe and nothing to agree on;
 - SHORT, BFLOAT16 and f16 operands reduce on the allgather path (neither
-  backend reduces int16, and the table is the same for both);
-- ``trace.instrument`` (per-collective tracing) is not applied: it waits
-  for the port of ``utils/trace``.
+  backend reduces int16, and the table is the same for both).
+
+Every collective method is traced as the reference's (``utils.trace.
+instrument``, ``distributed.py:822``): one ``DistributedComm.<method>``
+row per outermost call inside ``trace_collectives()``.
 """
 
 from __future__ import annotations
@@ -74,6 +76,7 @@ from ytk_mp4j_tpu_torch.operands import (Operand, Operands, to_numpy,
                                          to_tensor)
 from ytk_mp4j_tpu_torch.operators import Operator, Operators
 from ytk_mp4j_tpu_torch.ops import sparse as sparse_ops
+from ytk_mp4j_tpu_torch.utils import trace
 
 DEFAULT_TIMEOUT_S = 300.0
 BACKENDS = ("nccl", "gloo")
@@ -823,3 +826,8 @@ class DistributedComm(CommSlave):
     def wait_all(self, timeout: float | None = None) -> None:
         """Collective-boundary drain; the eager backend never has
         outstanding work -- a no-op, kept for portable code."""
+
+
+# per-collective tracing (utils.trace; no cost beyond a flag test when
+# disabled)
+trace.instrument(DistributedComm)

@@ -20,8 +20,13 @@ Divergences from the reference, intended:
 
 - 8-byte operands need no switch (the reference needs jax x64);
 - under ``algo="rdma"`` a custom operator raises ``Mp4jError`` naming
-  ``algo="ring"``: the kernel cannot run a Python function;
-- tracing (``trace.instrument``) is not ported yet.
+  ``algo="ring"``: the kernel cannot run a Python function.
+
+Every collective method is traced as the reference's (``utils.trace.
+instrument``, ``tpu_comm.py:869``): inside ``trace_collectives()`` the
+outermost call records one ``GpuCommCluster.<method>`` row with the
+payload bytes of its first argument, so a composed collective
+(``allgather_map``) records once.
 
 The nonblocking family (the reference's ``tpu_comm.py:806-852``) needs no
 progression thread: ``iallreduce`` / ``ireduce_scatter`` / ``iallgather``
@@ -57,6 +62,7 @@ from ytk_mp4j_tpu_torch.ops import collectives as coll
 from ytk_mp4j_tpu_torch.ops import ring as ring_ops
 from ytk_mp4j_tpu_torch.ops import ring_kernel
 from ytk_mp4j_tpu_torch.ops import sparse as sparse_ops
+from ytk_mp4j_tpu_torch.utils import trace
 
 
 class PendingMap:
@@ -619,3 +625,8 @@ class GpuCommCluster:
     def barrier(self):
         """Wait until every member's queued work is done."""
         coll.barrier(self.device)
+
+
+# per-collective tracing (utils.trace; no cost beyond a flag test when
+# disabled)
+trace.instrument(GpuCommCluster)

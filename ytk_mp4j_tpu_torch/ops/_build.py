@@ -32,6 +32,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
+# the loaded library of each source, one per process by design: load()
+# reads and writes it only under _lock
+# mp4j-lint: disable=R7 (process-wide library cache, guarded by _lock)
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
