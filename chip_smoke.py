@@ -48,6 +48,13 @@ examples (``examples/torch/``) run on the card, the port's entry points
 as a user calls them, and the device planes' collectives traced
 (``trace_collectives``).
 
+Slice 12, members on a device list: ``make_mesh(n, devices=[...])``, one
+member a tensor of its own on its list entry, in one process -- GBDT,
+``GpuCommCluster(mesh=)`` and the ring kernel launched a member at a
+time (``ring_kernel.cu``, each member on a stream of its own, its
+neighbours' slots and flags reached through device pointer tables). One
+card runs the whole path with the list ``["cuda:0"] * n``.
+
 Phases:
 
 1. build the kernels from the sources in this checkout (one ``nvcc``
@@ -204,7 +211,29 @@ Phases:
     4096); phase 8's workers each trace one ``DistributedComm``
     collective, whose one row each must be ``DistributedComm.
     allreduce_array`` (NCCL at world 1 and gloo at 4);
-14. one JSON line of kernels, then the card's ``nvidia-smi`` line, then
+14. members on a device list (``devices=["cuda:0"] * n``): with every
+    launch count set to 0 just before and read just after, the GBDT
+    headline over ``make_mesh(4, devices=...)`` (3 timed trees, 72
+    histogram launches: one a member a level), configs[0] through
+    ``GpuCommCluster(mesh=<list mesh>).allreduce_array(algo="rdma")``, the
+    histogram payload bidirectional and configs[1] (reduce-scatter then
+    allgather over 8) through the ring kernel launched a member at a
+    time (4 + 8 + 8 one-way launches, 4 two-way); then each result held
+    against its plain version and BITWISE against the packed launch on
+    the stacked members, the trees and margins bitwise the packed
+    ``make_mesh(4)``'s, trees/s in 10 pairs in turns against the packed
+    form, each ring call's device ms (``torch.profiler``: the span from
+    the first member's kernel start to the last one's end, and the sum of
+    the members' kernel times), the packed launch's, the plain version's
+    and the library's ms beside the bound (HBM bytes at 3.35 TB/s: one
+    card moves no NVLink byte); ``stall_member`` on a list raising at its
+    spin bound; ``checkgpu --devices cuda:0 x 8`` (618 checks on the
+    card's list and on a CPU list, the ring kernels launched a member at
+    a time). With two cards or more the same runs over ``min(4, count)``
+    distinct cards, with the NVLink bound (bytes each way at 450 GB/s)
+    and ``torch.cuda.nccl.all_reduce`` as the library; with one card it
+    prints ``distinct cards: not run (1 card visible)``, a stated limit;
+15. one JSON line of kernels, then the card's ``nvidia-smi`` line, then
     the ``{"ok": true, ...}`` line last.
 
 Any failed check raises, and the script exits non-zero without the ok
@@ -239,6 +268,7 @@ from ytk_mp4j_tpu_torch.models import gbdt
 from ytk_mp4j_tpu_torch.models.binning import QuantileBinner
 from ytk_mp4j_tpu_torch.operands import to_tensor
 from ytk_mp4j_tpu_torch.ops import _build
+from ytk_mp4j_tpu_torch.ops import collectives as coll
 from ytk_mp4j_tpu_torch.ops import hist_kernel as hk
 from ytk_mp4j_tpu_torch.ops import ring_kernel as rk
 from ytk_mp4j_tpu_torch.ops import sparse as sparse_ops
@@ -496,14 +526,17 @@ def profile_run(run, parts, name, exclude=()):
             busy, window)
 
 
-def profile_tree(trainer, dbins, dy, name="tree_trace.json"):
+def profile_tree(trainer, dbins, dy, name="tree_trace.json", parts=None):
     """One more tree like the timed ones, under ``torch.profiler``: device
     ms by kernel name, the histogram kernel's passes, the members' folds
     and the leaf sums against everything else, and the device's idle
-    share over the tree's window."""
+    share over the tree's window. ``parts``: the functions that carry the
+    folds and the leaf sums ({label: (module, attribute)}; default
+    ``gbdt._fold`` and ``gbdt._segment_sum2``)."""
+    if parts is None:
+        parts = {label: (gbdt, attr) for label, attr in TREE_PARTS.items()}
     by_name, parts, busy, window = profile_run(
-        lambda: trainer.train(dbins, dy, n_trees=1),
-        {label: (gbdt, attr) for label, attr in TREE_PARTS.items()}, name,
+        lambda: trainer.train(dbins, dy, n_trees=1), parts, name,
         exclude=HIST_KERNELS)
     hist = sum(v for k, v in by_name.items() if k in HIST_KERNELS)
     total = sum(by_name.values())
@@ -657,11 +690,14 @@ def timed_trees(trainer, dbins, dy, what):
                             "host_s": host_s, "launches": launches}
 
 
-def in_turns(one, many, dbins, dy):
+def in_turns(one, many, dbins, dy, names=None):
     """trees/s of the one-member and the many-member trainer in
     TURN_PAIRS pairs of TIMED_TREES trees each, the order alternating
     from pair to pair (one, many, many, one, ...) so that a stall of the
-    host or a drift of the card falls on both sides."""
+    host or a drift of the card falls on both sides. ``names`` labels the
+    two in the printed line (default: by their member counts)."""
+    if names is None:
+        names = ("1 member", f"{many.n_shards} members")
     pairs = []
     for p in range(TURN_PAIRS):
         order = (one, many) if p % 2 == 0 else (many, one)
@@ -673,10 +709,10 @@ def in_turns(one, many, dbins, dy):
            "one_member_quartiles": np.percentile(a, [25, 75]).tolist(),
            "members_quartiles": np.percentile(b, [25, 75]).tolist()}
     rec["ratio"] = rec["members_median"] / rec["one_member_median"]
-    print(f"in turns, {TURN_PAIRS} pairs of {TIMED_TREES} trees: 1 member "
+    print(f"in turns, {TURN_PAIRS} pairs of {TIMED_TREES} trees: {names[0]} "
           f"median {rec['one_member_median']:.3f} trees/s (quartiles "
           f"{rec['one_member_quartiles'][0]:.3f}-"
-          f"{rec['one_member_quartiles'][1]:.3f}), {many.n_shards} members "
+          f"{rec['one_member_quartiles'][1]:.3f}), {names[1]} "
           f"median {rec['members_median']:.3f} trees/s (quartiles "
           f"{rec['members_quartiles'][0]:.3f}-"
           f"{rec['members_quartiles'][1]:.3f}), ratio {rec['ratio']:.3f}",
@@ -877,17 +913,21 @@ COUNTERS = {"hist_kernel": hk.histograms, "ring_kernel": rk.ring_kernel,
 RING_COUNTERS = ("ring_kernel", "ring_kernel_bidir")
 
 
+RING_PATHS = rk.PATHS + ("member",)     # member: a launch a list member
+
+
 def zero_counts():
     for fn in COUNTERS.values():
         fn.launches = 0
     for name in RING_COUNTERS:
-        COUNTERS[name].cluster_launches = COUNTERS[name].global_launches = 0
+        for path in RING_PATHS:
+            setattr(COUNTERS[name], f"{path}_launches", 0)
 
 
 def read_counts():
     counts = {name: fn.launches for name, fn in COUNTERS.items()}
     for name in RING_COUNTERS:
-        for path in rk.PATHS:
+        for path in RING_PATHS:
             counts[f"{name}.{path}"] = getattr(COUNTERS[name],
                                                f"{path}_launches")
     return counts
@@ -3041,6 +3081,409 @@ def run_examples_and_traces():
     return {"examples": recs, "trace_rows": rows, "s": s}
 
 
+# ----------------------------------------------------------------------
+# slice 12: members on a device list
+# ----------------------------------------------------------------------
+LIST_RING_MEMBERS = 8              # configs[1]'s members
+NVLINK_BYTES_PER_S = 450e9         # H100 NVLink to one peer, each way
+STALL_SPIN_S = 0.5                 # the stalled ring's spin bound
+MEMBER_ERR = {"ring_kernel": 0.0, "ring_kernel_bidir": 0.0}
+
+
+def list_devices(n, cards=1):
+    """n member devices, member r on ``cuda:{r % cards}``."""
+    return [f"cuda:{r % cards}" for r in range(n)]
+
+
+def member_held(name, got, packed, plain, what):
+    """A list result against the packed launch's rows (bitwise) and the
+    plain version's (bitwise; the difference goes into MEMBER_ERR)."""
+    check(isinstance(got, list) and len(got) == packed.shape[0],
+          f"{what}: not a member list")
+    for r, t in enumerate(got):
+        check(same(t, packed[r].to(t.device)),
+              f"{what}: member {r} != the packed launch")
+        b = plain[r].to(t.device)
+        MEMBER_ERR[name] = max(MEMBER_ERR[name],
+                               max_abs_diff(t[None], b[None]))
+        check(same(t, b), f"{what}: member {r} != plain")
+
+
+def device_span_ms(fn, launches, reps=TIMING_REPS, match="ring_"):
+    """Device time of a call made of ``launches`` kernels (those whose name
+    holds ``match``) that run at once on several streams or cards, from
+    ``torch.profiler`` over ``reps`` calls after one warm-up: (the mean
+    span from the first kernel's start to the last one's end, the mean
+    sum of the kernels' times). Calls do not overlap (each reads its
+    error words), while a call's members all run together (each spins on
+    its neighbours): kernels that overlap in time form one call. Only
+    calls whose every kernel the profiler recorded count (CUPTI now and
+    then drops a few); at least half of them must."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_ATTEMPTS):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kern = sorted(
+            (e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and match in e.name)
+        calls = []
+        for start, end in kern:
+            if calls and start < max(e for _, e in calls[-1]):
+                calls[-1].append((start, end))
+            else:
+                calls.append([(start, end)])
+        whole = [c for c in calls if len(c) == launches]
+        if 2 * len(whole) >= reps:
+            break
+    check(2 * len(whole) >= reps,
+          f"the profiler saw {len(whole)} whole calls of {launches} "
+          f"kernels in {reps} ({len(kern)} kernels)")
+    spans = [max(e for _, e in c) - min(s for s, _ in c) for c in whole]
+    sums = [sum(e - s for s, e in c) for c in whole]
+    return sum(spans) / len(whole) / 1e3, sum(sums) / len(whole) / 1e3
+
+
+def nvlink_bound_ms(mode, n, length, dt, ndir):
+    """Least time across distinct cards: the bytes a member sends its
+    neighbour, each way of a link at the NVLink rate (the links run side
+    by side; two directions halve each way's bytes)."""
+    s = torch.empty((), dtype=dt).element_size()
+    steps = 2 * (n - 1) if mode == "allreduce" else n - 1
+    chunk = length if mode == "allgather" else length / n
+    return steps * chunk * s / ndir / NVLINK_BYTES_PER_S * 1e3
+
+
+def member_row(name, mode, n, length, dt, ndir, kernel, packed, plain,
+               library, cards=1, nccl=None, measured=None):
+    """One list call timed: the member launches' span and sum, the packed
+    launch's, the plain version's and the library's device ms, and the
+    bound (HBM bytes; across cards also NVLink bytes). ``measured``: phase
+    6's row of the same call on the same shapes, whose packed (cluster
+    path), plain and library ms this run already took; else they are
+    measured here."""
+    span, total = device_span_ms(kernel, n)
+    lp = COUNTERS[name].last_plan
+    if measured is None:
+        measured = dict(ms=device_ms(packed, match="ring_"),
+                        plain_ms=device_ms(plain),
+                        library_ms=device_ms(library))
+    row = dict(call=name, mode=mode, n=n, length=length, dtype=str(dt),
+               cards=cards, cols=lp.cols, ms=span, member_sum_ms=total,
+               packed_ms=measured["ms"], plain_ms=measured["plain_ms"],
+               library_ms=measured["library_ms"],
+               bound_ms=ring_bound_ms(mode, n, length, dt), bound_by="bytes")
+    if cards > 1:
+        row["nvlink_bound_ms"] = nvlink_bound_ms(mode, n, length, dt, ndir)
+        row["bound_ms"] = max(row["bound_ms"], row["nvlink_bound_ms"])
+        if nccl is not None:
+            row["nccl_ms"] = device_ms(nccl)
+    torch.cuda.empty_cache()
+    print(f"{row['call']} ({cards} card(s)): member path, {n} launches of "
+          f"{lp.cols} blocks, span {span:.4f} ms (members' kernels summed "
+          f"{total:.4f} ms), packed launch {row['packed_ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
+          f"bound {row['bound_ms']:.4f} ms"
+          + (f" (NVLink {row['nvlink_bound_ms']:.4f} ms, NCCL "
+             f"{row.get('nccl_ms', float('nan')):.4f} ms)" if cards > 1
+             else " (HBM bytes: one card moves no NVLink byte)"),
+          flush=True)
+    return row
+
+
+def trees_bitwise(a, b, what):
+    for ta, tb in zip(a, b):
+        for k in range(4):
+            check(torch.equal(ta[k], tb[k].to(ta[k].device)),
+                  f"{what}: tree component {k} differs")
+
+
+def run_device_list(ring_record=None):
+    """Phase 14: the list form on one card (see the module docstring).
+    ``ring_record``: phase 6's, whose rows give the packed, plain and
+    library ms of the same calls (measured here without it)."""
+    from ytk_mp4j_tpu_torch.check import checkgpu
+    from ytk_mp4j_tpu_torch.exceptions import Mp4jError
+
+    t0 = time.perf_counter()
+    done = {"start": t0}
+
+    def part(name):
+        done[name] = time.perf_counter()
+
+    def phase6(name, k):
+        return None if ring_record is None else ring_record["calls"][name][k]
+
+    dev = torch.device("cuda", 0)
+    dbins, dy = device_data(dev)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rng = np.random.default_rng(14)
+    host = [rng.standard_normal(CONFIG0_LEN).astype(np.float32)
+            for _ in range(MEMBERS)]
+    hist = torch.randn((MEMBERS, HIST_PAYLOAD), generator=gen, device=dev)
+    big = torch.randn((LIST_RING_MEMBERS, CONFIG1_LEN), generator=gen,
+                      device=dev, dtype=torch.float64)
+    devs4 = list_devices(MEMBERS)
+    devs8 = list_devices(LIST_RING_MEMBERS)
+    cluster = GpuCommCluster(mesh=make_mesh(MEMBERS, devices=devs4))
+    packed_cluster = GpuCommCluster(MEMBERS)
+    cfg = GBDTConfig(n_features=F, n_bins=B, depth=DEPTH, loss="squared")
+    listed = GBDTTrainer(cfg, mesh=make_mesh(MEMBERS, devices=devs4))
+    listed.train(dbins, dy, n_trees=1)                # warm-up tree
+    cluster.allreduce_array([a.copy() for a in host], Operands.FLOAT,
+                            Operators.SUM, algo="rdma")
+    torch.cuda.synchronize()
+
+    # ---- the main path, driven once between the counts ----------------
+    zero_counts()
+    trees, margins, tree_s, host_s = train_timed(listed, dbins, dy)
+    arrs = [a.copy() for a in host]
+    cluster.allreduce_array(arrs, Operands.FLOAT, Operators.SUM, algo="rdma")
+    hist_out = rk.ring_allreduce_kernel(list(hist), bidirectional=True)
+    scattered = rk.ring_reduce_scatter_kernel(list(big))
+    gathered = rk.ring_allgather_kernel(scattered)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"device list ({MEMBERS} and {LIST_RING_MEMBERS} entries of "
+          f"cuda:0): GBDT {TIMED_TREES} trees {1 / tree_s:.3f} trees/s "
+          f"(host clock {host_s:.3f} s), launches by path {counts}",
+          flush=True)
+    want = {"hist_kernel": DEPTH * TIMED_TREES * MEMBERS,
+            "ring_kernel": MEMBERS + 2 * LIST_RING_MEMBERS,
+            "ring_kernel.member": MEMBERS + 2 * LIST_RING_MEMBERS,
+            "ring_kernel_bidir": MEMBERS,
+            "ring_kernel_bidir.member": MEMBERS}
+    for k, v in want.items():
+        check(counts[k] == v, f"device list: {k} launched {counts[k]} "
+              f"times, want {v}")
+    for k in ("ring_kernel.cluster", "ring_kernel.global",
+              "ring_kernel_bidir.cluster", "ring_kernel_bidir.global"):
+        check(counts[k] == 0, f"device list: {k} launched {counts[k]}")
+
+    # ---- GBDT: bitwise the packed mesh, trees/s in turns -----------------
+    packed = GBDTTrainer(cfg, mesh=make_mesh(MEMBERS))
+    pt, pm = packed.train(dbins, dy, n_trees=TIMED_TREES)
+    trees_bitwise(trees, pt, "GBDT list vs packed")
+    check(torch.equal(margins, pm), "GBDT list margins != packed margins")
+    check(torch.equal(listed.predict(dbins, trees), margins),
+          "GBDT list: predict != the training margins")
+    mse0 = float(dy.double().pow(2).mean())
+    mse = float((margins - dy).double().pow(2).mean())
+    check(bool(torch.isfinite(margins).all()) and mse < mse0,
+          f"GBDT list: margins not finite or no lower loss ({mse}, {mse0})")
+    print(f"GBDT list == packed make_mesh({MEMBERS}): trees and margins "
+          f"bitwise; predict == margins; mse {mse0:.5f} -> {mse:.5f}",
+          flush=True)
+    part("gbdt")
+    turns = in_turns(packed, listed, dbins, dy,
+                     names=(f"packed make_mesh({MEMBERS})",
+                            f"list of {MEMBERS} x cuda:0"))
+    part("turns")
+    # the list's folds go through the list form of ops.collectives
+    profile = profile_tree(
+        listed, dbins, dy, "tree_trace_list.json",
+        parts={"fold": (coll, "allreduce"),
+               "leaf sums": (gbdt, "_segment_sum2")})
+    part("profile")
+    del dbins, dy, packed, listed
+
+    # ---- the ring calls: plain, packed launch, times -------------------
+    stacked = to_tensor(np.stack(host), dev)
+    packed_arrs = [a.copy() for a in host]
+    packed_cluster.allreduce_array(packed_arrs, Operands.FLOAT,
+                                   Operators.SUM, algo="rdma")
+    plain = rk.ring_allreduce_reference(stacked)
+    for r in range(MEMBERS):
+        check(np.array_equal(arrs[r], packed_arrs[r]),
+              f"configs[0] list rank {r} != the packed cluster")
+    member_held("ring_kernel",
+                [torch.from_numpy(a).to(dev) for a in arrs],
+                rk.ring_allreduce_kernel(stacked), plain, "configs[0]")
+    rows = {"ring_kernel": [], "ring_kernel_bidir": []}
+    xs = list(stacked)
+    rows["ring_kernel"].append(member_row(
+        "ring_kernel", "allreduce", MEMBERS, CONFIG0_LEN, torch.float32, 1,
+        lambda: rk.ring_allreduce_kernel(xs),
+        lambda: rk.ring_allreduce_kernel(stacked),
+        lambda: rk.ring_allreduce_reference(stacked),
+        replicated_sum(stacked), measured=phase6("ring_kernel", 0)))
+    rows["ring_kernel"][-1]["call"] = "configs[0] allreduce 4 x 1M f32"
+    member_held("ring_kernel_bidir", hist_out,
+                rk.ring_allreduce_kernel(hist, bidirectional=True),
+                rk.ring_allreduce_reference(hist, bidirectional=True),
+                "histogram payload")
+    hs = list(hist)
+    rows["ring_kernel_bidir"].append(member_row(
+        "ring_kernel_bidir", "allreduce", MEMBERS, HIST_PAYLOAD,
+        torch.float32, 2,
+        lambda: rk.ring_allreduce_kernel(hs, bidirectional=True),
+        lambda: rk.ring_allreduce_kernel(hist, bidirectional=True),
+        lambda: rk.ring_allreduce_reference(hist, bidirectional=True),
+        replicated_sum(hist), measured=phase6("ring_kernel_bidir", 0)))
+    rows["ring_kernel_bidir"][-1]["call"] = (
+        "histogram payload allreduce 4 x 2x16x28x256 f32 bidir")
+    packed_rs = rk.ring_reduce_scatter_kernel(big)
+    member_held("ring_kernel", scattered, packed_rs,
+                rk.ring_reduce_scatter_reference(big),
+                "configs[1] reduce-scatter")
+    torch.cuda.empty_cache()
+    bs = list(big)
+    rows["ring_kernel"].append(member_row(
+        "ring_kernel", "reduce_scatter", LIST_RING_MEMBERS, CONFIG1_LEN,
+        torch.float64, 1, lambda: rk.ring_reduce_scatter_kernel(bs),
+        lambda: rk.ring_reduce_scatter_kernel(big),
+        lambda: rk.ring_reduce_scatter_reference(big),
+        lambda: big.sum(0).view(LIST_RING_MEMBERS, -1),
+        measured=phase6("ring_kernel", 1)))
+    rows["ring_kernel"][-1]["call"] = "configs[1] reduce-scatter 8 x 256M f64"
+    del big, bs
+    torch.cuda.empty_cache()
+    packed_ag = rk.ring_allgather_kernel(packed_rs)
+    member_held("ring_kernel", gathered, packed_ag,
+                rk.ring_allgather_reference(packed_rs),
+                "configs[1] allgather")
+    del gathered, packed_ag
+    torch.cuda.empty_cache()
+    c = packed_rs.shape[1]
+    rows["ring_kernel"].append(member_row(
+        "ring_kernel", "allgather", LIST_RING_MEMBERS, c, torch.float64, 1,
+        lambda: rk.ring_allgather_kernel(scattered),
+        lambda: rk.ring_allgather_kernel(packed_rs),
+        lambda: rk.ring_allgather_reference(packed_rs),
+        lambda: packed_rs.reshape(-1).expand(LIST_RING_MEMBERS,
+                                             -1).contiguous(),
+        measured=phase6("ring_kernel", 2)))
+    rows["ring_kernel"][-1]["call"] = "configs[1] allgather 8 x 32M f64"
+    del scattered, packed_rs
+    torch.cuda.empty_cache()
+    part("rings")
+
+    # ---- a stalled member raises at the spin bound ----------------------
+    small = list(stacked[:, :100_000])
+    for m in (0, MEMBERS - 1):
+        t1 = time.perf_counter()
+        try:
+            rk.ring_allreduce_kernel(small, spin_s=STALL_SPIN_S,
+                                     stall_member=m)
+            raised = None
+        except Mp4jError as e:
+            raised = str(e)
+        took = time.perf_counter() - t1
+        check(raised is not None and "spin bound" in raised
+              and took < 10 * STALL_SPIN_S + 5,
+              f"stall_member={m} on a list: {raised!r} after {took:.2f} s")
+        print(f"stall_member={m} on a list raised in {took:.2f} s: {raised}",
+              flush=True)
+    after = rk.ring_allreduce_kernel(small)
+    ref = rk.ring_allreduce_reference(stacked[:, :100_000])
+    check(all(same(after[r], ref[r]) for r in range(MEMBERS)),
+          "the ring after a stalled call is wrong")
+    part("stall")
+
+    # ---- checkgpu over the list ------------------------------------------
+    gpath = os.path.join(OUT_DIR, "checkgpu_list.json")
+    rc, _ = quiet(checkgpu.main, ["--devices", ",".join(devs8),
+                                  "--cpu-mesh-n", "8", "--out", gpath])
+    with open(gpath) as f:
+        g = json.load(f)
+    hw = g.get("ring_kernel_hw", {})
+    check(rc == 0 and g["ok"] and g["passed"] == 618
+          and g["cpu_mesh"]["passed"] == 618,
+          f"checkgpu over the list returned {rc}: {g.get('failures')}, "
+          f"cpu {g.get('cpu_mesh', {}).get('failures')}, error "
+          f"{g.get('error')}")
+    print(f"checkgpu --devices cuda:0 x {LIST_RING_MEMBERS}: {g['passed']} "
+          f"passed on the card's list, {g['cpu_mesh']['passed']} on a CPU "
+          f"list, ring hardware {hw['n8']['passed']} (n=8, a launch a "
+          f"member) + {hw['n1']['passed']} (n=1); packed on member 0: "
+          f"{g['packed_parts']}", flush=True)
+    part("checkgpu")
+
+    cards = torch.cuda.device_count()
+    distinct = (run_distinct_cards(min(MEMBERS, cards)) if cards >= 2
+                else None)
+    if distinct is None:
+        print("distinct cards: not run (1 card visible)", flush=True)
+
+    s = time.perf_counter() - t0
+    marks = sorted(done.items(), key=lambda kv: kv[1])
+    split = ", ".join(f"{b[0]} {b[1] - a[1]:.1f} s"
+                      for a, b in zip(marks, marks[1:]))
+    print(f"phase 14 (members on a device list): {s:.1f} s ({split})",
+          flush=True)
+    replaces = {"ring_kernel": ":244", "ring_kernel_bidir": ":382"}
+    entries = []
+    for name, rs in rows.items():
+        total = {k: sum(r[k] for r in rs)
+                 for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                           "packed_ms", "member_sum_ms")}
+        entries.append({
+            "name": f"{name}.member", "route": "cuda",
+            "source": "ytk_mp4j_tpu_torch/ops/csrc/ring_kernel.cu",
+            "replaces": "ytk_mp4j_tpu/ops/ring_kernel.py" + replaces[name],
+            "path": "member", "launches": counts[f"{name}.member"],
+            "max_abs_err": MEMBER_ERR[name], "ms": total["ms"],
+            "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+            "bound_by": "bytes", "library_ms": total["library_ms"],
+            "packed_ms": total["packed_ms"],
+            "member_sum_ms": total["member_sum_ms"]})
+    return entries, {"counts": counts, "trees_per_s": 1 / tree_s,
+                     "host_s": host_s, "turns": turns,
+                     "tree_profile": profile, "calls": rows,
+                     "checkgpu_passed": g["passed"],
+                     "checkgpu_cpu_passed": g["cpu_mesh"]["passed"],
+                     "distinct_cards": distinct, "s": s}
+
+
+def run_distinct_cards(k):
+    """Phase 14 over ``k`` distinct cards (peer memory, NVLink): configs[0]
+    and the histogram payload through the member launches held against
+    the plain version and the packed launch on cuda:0, with the NVLink
+    bound and ``torch.cuda.nccl.all_reduce``; GBDT over the k cards,
+    bitwise the packed mesh on cuda:0."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    devs = list_devices(k, k)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    out = {"cards": k, "devices": devs}
+    for name, length, ndir in (("ring_kernel", CONFIG0_LEN, 1),
+                               ("ring_kernel_bidir", HIST_PAYLOAD, 2)):
+        x = torch.randn((k, length), generator=gen, device=dev)
+        xs = [x[r].to(d) for r, d in enumerate(devs)]
+        got = rk.ring_allreduce_kernel(xs, bidirectional=ndir == 2)
+        member_held(name, got, rk.ring_allreduce_kernel(
+            x, bidirectional=ndir == 2), rk.ring_allreduce_reference(
+            x, bidirectional=ndir == 2), f"{name} over {k} cards")
+        ys = [t.clone() for t in xs]
+        out[name] = member_row(
+            name, "allreduce", k, length, torch.float32, ndir,
+            lambda: rk.ring_allreduce_kernel(xs, bidirectional=ndir == 2),
+            lambda: rk.ring_allreduce_kernel(x, bidirectional=ndir == 2),
+            lambda: rk.ring_allreduce_reference(x,
+                                                bidirectional=ndir == 2),
+            replicated_sum(x), cards=k,
+            nccl=lambda: torch.cuda.nccl.all_reduce(ys))
+    dbins, dy = device_data(dev)
+    cfg = GBDTConfig(n_features=F, n_bins=B, depth=DEPTH, loss="squared")
+    listed = GBDTTrainer(cfg, mesh=make_mesh(
+        MEMBERS, devices=list_devices(MEMBERS, k)))
+    listed.train(dbins, dy, n_trees=1)                # warm-up tree
+    trees, margins, tree_s, _ = train_timed(listed, dbins, dy)
+    pt, pm = GBDTTrainer(cfg, mesh=make_mesh(MEMBERS)).train(
+        dbins, dy, n_trees=TIMED_TREES)
+    trees_bitwise(trees, pt, f"GBDT over {k} cards vs packed")
+    check(torch.equal(margins, pm), f"GBDT over {k} cards: margins differ")
+    out["gbdt_trees_per_s"] = 1 / tree_s
+    out["s"] = time.perf_counter() - t0
+    print(f"distinct cards ({k}): GBDT {1 / tree_s:.3f} trees/s, bitwise "
+          f"the packed mesh; {out['s']:.1f} s", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3086,6 +3529,9 @@ def main():
     torch.cuda.empty_cache()
     slice10["checks"] = run_check_suites()
     slice11 = run_examples_and_traces()
+    member_entries, slice12 = run_device_list(ring_record)
+    kernels += member_entries
+    hist_entry["device_list_launches"] = slice12["counts"]["hist_kernel"]
     hist_entry["max_abs_err"] = max(hist_entry["max_abs_err"],
                                     slice7["nccl_world1"]["max_abs_err"],
                                     slice7["gloo"]["max_abs_err"],
@@ -3098,7 +3544,8 @@ def main():
         "hist_kernel"]
     for e in ring_entries:
         e["check_path_launches"] = slice10["checks"]["launches"][e["name"]]
-    for e in kernels:
+        e["device_list_launches"] = slice12["counts"][e["name"]]
+    for e in [hist_entry] + ring_entries:
         e["example_path_launches"] = {
             name: rec["launches"][e["name"]]
             for name, rec in slice11["examples"].items()
@@ -3110,7 +3557,8 @@ def main():
                    "entry": entry_record, "ring": ring_record,
                    "slice6": slice6, "slice7": slice7, "slice8": slice8,
                    "slice9": slice9, "slice10": slice10,
-                   "slice11": slice11, "kernels": kernels}, f, indent=1)
+                   "slice11": slice11, "slice12": slice12,
+                   "kernels": kernels}, f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

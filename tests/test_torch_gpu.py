@@ -13,7 +13,11 @@ multi-process plane (``checkdist`` under NCCL at world size 1 and under
 gloo with two ranks on one card -- GBDT, FFM on every gradient path and
 the dense plane over processes --, two NCCL ranks on one card refused,
 the kernel's scale seeded from the job, the in-order row adds that keep a
-replicated table identical on every rank). Every test skips where there
+replicated table identical on every rank); and the list form (members on
+a device list, ``make_mesh(n, devices=["cuda:0"] * n)``): the ring kernel
+launched a member at a time against the packed launch and the plain
+version, its refusals and its spin bound, ``GpuCommCluster(mesh=)`` and
+GBDT over a list, bitwise the packed form. Every test skips where there
 is no CUDA device.
 
 This file imports neither jax nor the JAX package and uses no fixture of
@@ -754,3 +758,106 @@ def test_two_nccl_ranks_on_one_card_raise(cuda, tmp_path):
     with pytest.raises(RuntimeError, match="processes failed") as info:
         _checkdist(tmp_path, 2, timeout=120)
     assert "gloo on" not in str(info.value)
+
+
+# ---- members on a device list (the launch a member at a time) ---------
+def _cards(n):
+    return ["cuda:0"] * n
+
+
+@pytest.mark.parametrize("bidir", [False, True])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64, torch.int8,
+                                torch.bfloat16], ids=str)
+def test_member_launches_equal_packed_and_plain(cuda, dt, n, bidir):
+    """Each member a launch of its own (one card, n streams): every mode
+    and operator equals the packed launch and the plain version bit for
+    bit, and each call counts n member launches."""
+    counter = rk.ring_kernel_bidir if bidir else rk.ring_kernel
+    before = counter.member_launches
+    c = 2 * rk.granule(dt, cuda) * 5
+    for k, op in enumerate((Operators.SUM, Operators.PROD, Operators.MAX,
+                            Operators.MIN)):
+        x = _ring_data(cuda, (n, 3001), dt, k)
+        got = rk.ring_allreduce_kernel(list(x), op, bidir, True)
+        assert all(_same(got[r], row) for r, row in enumerate(
+            rk.ring_allreduce_kernel(x, op, bidir, True)))
+        assert all(_same(got[r], row) for r, row in enumerate(
+            rk.ring_allreduce_reference(x, op, bidir, True)))
+        x = _ring_data(cuda, (n, n * c), dt, k)
+        got = rk.ring_reduce_scatter_kernel(list(x), op, bidir, True)
+        assert all(_same(got[r], row) for r, row in enumerate(
+            rk.ring_reduce_scatter_reference(x, op, bidir, True)))
+    x = _ring_data(cuda, (n, c), dt, 9)
+    got = rk.ring_allgather_kernel(list(x), bidir, True)
+    assert all(_same(got[r], row) for r, row in enumerate(
+        rk.ring_allgather_reference(x, bidir, True)))
+    assert counter.member_launches == before + 9 * n
+    assert counter.last_plan.path == "member"
+
+
+def test_member_launch_refusals(cuda):
+    """More members on one card than it has work queues, a forced packed
+    path on a list, and members that cannot be co-resident are refused
+    before any launch."""
+    before = rk.ring_kernel.member_launches
+    x = _ring_data(cuda, (rk.MAX_MEMBERS_PER_CARD + 1, 64), torch.float32, 3)
+    with pytest.raises(Mp4jError, match="at most"):
+        rk.ring_allreduce_kernel(list(x))
+    with pytest.raises(Mp4jError, match="member path"):
+        rk.ring_allreduce_kernel(list(x[:2]), path="global")
+    assert rk.ring_kernel.member_launches == before
+
+
+def test_member_spin_bound_raises_and_recovers(cuda):
+    """A stalled member: its neighbours' launches hit the spin bound and
+    the wrapper raises; the flags' epoch keeps the next call clean."""
+    x = _ring_data(cuda, (4, 100_000), torch.float32, 2)
+    for m in (0, 3):
+        t0 = time.perf_counter()
+        with pytest.raises(Mp4jError, match="spin bound"):
+            rk.ring_allreduce_kernel(list(x), spin_s=0.5, stall_member=m)
+        assert time.perf_counter() - t0 < 30
+        got = rk.ring_allreduce_kernel(list(x))
+        assert all(_same(got[r], row) for r, row in enumerate(
+            rk.ring_allreduce_reference(x)))
+
+
+def test_gpu_comm_cluster_over_a_device_list(cuda):
+    """The dense family under every algo over a list mesh equals the
+    packed cluster bit for bit; the map family raises."""
+    lst = GpuCommCluster(mesh=make_mesh(4, devices=_cards(4)))
+    packed = GpuCommCluster(4)
+    rng = np.random.default_rng(7)
+    base = [rng.standard_normal(10_001).astype(np.float32) for _ in range(4)]
+    for algo in ("xla", "ring", "rdma"):
+        for method in ("allreduce_array", "reduce_scatter_array",
+                       "allgather_array"):
+            a, b = [x.copy() for x in base], [x.copy() for x in base]
+            getattr(lst, method)(a, Operands.FLOAT, algo=algo)
+            getattr(packed, method)(b, Operands.FLOAT, algo=algo)
+            assert all(np.array_equal(p, q) for p, q in zip(a, b))
+    a = [x.copy() for x in base]
+    lst.iallreduce(a, Operands.FLOAT, Operators.MAX, algo="rdma").wait()
+    assert all(np.array_equal(p, np.max(base, 0)) for p in a)
+    with pytest.raises(Mp4jError, match="later slice"):
+        lst.allreduce_map([{"k": 1.0}] * 4)
+
+
+@pytest.mark.parametrize("sampled", [False, True])
+def test_gbdt_over_a_device_list_equals_packed(cuda, sampled):
+    """GBDT over make_mesh(4, devices=cuda:0 x 4): one histogram launch a
+    member a level with the mesh's fixed-point scale; trees and margins
+    bitwise the packed make_mesh(4)'s."""
+    bins, y = _gbdt_data(100_003)
+    kw = dict(subsample=0.7, colsample=0.6) if sampled else {}
+    cfg = GBDTConfig(n_features=28, n_bins=256, depth=4, **kw)
+    before = hk.histograms.launches
+    lt, lm = GBDTTrainer(cfg, mesh=make_mesh(4, devices=_cards(4))).train(
+        bins, y, n_trees=2, seed=5)
+    assert hk.histograms.launches == before + 2 * 4 * 4
+    pt, pm = GBDTTrainer(cfg, mesh=make_mesh(4)).train(bins, y, n_trees=2,
+                                                      seed=5)
+    assert torch.equal(lm, pm)
+    for a, b in zip(lt, pt):
+        assert all(torch.equal(a[k], b[k]) for k in range(4))

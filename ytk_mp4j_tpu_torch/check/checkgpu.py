@@ -18,6 +18,17 @@ the slots and the exit barrier alone).
 
     python -m ytk_mp4j_tpu_torch.check.checkgpu [--n 8] [--out f.json]
     python -m ytk_mp4j_tpu_torch.check.checkgpu --device cpu --cpu-mesh-n 0
+    python -m ytk_mp4j_tpu_torch.check.checkgpu --devices cuda:0,cuda:0
+
+``--devices`` (a comma-separated list; ``--n`` defaults to its length)
+runs the battery over a list mesh, member r on its r-th entry, as the
+reference's ``_run_battery(n, devices=)``: ``GpuCommCluster(mesh=
+make_mesh(n, devices=...))``, the functional collectives on member lists
+and the ring kernels launched a member at a time; the CPU section then
+runs over a CPU list too. Two parts have no list form yet and run packed
+on member 0's device, which the artifact says (``packed_parts``): the map
+family (``cluster/allreduce_map``) and ``ops.sparse``
+(``functional/sparse_*``).
 
 Divergences from the reference: the n members of a section are rows of
 one tensor on one device (``device.make_mesh(n)``), so ``--n`` (default 8)
@@ -49,7 +60,7 @@ import torch
 from ytk_mp4j_tpu_torch import meta
 from ytk_mp4j_tpu_torch.check._oracle import expected_reduce, rank_data
 from ytk_mp4j_tpu_torch.comm.gpu_comm import GpuCommCluster
-from ytk_mp4j_tpu_torch.device import make_device
+from ytk_mp4j_tpu_torch.device import make_device, make_mesh
 from ytk_mp4j_tpu_torch.exceptions import Mp4jError
 from ytk_mp4j_tpu_torch.operands import Operands
 from ytk_mp4j_tpu_torch.operators import Operator, Operators
@@ -89,9 +100,32 @@ def _host(x) -> np.ndarray:
     return x.detach().to("cpu").numpy()
 
 
-def check_cluster(t: Tally, n: int, length: int = 192, device=None):
+# the parts of the battery that run packed on member 0's device over a
+# list mesh (no list form yet; ROADMAP)
+PACKED_PARTS = ("cluster/allreduce_map", "functional/sparse_*")
+
+
+def _list(x, devices):
+    """``[n, ...]`` host or device rows as a member list on ``devices``."""
+    return [torch.as_tensor(x[r]).to(d) for r, d in enumerate(devices)]
+
+
+def _rows(res):
+    """A packed result or a member list, as host rows."""
+    if isinstance(res, list):
+        return np.stack([_host(t) for t in res])
+    return _host(res)
+
+
+def check_cluster(t: Tally, n: int, length: int = 192, device=None,
+                  devices=None):
     """Driver mode: all 7 dense collectives x operators + map family."""
-    cluster = GpuCommCluster(n, device=device)
+    if devices is None:
+        cluster = GpuCommCluster(n, device=device)
+        map_cluster = cluster
+    else:
+        cluster = GpuCommCluster(mesh=make_mesh(n, devices=devices))
+        map_cluster = GpuCommCluster(n, device=cluster.device)
     for operand in OPERANDS:
         exact = operand.dtype.kind != "f"
         alls = [rank_data(r, length, operand, SEED_BASE) for r in range(n)]
@@ -143,7 +177,7 @@ def check_cluster(t: Tally, n: int, length: int = 192, device=None):
         for m in maps:
             for k, v in m.items():
                 want[k] = op.np_fn(want[k], v) if k in want else v
-        cluster.allreduce_map(maps, Operands.FLOAT, op)
+        map_cluster.allreduce_map(maps, Operands.FLOAT, op)
         for m in maps:
             t.expect(f"cluster/allreduce_map/{op_name}",
                      np.array([m.get(k, np.nan) for k in sorted(want)]),
@@ -151,14 +185,18 @@ def check_cluster(t: Tally, n: int, length: int = 192, device=None):
     cluster.barrier()
 
 
-def check_functional(t: Tally, n: int, length: int = 64, device=None):
-    """The functional path: collectives on ``[n, L]`` member tensors."""
-    dev = make_device(device)
+def check_functional(t: Tally, n: int, length: int = 64, device=None,
+                     devices=None):
+    """The functional path: collectives on ``[n, L]`` member tensors (or
+    member lists, given ``devices``)."""
+    dev = make_device(device if devices is None else devices[0])
     length = ((length + n - 1) // n) * n  # reduce_scatter/ring need n | L
     alls = [np.random.default_rng(SEED_BASE + r)
             .standard_normal(length).astype(np.float32) for r in range(n)]
     stacked = np.stack(alls)  # [n, L]
     x = torch.from_numpy(stacked).to(dev)
+    if devices is not None:
+        x = _list(stacked, make_mesh(n, devices=devices).devices)
     custom = Operator.custom(
         "ABSMAX", lambda a, b: np.maximum(np.abs(a), np.abs(b)), 0.0,
         torch_fn=lambda a, b: torch.maximum(torch.abs(a), torch.abs(b)))
@@ -192,10 +230,10 @@ def check_functional(t: Tally, n: int, length: int = 64, device=None):
             lambda: expected_reduce(alls, "SUM")[None].repeat(n, 0)),
     }
     for name, (body, want) in cases.items():
-        got = _host(body()).reshape(n, -1)
+        got = _rows(body()).reshape(n, -1)
         t.expect(f"functional/{name}", got, want().reshape(n, -1), False)
     # allgather replicates: every member holds every member's row
-    t.expect("functional/allgather", _host(coll.allgather(x, tiled=True)),
+    t.expect("functional/allgather", _rows(coll.allgather(x, tiled=True)),
              stacked.reshape(1, -1).repeat(n, 0), False)
     # sparse allreduce on device
     idx = torch.from_numpy(np.stack(
@@ -235,14 +273,15 @@ def check_functional(t: Tally, n: int, length: int = 64, device=None):
                              for i, v in zip(row_i, row_v))), False)
 
 
-def check_ring_kernels_hw(t: Tally, n: int, device=None):
+def check_ring_kernels_hw(t: Tally, n: int, device=None, devices=None):
     """Launch both ring kernels -- all three collectives, one direction
     and two -- on the card, with ``force_kernel=True`` (at n = 1 that
     launches zero ring steps: the launch, the slots and the exit barrier;
-    at n > 1 the full ring, on the cluster path for n <= 8)."""
+    at n > 1 the full ring, on the cluster path for n <= 8; given
+    ``devices``, one launch a member)."""
     from ytk_mp4j_tpu_torch.ops import ring_kernel as rk
 
-    dev = make_device(device)
+    dev = make_device(device if devices is None else devices[0])
     L = 2 * HW_CHUNK * n
     alls = [np.random.default_rng(SEED_BASE + 77 + r)
             .standard_normal(L).astype(np.float32) for r in range(n)]
@@ -251,29 +290,38 @@ def check_ring_kernels_hw(t: Tally, n: int, device=None):
     shards = stacked[:, : L // n]        # per-member allgather input
     x = torch.from_numpy(stacked).to(dev)
     xs = torch.from_numpy(np.ascontiguousarray(shards)).to(dev)
+    if devices is not None:
+        members = make_mesh(n, devices=devices).devices
+        x, xs = _list(stacked, members), _list(shards, members)
 
     for bidir in (False, True):
         tag = "bidir" if bidir else "uni"
-        got = _host(rk.ring_allreduce_kernel(
+        got = _rows(rk.ring_allreduce_kernel(
             x, Operators.SUM, bidirectional=bidir, force_kernel=True))
         t.expect(f"ring_kernel_hw/allreduce/{tag}", got,
                  want_sum[None].repeat(n, 0), False)
-        got = _host(rk.ring_reduce_scatter_kernel(
+        got = _rows(rk.ring_reduce_scatter_kernel(
             x, Operators.SUM, bidirectional=bidir, force_kernel=True))
         t.expect(f"ring_kernel_hw/reduce_scatter/{tag}",
                  got.reshape(-1), want_sum, False)
-        got = _host(rk.ring_allgather_kernel(
+        got = _rows(rk.ring_allgather_kernel(
             xs, bidirectional=bidir, force_kernel=True))
         t.expect(f"ring_kernel_hw/allgather/{tag}", got,
                  shards.reshape(-1)[None].repeat(n, 0), False)
 
 
-def _section(checks, n: int, device) -> dict:
+def _section(checks, n: int, device, devices=None) -> dict:
     t = Tally()
     section: dict = {"n_members": n}
+    if devices is not None:
+        section["devices"] = [str(d) for d in devices[:n]]
+        section["packed_parts"] = list(PACKED_PARTS)
     try:
         for check in checks:
-            check(t, n, device=device)
+            if devices is None:
+                check(t, n, device=device)
+            else:
+                check(t, n, devices=devices)
         section["error"] = None
     except Exception:
         traceback.print_exc()
@@ -285,27 +333,39 @@ def _section(checks, n: int, device) -> dict:
     return section
 
 
-def _run_battery(n: int, device=None) -> dict:
-    return _section((check_cluster, check_functional), n, device)
+def _run_battery(n: int, device=None, devices=None) -> dict:
+    """The battery at n members: packed on ``device``, or one member a
+    ``devices`` entry (a list mesh), as the reference's
+    ``_run_battery(n, devices=)``."""
+    return _section((check_cluster, check_functional), n, device, devices)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None, help="write JSON artifact here")
-    ap.add_argument("--n", type=int, default=DEFAULT_N,
-                    help="members on the device (default 8)")
+    ap.add_argument("--n", type=int, default=None,
+                    help="members (default 8, or the --devices count)")
     ap.add_argument("--cpu-mesh-n", type=int, default=8,
                     help="members of the CPU execution section "
                          "(0 disables)")
     ap.add_argument("--device", default="cuda",
                     help="cuda, cuda:k or cpu (default cuda)")
+    ap.add_argument("--devices", default=None,
+                    help="comma-separated member devices: a list mesh, "
+                         "member r on entry r (repeats allowed); --n "
+                         "defaults to their count")
     args = ap.parse_args(argv)
+    devices = (None if args.devices is None
+               else [d.strip() for d in args.devices.split(",")])
+    n = args.n or (DEFAULT_N if devices is None else len(devices))
     try:
-        dev = make_device(args.device)
+        if devices is None:
+            dev = make_device(args.device)
+        else:
+            dev = make_mesh(n, devices=devices).device
     except Mp4jError as e:
         print(f"checkgpu: {e}", file=sys.stderr)
         return 2
-    n = args.n
     result = {
         "platform": dev.type,
         "device_kind": (torch.cuda.get_device_name(dev)
@@ -313,18 +373,20 @@ def main(argv=None) -> int:
         "n_members": n,
         "native_reduce": sorted(coll.NATIVE),
     }
+    if devices is not None:
+        result["devices"] = devices[:n]
     if n == 1:
         result["identity_caveat"] = (
             "every collective over one member is an identity; this "
             "section proves the device runs each call, NOT cross-member "
             "semantics -- see the cpu_mesh section, or pass --n > 1")
-    result.update(_run_battery(n, device=dev))
+    result.update(_run_battery(n, device=dev, devices=devices))
 
     if dev.type == "cuda":
         # the ring kernels launched on the card, at n members and at one
         hw = {}
         for m in sorted({n, 1}, reverse=True):
-            sec = _section((check_ring_kernels_hw,), m, dev)
+            sec = _section((check_ring_kernels_hw,), m, dev, devices)
             if m == 1:
                 sec["caveat"] = (
                     "n=1 runs ZERO ring steps: the launch, the slots and "
@@ -340,7 +402,9 @@ def main(argv=None) -> int:
         result["cpu_mesh"] = {"skipped": True,
                               "reason": "main section ran on cpu"}
     elif args.cpu_mesh_n:
-        section = _run_battery(args.cpu_mesh_n, device="cpu")
+        section = _run_battery(
+            args.cpu_mesh_n, device="cpu",
+            devices=None if devices is None else ["cpu"] * args.cpu_mesh_n)
         section["platform"] = "cpu"
         result["cpu_mesh"] = section
 

@@ -1,13 +1,21 @@
 """The device collective driver: the port of ``TpuCommCluster``
 (``ytk_mp4j_tpu/comm/tpu_comm.py:95-526``, ``:854``), dense family.
 
-A single-controller driver over n members on one device
+A single-controller driver over n members
 (:func:`~ytk_mp4j_tpu_torch.device.make_mesh`): collective methods take
 a list of n per-rank numpy arrays, stage them onto the device as the rows
 of one tensor, run the collective and write the results back IN PLACE
 into the per-rank arrays, the reference's buffer semantics. Sub-ranges
 ``[from, to)`` and uneven per-rank ``ranges`` are packed on the host into
 equal blocks padded with the operator's identity.
+
+``GpuCommCluster(mesh=make_mesh(n, devices=[...]))`` takes a list mesh,
+as the reference's ``TpuCommCluster(mesh=)`` takes a mesh over devices:
+rank r's block is staged on member r's device, the dense and nonblocking
+families run the list form of their collective (bitwise the packed
+form's), and each rank's result is read from its member's device. The
+map family over a list mesh is a later slice of the port: it raises
+:class:`Mp4jError`.
 
 ``algo`` selects the schedule: ``"xla"`` (the default; ``"auto"`` resolves
 to it) reduces in rank order through ``ops.collectives`` -- its NCCL form
@@ -98,12 +106,23 @@ class PendingMap:
 
 class GpuCommCluster:
     """Collectives over ``n`` members on one device (``cuda:0`` unless
-    ``device`` names another, or the CPU)."""
+    ``device`` names another, or the CPU; one member without ``n``), or
+    over the members of ``mesh`` (``device.make_mesh`` /
+    ``make_hier_mesh``, packed or a list mesh)."""
 
     _ALGOS = ("auto", "xla", "ring", "rdma")
 
-    def __init__(self, n: int, device=None):
-        self.mesh = make_mesh(n, device)
+    def __init__(self, n: int | None = None, device=None, mesh=None):
+        if mesh is None:
+            mesh = make_mesh(1 if n is None else n, device)
+        elif device is not None or (n is not None and n != mesh.n):
+            raise Mp4jError(f"give a mesh, or n and device, not both (n={n}"
+                            f", device={device}, a mesh of {mesh.n})")
+        elif mesh.group is not None:
+            raise Mp4jError("GpuCommCluster drives the members of one "
+                            "process; a mesh over processes takes "
+                            "comm.distributed.DistributedComm")
+        self.mesh = mesh
         self.n = self.mesh.n
         self.device = self.mesh.device
         # persistent key<->code vocabularies of the map collectives
@@ -156,9 +175,28 @@ class GpuCommCluster:
             raise Mp4jError(f"range [{lo}, {hi}) out of bounds")
         return out, lo, hi
 
-    def _stack(self, blocks) -> torch.Tensor:
-        """Per-rank equal blocks as the rows of one device tensor."""
+    def _stack(self, blocks):
+        """Per-rank equal blocks as the rows of one device tensor; on a
+        list mesh, as a list: rank r's block on member r's device."""
+        if self.mesh.is_list:
+            return [to_tensor(b, d) for b, d in zip(blocks,
+                                                    self.mesh.devices)]
         return to_tensor(np.stack(blocks, axis=0), self.device)
+
+    @staticmethod
+    def _rows(res):
+        """Each rank's result on the host: the rows of a packed result, or
+        each member's tensor of a list, read from its device."""
+        if isinstance(res, list):
+            return [to_numpy(t) for t in res]
+        return to_numpy(res)
+
+    def _check_packed(self, what: str) -> None:
+        if self.mesh.is_list:
+            raise Mp4jError(
+                f"{what} over a list mesh (members on a device list) is a "
+                "later slice of the port; use a packed mesh "
+                "(make_mesh(n, device)) for the map family")
 
     @staticmethod
     def _write_back(arrs, rows, lo, hi, ranks):
@@ -171,7 +209,11 @@ class GpuCommCluster:
 
     @staticmethod
     def _pad_row(v, length: int, operator: Operator):
-        """Members ``v`` [n, L] padded with the identity to ``length``."""
+        """Members ``v`` [n, L] (or a list of n [L]) padded with the
+        identity to ``length``."""
+        if isinstance(v, list):
+            return [GpuCommCluster._pad_row(t[None], length, operator)[0]
+                    for t in v]
         if length == v.shape[1]:
             return v
         fill = torch.full((v.shape[0], length - v.shape[1]),
@@ -194,7 +236,7 @@ class GpuCommCluster:
             return arrs
         flat = [a[lo:hi] if a.ndim == 1 else a.reshape(-1) for a in arrs]
         x = self._stack(flat)
-        L = x.shape[1]
+        L = flat[0].shape[0]
         if algo == "xla":
             res = coll.allreduce(x, operator)
         elif algo == "rdma":
@@ -202,8 +244,10 @@ class GpuCommCluster:
         else:
             padL = meta.padded_block(L, self.n) * self.n
             res = ring_ops.ring_allreduce(self._pad_row(x, padL, operator),
-                                          operator)[:, :L]
-        self._write_back(arrs, to_numpy(res), lo, hi, range(self.n))
+                                          operator)
+            res = ([t[:L] for t in res] if isinstance(res, list)
+                   else res[:, :L])
+        self._write_back(arrs, self._rows(res), lo, hi, range(self.n))
         return arrs
 
     def reduce_array(self, arrs, operand: Operand = Operands.FLOAT,
@@ -230,7 +274,7 @@ class GpuCommCluster:
             return arrs
         flat = [a[lo:hi] if a.ndim == 1 else a.reshape(-1) for a in arrs]
         res = coll.broadcast(self._stack(flat), root)
-        self._write_back(arrs, to_numpy(res), lo, hi, range(self.n))
+        self._write_back(arrs, self._rows(res), lo, hi, range(self.n))
         return arrs
 
     # -- segment family: ``ranges`` gives each rank's owned segment of a
@@ -343,8 +387,11 @@ class GpuCommCluster:
         else:
             # the ring leaves member r with chunk (r + 1) % n; one more
             # hop right restores block r at rank r
-            y = torch.roll(ring_ops.ring_reduce_scatter(x, operator), 1, 0)
-        full = to_numpy(y).reshape(-1)[: hi - lo]
+            y = ring_ops.ring_reduce_scatter(x, operator)
+            y = ([y[r - 1] for r in range(self.n)] if isinstance(y, list)
+                 else torch.roll(y, 1, 0))
+        full = np.concatenate(
+            [np.reshape(r, -1) for r in self._rows(y)])[: hi - lo]
         for r, (s, e) in enumerate(ranges):
             arrs[r][s:e] = full[s - lo: e - lo]
         return arrs
@@ -355,6 +402,7 @@ class GpuCommCluster:
     # rank's dict is mutated in place, as the reference's maps
     # ------------------------------------------------------------------
     def _norm_maps(self, maps, operand: Operand):
+        self._check_packed("the map family")
         if len(maps) != self.n:
             raise Mp4jError(f"expected {self.n} per-rank maps, got "
                             f"{len(maps)}")
@@ -624,7 +672,8 @@ class GpuCommCluster:
 
     def barrier(self):
         """Wait until every member's queued work is done."""
-        coll.barrier(self.device)
+        coll.barrier(list(self.mesh.devices) if self.mesh.is_list
+                     else self.device)
 
 
 # per-collective tracing (utils.trace; no cost beyond a flag test when

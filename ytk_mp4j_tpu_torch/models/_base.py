@@ -10,7 +10,10 @@ model persistence in the reference's format.
 
 Member m's shard is rows ``[m * per, (m + 1) * per)`` of the input (the
 reference's ``_put_sharded:327``). On a one-process mesh that is one
-contiguous tensor on the mesh's device; on a mesh over processes every
+contiguous tensor on the mesh's device; on a list mesh
+(``make_mesh(n, devices=...)``) member m's rows are a tensor of their own
+on ``devices[m]`` (:meth:`DataParallelTrainer._to_members`; only the GBDT
+trainer takes a list mesh so far); on a mesh over processes every
 rank passes the same global arrays and stages only its own members' rows
 (:meth:`DataParallelTrainer._row_span`), and
 :meth:`DataParallelTrainer._gather_rows` gathers every member's rows onto
@@ -293,13 +296,22 @@ class DataParallelTrainer:
     1) go on ``device`` (default ``cuda:0``). The reference's default is
     every device, which on the port's one card is one member. A mesh over
     processes (``comm.distributed.global_mesh``) makes every method a
-    collective: every rank calls it together, with the same arguments."""
+    collective: every rank calls it together, with the same arguments.
+    A list mesh (member m on ``devices[m]``) is taken by the trainers
+    whose ``takes_list_mesh`` is True; ``device`` is then member 0's."""
+
+    takes_list_mesh = False
 
     def __init__(self, mesh=None, n_devices=None, device=None):
         if mesh is None:
             mesh = make_mesh(1 if n_devices is None else n_devices, device)
         elif n_devices is not None or device is not None:
             raise Mp4jError("give a mesh, or n_devices and device, not both")
+        if mesh.is_list and not self.takes_list_mesh:
+            raise Mp4jError(
+                f"{type(self).__name__} over a list mesh (members on a "
+                "device list) is a later slice of the port; use a packed "
+                "mesh (make_mesh(n, device))")
         self.mesh = mesh
         self.device = mesh.device
 
@@ -351,10 +363,22 @@ class DataParallelTrainer:
             sw[real:] = 0.0
         return arrays, per, sw
 
+    def _to_members(self, arrays, per: int):
+        """On a list mesh: ``[n * per, ...]`` tensors as lists of member
+        tensors, member m's rows ``[m * per, (m + 1) * per)`` on
+        ``devices[m]`` (views where that is the tensor's own device)."""
+        return tuple([a[m * per:(m + 1) * per].to(d, non_blocking=True)
+                      for m, d in enumerate(self.mesh.devices)]
+                     for a in arrays)
+
     def _gather_rows(self, t):
         """Every member's rows of a per-process tensor ``[n_local * per,
         ...]``, in rank order, on every rank: ``[n * per, ...]`` (the
-        tensor itself on a one-process mesh)."""
+        tensor itself on a one-process mesh; a list mesh's member tensors
+        concatenated on ``device``)."""
+        if isinstance(t, list):
+            return torch.cat([m.to(self.device, non_blocking=True)
+                              for m in t])
         if self.mesh.group is None:
             return t
         from ytk_mp4j_tpu_torch.comm.distributed import all_gather_rows

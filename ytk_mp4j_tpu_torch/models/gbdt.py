@@ -32,6 +32,20 @@ allreduce; it is the price of the rank order (an NCCL or gloo
 all-reduce sums in its own order, and folding each process's members
 first would group the sums differently).
 
+Over a list mesh (``device.make_mesh(n, devices=...)``, the reference's
+one member a device) member m's rows are a tensor of their own on
+``devices[m]`` (:func:`train_tree_members`, :func:`_build_tree_members`).
+Each level makes one histogram call a member, on its device, with the
+mesh's fixed-point scale (a MAX of the members' :func:`hist_kernel.
+absmax_bits`, so each partial is bitwise the packed call's slice of
+it); the members' histograms and leaf sums are folded in rank order by
+the list form of ``ops.collectives`` (on member 0's device, the result
+copied back to every member); every member chooses the splits on the
+folded sums and routes its own rows, as after the reference's ``psum``.
+Trees and margins are bitwise the packed ``make_mesh(n)``'s. Nothing in
+the level loop waits on the host: each member's work is queued on its
+device's stream, and only the folds' copies join them.
+
 Functions take tensors on an explicit device; :class:`GBDTTrainer` runs
 on ``cuda:0`` unless given a mesh or ``device="cpu"``. Trees are tuples
 of tensors ``(feat, bin, dir, leaf)`` in level-order heap layout, as in
@@ -426,6 +440,86 @@ def _build_tree(bins, g, h, cfg: GBDTConfig, feat_mask=None,
     return delta, (tree_feat, tree_bin, tree_dir, leaf_val)
 
 
+def _build_tree_members(bins, g, h, cfg: GBDTConfig, feat_mask=None):
+    """:func:`_build_tree` over a member list: ``bins``, ``g``, ``h`` are
+    lists, member m's rows on its own device. Returns (delta, a list of
+    each member's [per] deltas, and the tree, member 0's, on its
+    device). ``feat_mask``: a list, one per member, or None."""
+    n = len(bins)
+    F, B = cfg.n_features, cfg.n_bins
+    members = range(n)
+    # the mesh's fixed-point scale: each member's partial is then the
+    # packed call's slice of it (the plain version on the CPU has no scale)
+    absmax = [None] * n
+    if cfg.hist_mode == "pallas" and bins[0].device.type == "cuda":
+        absmax = coll.allreduce([hist_kernel.absmax_bits(g[m], h[m])
+                                 for m in members], Operators.MAX)
+
+    def reduced_histograms(ids, k):
+        parts = [build_histograms(bins[m], g[m], h[m], ids[m], k, cfg,
+                                  absmax[m]) for m in members]
+        # the list form of _fold: the same adds in rank order, each
+        # member's copy of the sums on its own device
+        return (coll.allreduce([p[0] for p in parts]),
+                coll.allreduce([p[1] for p in parts]))
+
+    node_ids = [torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
+                for b in bins]
+    n_internal = 2 ** cfg.depth - 1
+    dev0 = bins[0].device
+    tree_feat = torch.zeros(n_internal, dtype=torch.int32, device=dev0)
+    tree_bin = torch.zeros(n_internal, dtype=torch.int32, device=dev0)
+    tree_dir = torch.zeros(n_internal, dtype=torch.int32, device=dev0)
+    cat_mask = cfg._cat_mask()
+    fmask = feat_mask if feat_mask is not None else [None] * n
+
+    level_start = 0
+    prev_hg = prev_hh = None
+    for d in range(cfg.depth):
+        n_nodes = 2 ** d
+        if d == 0:
+            hg, hh = reduced_histograms(node_ids, 1)
+        else:
+            # sibling subtraction as in _build_tree; each member's right
+            # children go to the sentinel id n_half, outside its call
+            n_half = n_nodes // 2
+            hl_g, hl_h = reduced_histograms(
+                [torch.where(ids % 2 == 0, ids // 2, n_half)
+                 for ids in node_ids], n_half)
+            hg = [torch.stack([hl_g[m], prev_hg[m] - hl_g[m]],
+                              dim=1).reshape(n_nodes, F, B) for m in members]
+            hh = [torch.stack([hl_h[m],
+                               torch.clamp(prev_hh[m] - hl_h[m], min=0.0)],
+                              dim=1).reshape(n_nodes, F, B) for m in members]
+        prev_hg, prev_hh = hg, hh
+        for m in members:
+            feat, bin_, gain, dir_ = best_splits(
+                hg[m], hh[m], cfg.reg_lambda, fmask[m],
+                cfg.min_child_hessian, cat_mask, cfg.missing_bin)
+            freeze = ~(gain > cfg.min_split_gain)
+            bin_ = torch.where(freeze, cfg.n_bins - 1, bin_)
+            dir_ = torch.where(freeze, 0, dir_)
+            if m == 0:
+                tree_feat[level_start:level_start + n_nodes] = feat
+                tree_bin[level_start:level_start + n_nodes] = bin_
+                tree_dir[level_start:level_start + n_nodes] = dir_
+            node_ids[m] = _route_samples(bins[m], node_ids[m], feat, bin_,
+                                         dir_, cat_mask, cfg.missing_bin,
+                                         cfg.n_bins)
+        level_start += n_nodes
+
+    n_leaves = 2 ** cfg.depth
+    sums = [_segment_sum2(g[m], h[m], node_ids[m], n_leaves)
+            for m in members]
+    leaf_g = coll.allreduce([s[0] for s in sums])
+    leaf_h = coll.allreduce([s[1] for s in sums])
+    leaf_val = [-leaf_g[m].float() / (leaf_h[m].float() + cfg.reg_lambda)
+                for m in members]
+    delta = [cfg.learning_rate * leaf_val[m][node_ids[m].long()]
+             for m in members]
+    return delta, (tree_feat, tree_bin, tree_dir, leaf_val[0])
+
+
 # odd 64-bit stride between the members' seeds (the golden-ratio constant)
 _MEMBER_SEED_STRIDE = 0x9E3779B97F4A7C15
 
@@ -435,13 +529,27 @@ def member_generators(seed: int, n_members: int, device, first: int = 0):
     with ``(seed + m * stride) mod 2**64`` -- the counterpart of the
     reference folding the shard index into its key -- for the global
     members ``[first, first + n_members)``. Member 0 draws the stream a
-    one-member trainer draws from ``seed``."""
+    one-member trainer draws from ``seed``. ``device`` may be a list of
+    the members' devices (a list mesh): member m's generator is then on
+    ``device[m]``, with the same seed."""
     gens = []
     for m in range(first, first + n_members):
-        gen = torch.Generator(device=device)
+        gen = torch.Generator(device=(device[m - first]
+                                      if isinstance(device, (list, tuple))
+                                      else device))
         gen.manual_seed((seed + m * _MEMBER_SEED_STRIDE) % 2 ** 64)
         gens.append(gen)
     return gens
+
+
+def _feature_mask(gen, cfg: GBDTConfig, device):
+    """[F] bool: the features a tree may split on, drawn from ``gen``
+    (member 0's stream); at least one survives."""
+    F = cfg.n_features
+    keep = torch.rand(F, generator=gen, device=device) < cfg.colsample
+    rescue = torch.randint(0, F, (), generator=gen, device=device)
+    fallback = (torch.arange(F, device=device) == rescue) & ~keep.any()
+    return keep | fallback
 
 
 def _sampling_masks(generators, cfg: GBDTConfig, N: int, device,
@@ -468,12 +576,7 @@ def _sampling_masks(generators, cfg: GBDTConfig, N: int, device,
     gen0 = generators[0] if lead is None else lead
     per = N // len(generators)
     if cfg.colsample < 1.0:
-        F = cfg.n_features
-        keep = (torch.rand(F, generator=gen0, device=device)
-                < cfg.colsample)
-        rescue = torch.randint(0, F, (), generator=gen0, device=device)
-        fallback = (torch.arange(F, device=device) == rescue) & ~keep.any()
-        feat_mask = keep | fallback
+        feat_mask = _feature_mask(gen0, cfg, device)
     if cfg.subsample < 1.0:
         if lead is not None:
             torch.rand(per, generator=lead, device=device)
@@ -481,6 +584,66 @@ def _sampling_masks(generators, cfg: GBDTConfig, N: int, device,
                           for gen in generators]) < cfg.subsample
         sample_scale = keep.to(torch.float32) / cfg.subsample
     return sample_scale, feat_mask
+
+
+def _sampling_masks_members(generators, cfg: GBDTConfig, per: int):
+    """:func:`_sampling_masks` over a member list: generator m on member
+    m's device. The feature mask is drawn from member 0's generator, as
+    in the packed form, and copied to every member; each member draws
+    its rows' keeps from its own. Returns (sample scales, feature masks),
+    lists of one per member, or Nones."""
+    if generators is None:
+        return None, None
+    devs = [gen.device for gen in generators]
+    feat_mask = None
+    if cfg.colsample < 1.0:
+        mask = _feature_mask(generators[0], cfg, devs[0])
+        feat_mask = [mask.to(d, non_blocking=True) for d in devs]
+    scale = None
+    if cfg.subsample < 1.0:
+        scale = [(torch.rand(per, generator=gen, device=gen.device)
+                  < cfg.subsample).to(torch.float32) / cfg.subsample
+                 for gen in generators]
+    return scale, feat_mask
+
+
+def train_tree_members(bins, y, preds, cfg: GBDTConfig, weights,
+                       generators=None):
+    """:func:`train_tree_shard` over a member list (a list mesh): every
+    argument but ``cfg`` is a list, member m's on its own device
+    (``generators`` one per member, or None). Returns (the members' new
+    preds, the tree on member 0's device); trees and preds are bitwise
+    those of :func:`train_tree_shard` on the stacked members."""
+    n = len(bins)
+    per = bins[0].shape[0]
+    sample_scale, feat_mask = _sampling_masks_members(generators, cfg, per)
+    if sample_scale is not None:
+        weights = [weights[m] * sample_scale[m] for m in range(n)]
+    if cfg.loss == "softmax":
+        p = [torch.softmax(pr, dim=1) for pr in preds]
+        trees, deltas = [], []
+        for c in range(cfg.n_classes):
+            g, h = [], []
+            for m in range(n):
+                onehot_y = (y[m].to(torch.int32) == c).to(torch.float32)
+                g.append((p[m][:, c] - onehot_y) * weights[m])
+                h.append(p[m][:, c] * (1.0 - p[m][:, c]) * weights[m])
+            delta, tree = _build_tree_members(bins, g, h, cfg, feat_mask)
+            deltas.append(delta)
+            trees.append(tree)
+        return ([preds[m] + torch.stack([dl[m] for dl in deltas], dim=1)
+                 for m in range(n)], tuple(trees))
+    g, h = [], []
+    for m in range(n):
+        if cfg.loss == "logistic":
+            pm = torch.sigmoid(preds[m])
+            gm, hm = pm - y[m], pm * (1.0 - pm)
+        else:
+            gm, hm = preds[m] - y[m], torch.ones_like(preds[m])
+        g.append(gm * weights[m])
+        h.append(hm * weights[m])
+    delta, tree = _build_tree_members(bins, g, h, cfg, feat_mask)
+    return [preds[m] + delta[m] for m in range(n)], tree
 
 
 def train_tree_shard(bins, y, preds, cfg: GBDTConfig, weights=None,
@@ -566,10 +729,14 @@ def predict_tree(bins, tree, cfg: GBDTConfig):
 # ----------------------------------------------------------------------
 class GBDTTrainer(DataParallelTrainer):
     """Data-parallel GBDT over a mesh of members (flat or hierarchical,
-    ``device.make_mesh`` / ``make_hier_mesh``, or over processes,
-    ``comm.distributed.global_mesh`` / ``hier_global_mesh``). Without a
-    mesh it runs ``n_devices`` members (default 1) on ``device`` (default
-    ``cuda:0``; no CUDA and no ``device`` raises Mp4jError)."""
+    ``device.make_mesh`` / ``make_hier_mesh``, packed or a list mesh, or
+    over processes, ``comm.distributed.global_mesh`` /
+    ``hier_global_mesh``). Without a mesh it runs ``n_devices`` members
+    (default 1) on ``device`` (default ``cuda:0``; no CUDA and no
+    ``device`` raises Mp4jError). Over a list mesh the trees, margins and
+    predictions live on member 0's device (``mesh.device``)."""
+
+    takes_list_mesh = True
 
     def __init__(self, cfg: GBDTConfig, mesh=None, n_devices=None,
                  device=None):
@@ -588,7 +755,9 @@ class GBDTTrainer(DataParallelTrainer):
         its own rows are staged). Padding rows get weight 0, so they
         contribute nothing to histograms or leaves; ``sample_weight``
         ([N], numpy) scales the real rows. A tensor already on the device
-        is padded there, never copied to the host."""
+        is padded there, never copied to the host. On a list mesh each of
+        the four is a list: member m's ``[per, ...]`` rows on
+        ``devices[m]``."""
         cfg = self.cfg
         dev = self.device
         if not isinstance(bins, torch.Tensor):
@@ -614,6 +783,9 @@ class GBDTTrainer(DataParallelTrainer):
         shape = ((dw.shape[0], cfg.n_classes) if cfg.loss == "softmax"
                  else (dw.shape[0],))
         dpreds = torch.zeros(shape, dtype=torch.float32, device=dev)
+        if self.mesh.is_list:
+            return self._to_members((dbins, dy, dpreds, dw),
+                                    dw.shape[0] // self.n_shards)
         return dbins, dy, dpreds, dw
 
     def train(self, bins, y, n_trees: int | None = None, seed: int = 0,
@@ -667,16 +839,22 @@ class GBDTTrainer(DataParallelTrainer):
         mesh = self.mesh
         generators = lead = None
         if cfg.subsample < 1.0 or cfg.colsample < 1.0:
-            generators = member_generators(seed, mesh.n_local, dev,
-                                           mesh.first)
+            generators = member_generators(
+                seed, mesh.n_local,
+                list(mesh.devices) if mesh.is_list else dev, mesh.first)
             if mesh.first and cfg.colsample < 1.0:
                 lead = member_generators(seed, 1, dev)[0]
         exchanger = StepStatsExchanger(comm)
         trees = []
         for i in range(n_trees if n_trees is not None else cfg.n_trees):
-            dpreds, tree = train_tree_shard(
-                dbins, dy, dpreds, cfg, weights=dw, generators=generators,
-                n_members=mesh.n_local, group=mesh.group, lead=lead)
+            if mesh.is_list:
+                dpreds, tree = train_tree_members(dbins, dy, dpreds, cfg, dw,
+                                                  generators)
+            else:
+                dpreds, tree = train_tree_shard(
+                    dbins, dy, dpreds, cfg, weights=dw,
+                    generators=generators, n_members=mesh.n_local,
+                    group=mesh.group, lead=lead)
             trees.append(tree)
             metric = None
             if va is not None:

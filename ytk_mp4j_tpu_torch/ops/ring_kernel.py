@@ -16,7 +16,22 @@ one launch runs all of them, on one of two paths that
   launch.
 
 Both follow the reference's slot and credit protocol (``_direction:128``).
-Entry points, each on a ``[n, ...]`` tensor of members:
+
+Members may also come as a list of n tensors, member r's on its own
+device (``device.make_mesh(n, devices=...)``, the reference's one member
+a device). Then each member is a launch of its own (``member`` path,
+``ops/csrc/ring_kernel.cu`` with the member as a parameter): on its card,
+on a stream of its own, reaching its neighbours' receive slots and flags
+through device-side pointer tables (peer memory between cards, enabled
+once a pair; a pair the hardware cannot join raises), flags that carry a
+per-call epoch in place of the packed launch's zeroing (the counterpart
+of the reference's ``_neighbor_barrier:116``), and the blocks of every
+member that shares a card counted against that card's capacity. The
+result is a list the same way, and it is bitwise the packed launch's on
+the stacked members. A ``ring_cluster.cu`` cluster cannot span launches
+or cards, so the list form always takes this path.
+
+Entry points, each on a ``[n, ...]`` tensor of members (or a list):
 
 - :func:`ring_allreduce_kernel` -- reduce-scatter + allgather in one
   launch (2(n-1) steps); any length (padded with the operator's identity
@@ -41,7 +56,8 @@ skew-adversarial scheduler). On a CPU tensor the entries compute the
 plain version; on a CUDA tensor they launch a kernel or raise, and
 nothing retries on another kernel. Launches are counted on
 ``ring_kernel.launches`` (one direction) and ``ring_kernel_bidir.launches``
-(two), and per path on their ``cluster_launches`` / ``global_launches``.
+(two), and per path on their ``cluster_launches`` / ``global_launches`` /
+``member_launches`` (one a member of a list).
 
 Chunk granule (:func:`granule`), the one place it is defined: 1 element
 on the CPU, as the reference's interpret mode, so the CPU version chunks
@@ -64,7 +80,9 @@ Divergences from the reference, intended:
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -331,8 +349,14 @@ def launch_plan(n: int, w: int, dtype: torch.dtype, ndir: int, device, *,
 def _library() -> ctypes.CDLL:
     lib = _build.load("ring_kernel")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.mp4j_ring_capacity.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.mp4j_ring_capacity.argtypes = [i, i, i, i, ctypes.POINTER(i)]
     lib.mp4j_ring_capacity.restype = i
+    lib.mp4j_ring_member_launch.argtypes = [
+        i, i, i, i, i, i, ll, ll, ll, ll, ll, ll, ll, p, p, p, p, p,
+        ctypes.c_ulonglong, i, ll, i, p]
+    lib.mp4j_ring_member_launch.restype = i
+    lib.mp4j_ring_enable_peer.argtypes = [i]
+    lib.mp4j_ring_enable_peer.restype = i
     lib.mp4j_ring_seg.argtypes = []
     lib.mp4j_ring_seg.restype = i
     lib.mp4j_ring_launch.argtypes = [i, i, i, i, i, i, ll, ll, ll, ll, ll, ll,
@@ -379,6 +403,7 @@ def _query(kind: str, dtype_code: int, op_code: int, ndir: int, n: int,
         else:
             lib = _library()
             rc = lib.mp4j_ring_capacity(dtype_code, op_code, ndir,
+                                        int(kind == "member_capacity"),
                                         ctypes.byref(value))
     if rc:
         raise Mp4jError(f"ring kernel occupancy query ({kind}) failed: "
@@ -387,11 +412,13 @@ def _query(kind: str, dtype_code: int, op_code: int, ndir: int, n: int,
 
 
 def capacity(dtype: torch.dtype, operator: Operator, ndir: int,
-             device) -> int:
-    """Blocks of the global-memory kernel that fit on the card at once
-    (queried once per dtype, operator, directions and card)."""
-    return _query("capacity", _DTYPE_CODES[dtype], operator.kernel_code,
-                  ndir, 0, _device_index(device))
+             device, member: bool = False) -> int:
+    """Blocks of the global-memory kernel (``member``: of its launch a
+    member at a time) that fit on the card at once (queried once per
+    dtype, operator, directions, form and card)."""
+    return _query("member_capacity" if member else "capacity",
+                  _DTYPE_CODES[dtype], operator.kernel_code, ndir, 0,
+                  _device_index(device))
 
 
 def max_clusters(dtype: torch.dtype, operator: Operator, ndir: int, n: int,
@@ -480,19 +507,215 @@ def _raise_if_stuck(err, spin_s):
 
 
 def _counted(counter, xp, plan, lay, operator, spin_s, stall_member, path):
-    out, err, lp = _launch(xp, plan, lay, operator, spin_s, stall_member,
-                           path)
-    counter.launches += 1
+    if isinstance(xp, list):
+        outs, errs, lp = _launch_members(xp, plan, lay, operator, spin_s,
+                                         stall_member, path)
+        launched = len(xp)
+    else:
+        out, err, lp = _launch(xp, plan, lay, operator, spin_s,
+                               stall_member, path)
+        outs, errs, launched = out, [err], 1
+    counter.launches += launched
     setattr(counter, f"{lp.path}_launches",
-            getattr(counter, f"{lp.path}_launches") + 1)
+            getattr(counter, f"{lp.path}_launches") + launched)
     counter.last_plan = lp
-    _raise_if_stuck(err, spin_s)
-    return out
+    for err in errs:
+        _raise_if_stuck(err, spin_s)
+    return outs
+
+
+# ----------------------------------------------------------------------
+# the launch a member at a time (the list form)
+# ----------------------------------------------------------------------
+# Members that share a card each need a stream of their own, and those
+# streams must not share one of the card's hardware work queues (a launch
+# queued behind a spinning neighbour would never start): CUDA gives a
+# context 8 such queues unless told otherwise, so a card takes at most 8
+# members of one ring.
+MAX_MEMBERS_PER_CARD = 8
+_EPOCH = 1 << 32            # flag values of one call: epoch + step + 1
+_member_lock = threading.Lock()
+# per-card streams (member k of a card takes stream k) and, per ring shape,
+# each member's slots, flags, pointer tables and the call epoch; created
+# once and reused, under _member_lock
+# mp4j-lint: disable=R7 (process-wide launch state, guarded by _member_lock)
+_streams: dict = {}
+# mp4j-lint: disable=R7 (process-wide launch state, guarded by _member_lock)
+_rings: dict = {}
+# mp4j-lint: disable=R7 (process-wide launch state, guarded by _member_lock)
+_peers: set = set()
+
+
+@dataclass
+class _MemberRing:
+    """What the launches of one ring shape keep across calls: member m's
+    receive slots, its flags (never zeroed: see :data:`_EPOCH`) and a
+    ``[2, n]`` table of every member's slot and flag addresses on its
+    card; ``epoch`` counts the calls."""
+
+    slots: list
+    flags: list
+    tables: list
+    epoch: int = 0
+
+
+def _member_stream(index: int, k: int):
+    key = (index, k)
+    stream = _streams.get(key)
+    if stream is None:
+        for j in range(k + 1):          # created in order, one a queue
+            if (index, j) not in _streams:
+                _streams[(index, j)] = torch.cuda.Stream(index)
+        stream = _streams[key]
+    return stream
+
+
+def _enable_peers(indexes) -> None:
+    """Peer access for every ordered pair of distinct cards, once."""
+    lib = _library()
+    for a in indexes:
+        for b in indexes:
+            if a == b or (a, b) in _peers:
+                continue
+            if not torch.cuda.can_device_access_peer(a, b):
+                raise Mp4jError(
+                    f"ring kernel: cuda:{a} cannot reach cuda:{b}'s memory "
+                    "(no peer access between the cards); the list form's "
+                    "ring never stages through the host")
+            with torch.cuda.device(a):
+                rc = lib.mp4j_ring_enable_peer(b)
+            if rc:
+                raise Mp4jError(
+                    f"ring kernel: peer access cuda:{a} -> cuda:{b} "
+                    f"failed: {lib.mp4j_error_string(rc).decode()}")
+            _peers.add((a, b))
+
+
+def _member_ring(indexes, lp: LaunchPlan) -> _MemberRing:
+    key = (tuple(indexes), lp.ndir, lp.cols, lp.itemsize)
+    ring = _rings.get(key)
+    if ring is None:
+        slot_bytes = lp.ndir * lp.cols * 2 * GLOBAL_SEG * lp.itemsize
+        n_flags = 2 * lp.ndir * lp.cols * 2
+        slots = [torch.empty(slot_bytes, dtype=torch.uint8,
+                             device=f"cuda:{i}") for i in indexes]
+        flags = [torch.zeros(n_flags, dtype=torch.int64, device=f"cuda:{i}")
+                 for i in indexes]
+        addrs = [[t.data_ptr() for t in slots], [t.data_ptr() for t in flags]]
+        tables = [torch.tensor(addrs, dtype=torch.int64, device=f"cuda:{i}")
+                  for i in indexes]
+        for i in set(indexes):
+            torch.cuda.synchronize(i)   # zeroed flags and tables in place
+        ring = _rings[key] = _MemberRing(slots, flags, tables)
+    return ring
+
+
+def _plan_members(xs, plan: RingPlan, lay: _Layout, operator: Operator,
+                  path) -> LaunchPlan:
+    """The plan of the launch a member at a time: columns as the global
+    path cuts them, as many a member as every card holds for all of its
+    members at once."""
+    if path not in (None, "member"):
+        raise Mp4jError(f"a member list takes the member path, not "
+                        f"{path!r}")
+    x0 = xs[0]
+    per_card: dict = {}
+    for t in xs:
+        per_card[t.device.index] = per_card.get(t.device.index, 0) + 1
+    caps = {i: capacity(x0.dtype, operator, plan.ndir, f"cuda:{i}",
+                        member=True) for i in per_card}
+    for i, k in per_card.items():
+        if k > MAX_MEMBERS_PER_CARD:
+            raise Mp4jError(
+                f"ring kernel: {k} members on cuda:{i}; a card takes at "
+                f"most {MAX_MEMBERS_PER_CARD} members of a ring (one "
+                "stream a member, each on a hardware queue of its own)")
+    cols_fit = min(caps[i] // k for i, k in per_card.items())
+    lp = launch_plan(plan.n, lay.w, x0.dtype, plan.ndir, x0.device,
+                     capacity=plan.n * cols_fit)
+    for i, k in per_card.items():
+        if k * lp.cols > caps[i]:
+            raise Mp4jError(
+                f"ring kernel: {k} members on cuda:{i} x {lp.cols} blocks "
+                f"each need {k * lp.cols} co-resident blocks, the card "
+                f"holds {caps[i]}; every member spins on its neighbours, "
+                "so launches that do not fit together would hang")
+    return dataclasses.replace(lp, path="member")
+
+
+def _launch_members(xs, plan: RingPlan, lay: _Layout, operator: Operator,
+                    spin_s, stall_member, path):
+    """One launch a member, member r on its tensor's card and on a stream
+    of its own. Each stream waits for the work queued on its card's
+    current stream (which made the input); each card's current stream
+    then waits on every launch, so what follows on any card sees every
+    member's output. Returns (outputs, error words, plan)."""
+    lp = _plan_members(xs, plan, lay, operator, path)
+    n, ndir = plan.n, plan.ndir
+    indexes = [t.device.index for t in xs]
+    lib = _library()
+    base = tuple(lay.base) + (0,) * (2 - len(lay.base))
+    vbase = tuple(lay.vbase) + (0,) * (2 - len(lay.vbase))
+    codes = (_DTYPE_CODES[xs[0].dtype], operator.kernel_code, ndir,
+             _MODE_CODES[plan.mode], n, lp.cols)
+    shape = (lay.w, lay.stride, base[0], base[1], vbase[0], vbase[1],
+             lp.col_w)
+    with _member_lock:
+        _enable_peers(sorted(set(indexes)))
+        ring = _member_ring(indexes, lp)
+        ring.epoch += 1
+        epoch = ring.epoch * _EPOCH
+        outs, errs, xs_ok = [], [], []
+        for t in xs:
+            with torch.cuda.device(t.device):
+                if t.data_ptr() % _VECTOR_BYTES:
+                    t = t.clone(memory_format=torch.contiguous_format)
+                xs_ok.append(t)
+                # on the card's current stream: the launch waits for them
+                outs.append(torch.empty(lay.out_row, dtype=t.dtype,
+                                        device=t.device))
+                errs.append(torch.zeros(4, dtype=torch.int64,
+                                        device=t.device))
+        ready = {}
+        for i in sorted(set(indexes)):
+            ready[i] = torch.cuda.Event()
+            ready[i].record(torch.cuda.current_stream(i))
+        done, seen = [], {}
+        for m, t in enumerate(xs_ok):
+            i = indexes[m]
+            k = seen[i] = seen.get(i, -1) + 1
+            stream = _member_stream(i, k)
+            stream.wait_event(ready[i])
+            table = ring.tables[m]
+            with torch.cuda.device(i):
+                rc = lib.mp4j_ring_member_launch(
+                    *codes, *shape, t.data_ptr(), outs[m].data_ptr(),
+                    table.data_ptr(), table.data_ptr() + 8 * n,
+                    errs[m].data_ptr(), epoch, m, int(spin_s * 1e9),
+                    stall_member, stream.cuda_stream)
+            if rc:
+                # the members already launched spin to their bound
+                # before this call can raise
+                for j in sorted(set(indexes)):
+                    for e in done:
+                        torch.cuda.current_stream(j).wait_event(e)
+                raise Mp4jError(
+                    f"ring kernel launch (member path, member {m}) failed: "
+                    f"{lib.mp4j_error_string(rc).decode()}")
+            event = torch.cuda.Event()
+            event.record(stream)
+            done.append(event)
+        for i in sorted(set(indexes)):
+            current = torch.cuda.current_stream(i)
+            for event in done:
+                current.wait_event(event)
+    return outs, errs, lp
 
 
 def ring_kernel(xp, plan, lay, operator, spin_s=SPIN_SECONDS,
                 stall_member=-1, path=None):
-    """One launch of the unidirectional kernel (row 2 of the TPU table).
+    """One launch of the unidirectional kernel (row 2 of the TPU table),
+    or, for a list of member tensors, one launch a member (each counted).
     ``spin_s`` bounds every wait; ``stall_member`` (a test hook) names a
     member that does no work; ``path`` forces "cluster" or "global"
     (tests and measurements). Counts ``launches`` and the path's
@@ -512,6 +735,7 @@ def ring_kernel_bidir(xp, plan, lay, operator, spin_s=SPIN_SECONDS,
 
 for _fn in (ring_kernel, ring_kernel_bidir):
     _fn.launches = _fn.cluster_launches = _fn.global_launches = 0
+    _fn.member_launches = 0
     _fn.last_plan = None
 
 
@@ -519,7 +743,10 @@ for _fn in (ring_kernel, ring_kernel_bidir):
 # entry points
 # ----------------------------------------------------------------------
 def _check(x, operator: Operator, what: str):
-    if not isinstance(x, torch.Tensor) or x.ndim != 2 or x.shape[0] < 1:
+    if isinstance(x, (list, tuple)):
+        _check_list(x, what)
+        x = x[0]
+    elif not isinstance(x, torch.Tensor) or x.ndim != 2 or x.shape[0] < 1:
         raise Mp4jError(f"{what} needs a [n, L] tensor of n >= 1 members, "
                         f"got {getattr(x, 'shape', type(x).__name__)}")
     if x.dtype not in _DTYPE_CODES:
@@ -534,6 +761,33 @@ def _check(x, operator: Operator, what: str):
         raise Mp4jError(f"{what} runs on cpu or cuda tensors, not {x.device}")
 
 
+def _check_list(xs, what: str):
+    if not xs or any(not isinstance(t, torch.Tensor) or t.ndim != 1
+                     for t in xs):
+        raise Mp4jError(f"{what} needs a list of n >= 1 [L] member "
+                        f"tensors, got "
+                        f"{[getattr(t, 'shape', type(t).__name__) for t in xs]}")
+    t0 = xs[0]
+    for t in xs:
+        if (t.shape != t0.shape or t.dtype != t0.dtype
+                or t.device.type != t0.device.type):
+            raise Mp4jError(
+                f"{what}: list members must share a length, a dtype and a "
+                f"device type, got "
+                f"{[(tuple(t.shape), t.dtype, str(t.device)) for t in xs]}")
+
+
+class _List:
+    """A member list seen as the packed form's ``[n, L]``: its shape,
+    dtype and (member 0's) device."""
+
+    def __init__(self, xs):
+        self.xs = list(xs)
+        self.shape = (len(xs), xs[0].shape[0])
+        self.dtype = xs[0].dtype
+        self.device = xs[0].device
+
+
 def _chunk_granule(c: int, x, bidirectional: bool, what: str) -> None:
     g = granule(x.dtype, x.device) * (2 if bidirectional else 1)
     if c % g:
@@ -546,65 +800,93 @@ def _chunk_granule(c: int, x, bidirectional: bool, what: str) -> None:
 
 
 def _run(xp, plan, lay, operator, plain, kw):
-    if plain or xp.device.type == "cpu":
+    if isinstance(xp, _List):
+        if plain or xp.device.type == "cpu":
+            # the plain version of a list: the packed plain version on the
+            # stacked members, each row back on its member's device
+            out = _plain(torch.stack([t.to(xp.device) for t in xp.xs]),
+                         plan, lay, operator)
+            return [out[r].to(t.device) for r, t in enumerate(xp.xs)]
+        xp = [t.contiguous() for t in xp.xs]
+    elif plain or xp.device.type == "cpu":
         return _plain(xp, plan, lay, operator)
     return (ring_kernel if plan.ndir == 1 else ring_kernel_bidir)(
         xp, plan, lay, operator, **kw)
 
 
+def _members(x):
+    """(members as the packed tensor or a :class:`_List`, their
+    ``[n, L]`` shape)."""
+    if isinstance(x, (list, tuple)):
+        x = _List(x)
+        return x, x.shape
+    return x.contiguous(), tuple(x.shape)
+
+
+def _identity(x):
+    """The n = 1 result: the input (a fresh list of a list)."""
+    return list(x) if isinstance(x, (list, tuple)) else x
+
+
 def _allreduce(x, operator, bidirectional, force_kernel, plain, kw):
     what = "ring allreduce kernel"
     _check(x, operator, what)
-    n, L = x.shape
+    xp, (n, L) = _members(x)
     if n == 1 and not force_kernel:
-        return x
+        return _identity(x)
     ndir = 2 if bidirectional else 1
     parts = ndir * n
-    c = round_up_chunk(-(-L // parts), x.dtype, x.device)
+    c = round_up_chunk(-(-L // parts), xp.dtype, xp.device)
     pad = parts * c - L
-    xp = x.contiguous()
     if pad:
-        fill = torch.full((n, pad), operator.identity(x.dtype),
-                          dtype=x.dtype, device=x.device)
-        xp = torch.cat([xp, fill], dim=1)
+        def padded(t):
+            fill = torch.full(t.shape[:-1] + (pad,),
+                              operator.identity(t.dtype), dtype=t.dtype,
+                              device=t.device)
+            return torch.cat([t, fill], dim=-1)
+
+        xp = (_List([padded(t) for t in xp.xs]) if isinstance(xp, _List)
+              else padded(xp))
     lay = _Layout(w=c, stride=c, base=(0, n * c)[:ndir], vbase=(0, 0)[:ndir],
                   in_row=parts * c, out_row=parts * c)
     out = _run(xp, RingPlan(n, "allreduce", ndir), lay, operator, plain, kw)
-    return out[:, :L] if pad else out
+    if not pad:
+        return out
+    return [t[:L] for t in out] if isinstance(out, list) else out[:, :L]
 
 
 def _reduce_scatter(x, operator, bidirectional, force_kernel, plain, kw):
     what = "ring reduce-scatter kernel"
     _check(x, operator, what)
-    n, L = x.shape
+    xp, (n, L) = _members(x)
     if L % n:
         raise Mp4jError(f"{what} needs a length divisible by {n}, got "
-                        f"shape {tuple(x.shape)}")
+                        f"shape {(n, L)}")
     if n == 1 and not force_kernel:
-        return x
+        return _identity(x)
     c = L // n
-    _chunk_granule(c, x, bidirectional, what)
+    _chunk_granule(c, xp, bidirectional, what)
     ndir = 2 if bidirectional else 1
     w = c // ndir
     lay = _Layout(w=w, stride=c, base=(0, w)[:ndir], vbase=(0, w)[:ndir],
                   in_row=L, out_row=c)
-    return _run(x.contiguous(), RingPlan(n, "reduce_scatter", ndir), lay,
-                operator, plain, kw)
+    return _run(xp, RingPlan(n, "reduce_scatter", ndir), lay, operator,
+                plain, kw)
 
 
 def _allgather(x, bidirectional, force_kernel, plain, kw):
     what = "ring allgather kernel"
     _check(x, Operators.SUM, what)
-    n, c = x.shape
+    xp, (n, c) = _members(x)
     if n == 1 and not force_kernel:
-        return x
-    _chunk_granule(c, x, bidirectional, what)
+        return _identity(x)
+    _chunk_granule(c, xp, bidirectional, what)
     ndir = 2 if bidirectional else 1
     w = c // ndir
     lay = _Layout(w=w, stride=c, base=(0, w)[:ndir], vbase=(0, w)[:ndir],
                   in_row=c, out_row=n * c)
-    return _run(x.contiguous(), RingPlan(n, "allgather", ndir), lay,
-                Operators.SUM, plain, kw)
+    return _run(xp, RingPlan(n, "allgather", ndir), lay, Operators.SUM,
+                plain, kw)
 
 
 def ring_allreduce_kernel(x, operator: Operator = Operators.SUM,
@@ -613,7 +895,10 @@ def ring_allreduce_kernel(x, operator: Operator = Operators.SUM,
     """Allreduce of members ``x`` [n, L] (any L): every row becomes the
     element-wise reduction. ``launch``: ``spin_s`` and the test hooks
     ``stall_member`` and ``path`` (see :func:`ring_kernel`). A CUDA input
-    whose data does not start on 16 bytes is copied first."""
+    whose data does not start on 16 bytes is copied first. Each entry
+    point also takes a list of n ``[L]`` member tensors, member r's on
+    its own device, and returns a list the same way (one launch a
+    member on CUDA; see the module docstring)."""
     return _allreduce(x, operator, bidirectional, force_kernel, False, launch)
 
 
