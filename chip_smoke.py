@@ -55,6 +55,12 @@ time (``ring_kernel.cu``, each member on a stream of its own, its
 neighbours' slots and flags reached through device pointer tables). One
 card runs the whole path with the list ``["cuda:0"] * n``.
 
+Slice 13, the rest of the list form: ``FMTrainer`` (dense, sparse,
+sharded) and ``LinearTrainer`` over ``make_mesh(4, devices=[...])``, the
+map family of ``GpuCommCluster(mesh=<list mesh>)``, and
+``entry.dryrun(n, devices=[...])``, the counterpart of the reference's
+``dryrun_multichip``, whose members are chips.
+
 Phases:
 
 1. build the kernels from the sources in this checkout (one ``nvcc``
@@ -229,10 +235,30 @@ Phases:
     card moves no NVLink byte); ``stall_member`` on a list raising at its
     spin bound; ``checkgpu --devices cuda:0 x 8`` (618 checks on the
     card's list and on a CPU list, the ring kernels launched a member at
-    a time). With two cards or more the same runs over ``min(4, count)``
-    distinct cards, with the NVLink bound (bytes each way at 450 GB/s)
-    and ``torch.cuda.nccl.all_reduce`` as the library; with one card it
-    prints ``distinct cards: not run (1 card visible)``, a stated limit;
+    a time). Then the list trainers (slice 13): ``entry.dryrun(4,
+    devices=["cuda:0"] * 4)`` with every launch count set to 0 just
+    before and read just after (28 histogram launches: one a member a
+    level of its three trees; 4 member launches of ``ring_kernel`` from
+    its ``algo="rdma"`` allreduce); FFM at Criteo width (phase 7's
+    config, data and initial table) over the 4-entry list on the dense,
+    sparse and sharded paths: ``fit`` of 3 steps held against phase 7's
+    packed losses at rtol 1e-5, the 4 replicas bitwise equal, the sharded
+    table's ``full_table`` against the packed one at rtol 1e-5 and its
+    ``predict`` against a local scorer on the whole table, ms a step (a
+    warm-up and 5 timed steps, CUDA events) in 2 pairs in turns with the
+    packed ``make_mesh(4)``, and one more list step under
+    ``torch.profiler`` (device ms by part -- grads, folds, gathers,
+    all-to-alls, sort, segment, masked add -- and by kernel, idle share);
+    phase 7's linear run over the list (losses at rtol 1e-5, replicas
+    bitwise, ms a step in turns with packed); configs[2] through the list
+    cluster's ``allreduce_map`` and a chain of ``allreduce_map_async``
+    (each equal to the host merge and to the packed cluster; merged
+    keys/s in turns). With two cards or more the same runs over
+    ``min(4, count)`` distinct cards, with the NVLink bound (bytes each
+    way at 450 GB/s) and ``torch.cuda.nccl.all_reduce`` as the library,
+    and the list trainers over the 4 members on those cards; with one
+    card it prints ``distinct cards: not run (1 card visible)``, a stated
+    limit;
 15. one JSON line of kernels, then the card's ``nvidia-smi`` line, then
     the ``{"ok": true, ...}`` line last.
 
@@ -265,6 +291,7 @@ from ytk_mp4j_tpu_torch import (FMConfig, FMTrainer, GBDTConfig,
 from ytk_mp4j_tpu_torch.device import make_hier_mesh, make_mesh
 from ytk_mp4j_tpu_torch.models import fm as fm_mod
 from ytk_mp4j_tpu_torch.models import gbdt
+from ytk_mp4j_tpu_torch.models import linear as linear_mod
 from ytk_mp4j_tpu_torch.models.binning import QuantileBinner
 from ytk_mp4j_tpu_torch.operands import to_tensor
 from ytk_mp4j_tpu_torch.ops import _build
@@ -291,6 +318,7 @@ RING_MEMBERS = (1, 2, 3, 5, 8, 9)  # 9: above the cluster limit
 RING_REPEATS = 200
 TIMING_REPS = 5
 PROFILE_ATTEMPTS = 3               # CUPTI now and then hands back nothing
+PROFILE_WARM_LAUNCHES = 256        # CUPTI loses the first launches' kernels
 CONFIG0_LEN = 1 << 20              # BASELINE.json configs[0]: 1M f32, 4 ranks
 CONFIG1_LEN = 256 << 20            # configs[1]: 256M f64, 8 ranks
 HIST_PAYLOAD = 2 * 16 * F * B      # g and h planes of 16 nodes
@@ -444,6 +472,11 @@ def kernel_name(key):
 # sums themselves
 TREE_PARTS = {"fold": "_fold", "leaf sums": "_segment_sum2"}
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# the runtime and driver calls that launch a kernel, by name prefix
+# (cudaLaunchKernel, cudaLaunchKernelExC, cuLaunchKernel, cuLaunchKernelEx,
+# the cooperative forms): one device event each, matched by correlation
+LAUNCH_APIS = ("cudaLaunchKernel", "cuLaunchKernel",
+               "cudaLaunchCooperativeKernel", "cuLaunchCooperativeKernel")
 
 
 def labelled(label, fn):
@@ -478,7 +511,10 @@ def profile_run(run, parts, name, exclude=()):
     labelled range; the trace goes to chiprun_out/``name``. Returns
     (device ms by kernel name, device ms launched inside each part --
     kernels named in ``exclude`` left out --, busy ms, window ms: first
-    device event's start to the last one's end)."""
+    device event's start to the last one's end). CUPTI loses the kernels
+    of some launches (the first 2 to 31 of a step in this script's
+    traces; once 252 further on): small kernels go first, and only what
+    starts after ``run()`` begins counts."""
     real = {label: getattr(mod, attr) for label, (mod, attr) in
             parts.items()}
     for label, (mod, attr) in parts.items():
@@ -486,23 +522,52 @@ def profile_run(run, parts, name, exclude=()):
     torch.cuda.synchronize()
     path = os.path.join(OUT_DIR, name)
     try:
-        for _ in range(PROFILE_ATTEMPTS):    # again if CUPTI saw nothing
+        # again if CUPTI saw nothing, or dropped the kernels of some
+        # launches (their time would be missing from every figure); each
+        # attempt warms up with a quarter of the last one's launches, and
+        # the attempt that lost the fewest is kept
+        best = None
+        for attempt in range(PROFILE_ATTEMPTS):
             with torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA]) as prof:
-                run()
+                warm = torch.zeros(1, device="cuda")
+                for _ in range(PROFILE_WARM_LAUNCHES >> (2 * attempt)):
+                    warm.add_(1)
                 torch.cuda.synchronize()
-            prof.export_chrome_trace(path)
-            with open(path) as f:
+                with torch.profiler.record_function("profiled_run"):
+                    run()
+                    torch.cuda.synchronize()
+            prof.export_chrome_trace(path + ".try")
+            with open(path + ".try") as f:
                 trace = json.load(f)["traceEvents"]
+            begin = min((e["ts"] for e in trace if e.get("ph") == "X"
+                         and e.get("name") == "profiled_run"), default=0)
             events = [e for e in trace
-                      if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
-            if events:
+                      if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS
+                      and e["ts"] >= begin]
+            seen = {e.get("args", {}).get("correlation") for e in events}
+            dropped = sum(1 for e in trace if e.get("ph") == "X"
+                          and e.get("name", "").startswith(LAUNCH_APIS)
+                          and e["ts"] >= begin
+                          and e.get("args", {}).get("correlation")
+                          not in seen)
+            if events and (best is None or dropped < best[2]):
+                best = (trace, events, dropped)
+                os.replace(path + ".try", path)
+            if events and not dropped:
                 break
     finally:
         for label, (mod, attr) in parts.items():
             setattr(mod, attr, real[label])
-    check(events, f"the profiler saw no device event in {name}")
+        if os.path.exists(path + ".try"):
+            os.remove(path + ".try")
+    check(best is not None, f"the profiler saw no device event in {name}")
+    trace, events, dropped = best
+    if dropped:
+        print(f"{name}: the profiler dropped the kernels of {dropped} "
+              f"launches in the best of {PROFILE_ATTEMPTS} attempts; the "
+              "figures below leave them out", flush=True)
     launched_in = part_of_launch(trace)
     part_ms = dict.fromkeys(parts, 0.0)
     by_name = {}
@@ -3202,10 +3267,12 @@ def trees_bitwise(a, b, what):
                   f"{what}: tree component {k} differs")
 
 
-def run_device_list(ring_record=None):
+def run_device_list(ring_record, slice6):
     """Phase 14: the list form on one card (see the module docstring).
     ``ring_record``: phase 6's, whose rows give the packed, plain and
-    library ms of the same calls (measured here without it)."""
+    library ms of the same calls (measured here without it); ``slice6``:
+    phase 7's record, whose packed FFM and linear losses the list
+    trainers are held against."""
     from ytk_mp4j_tpu_torch.check import checkgpu
     from ytk_mp4j_tpu_torch.exceptions import Mp4jError
 
@@ -3216,7 +3283,7 @@ def run_device_list(ring_record=None):
         done[name] = time.perf_counter()
 
     def phase6(name, k):
-        return None if ring_record is None else ring_record["calls"][name][k]
+        return ring_record["calls"][name][k]
 
     dev = torch.device("cuda", 0)
     dbins, dy = device_data(dev)
@@ -3399,13 +3466,17 @@ def run_device_list(ring_record=None):
     print(f"checkgpu --devices cuda:0 x {LIST_RING_MEMBERS}: {g['passed']} "
           f"passed on the card's list, {g['cpu_mesh']['passed']} on a CPU "
           f"list, ring hardware {hw['n8']['passed']} (n=8, a launch a "
-          f"member) + {hw['n1']['passed']} (n=1); packed on member 0: "
-          f"{g['packed_parts']}", flush=True)
+          f"member) + {hw['n1']['passed']} (n=1); every part over the "
+          "list", flush=True)
+    check("packed_parts" not in g, "checkgpu ran a part packed")
     part("checkgpu")
 
+    trainers = run_list_trainers(devs4, slice6)
+    part("trainers")
+
     cards = torch.cuda.device_count()
-    distinct = (run_distinct_cards(min(MEMBERS, cards)) if cards >= 2
-                else None)
+    distinct = (run_distinct_cards(min(MEMBERS, cards), slice6)
+                if cards >= 2 else None)
     if distinct is None:
         print("distinct cards: not run (1 card visible)", flush=True)
 
@@ -3436,15 +3507,17 @@ def run_device_list(ring_record=None):
                      "tree_profile": profile, "calls": rows,
                      "checkgpu_passed": g["passed"],
                      "checkgpu_cpu_passed": g["cpu_mesh"]["passed"],
-                     "distinct_cards": distinct, "s": s}
+                     "trainers": trainers, "distinct_cards": distinct,
+                     "s": s}
 
 
-def run_distinct_cards(k):
+def run_distinct_cards(k, slice6):
     """Phase 14 over ``k`` distinct cards (peer memory, NVLink): configs[0]
     and the histogram payload through the member launches held against
     the plain version and the packed launch on cuda:0, with the NVLink
     bound and ``torch.cuda.nccl.all_reduce``; GBDT over the k cards,
-    bitwise the packed mesh on cuda:0."""
+    bitwise the packed mesh on cuda:0; the list trainers over the 4
+    members on the k cards, held against ``slice6`` (phase 7's record)."""
     t0 = time.perf_counter()
     dev = torch.device("cuda", 0)
     devs = list_devices(k, k)
@@ -3478,10 +3551,280 @@ def run_distinct_cards(k):
     trees_bitwise(trees, pt, f"GBDT over {k} cards vs packed")
     check(torch.equal(margins, pm), f"GBDT over {k} cards: margins differ")
     out["gbdt_trees_per_s"] = 1 / tree_s
+    del dbins, dy, listed, trees, margins, pt, pm
+    torch.cuda.empty_cache()
+    out["trainers"] = run_list_trainers(list_devices(MEMBERS, k), slice6)
     out["s"] = time.perf_counter() - t0
     print(f"distinct cards ({k}): GBDT {1 / tree_s:.3f} trees/s, bitwise "
           f"the packed mesh; {out['s']:.1f} s", flush=True)
     return out
+
+
+# ----------------------------------------------------------------------
+# slice 13: the trainers, the map family and the dry run over a list
+# ----------------------------------------------------------------------
+# GBDT depths of entry.dryrun's three trainers (the tree, the missing /
+# categorical tree, train_raw's tree): one histogram launch a member a
+# level
+DRYRUN_DEPTHS = (3, 2, 2)
+LIST_TURNS = 2                     # pairs of packed / list step timings
+LIST_FM_PARTS = {"grads": (fm_mod, "_grad_sums"),
+                 "fold": (coll, "allreduce"),
+                 "gather": (coll, "allgather"),
+                 "all_to_all": (coll, "all_to_all"),
+                 "sort": (sparse_ops, "sort_by_key"),
+                 "segment": (sparse_ops, "segment_reduce_sorted"),
+                 "masked add": (fm_mod, "_add_rows")}
+SCORED_ROWS = 1024                 # the sharded list's predict, checked
+
+
+def run_list_dryrun(devs):
+    """``entry.dryrun(n, devices=devs)`` with every launch count set to 0
+    just before and read just after: one histogram launch a member a
+    level of its three trees, and the ring kernel a member at a time
+    (the ``algo="rdma"`` allreduce)."""
+    n = len(devs)
+    zero_counts()
+    t0 = time.perf_counter()
+    entry.dryrun(n, devices=devs)
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    counts = read_counts()
+    want = {"hist_kernel": n * sum(DRYRUN_DEPTHS), "ring_kernel": n,
+            "ring_kernel.member": n, "ring_kernel_bidir": 0}
+    for k, v in want.items():
+        check(counts[k] == v, f"dryrun over {devs}: {k} launched "
+              f"{counts[k]} times, want {v}")
+    print(f"entry.dryrun({n}, devices={devs}): passed in {s:.2f} s; "
+          f"launches {counts}", flush=True)
+    return {"s": s, "counts": counts}
+
+
+def list_step_turns(trainers, data, p0, name, profile):
+    """ms a step of the packed and the list trainer (``{form: trainer}``)
+    timed in LIST_TURNS pairs, the order alternating (packed, list, list,
+    packed, ...), each a warm-up step and FM_TIMED_STEPS timed ones
+    (``steps_ms``); then, with ``profile``, the list's step once more
+    under ``torch.profiler``: device ms by part and by kernel, idle
+    share."""
+    runs = {}
+    for form, tr in trainers.items():
+        batch = tr.shard_data(*data)
+        per = int(batch[0][0].shape[0])
+        runs[form] = (tr._step(per * tr.cfg.max_nnz), batch)
+    times = {form: [] for form in trainers}
+    for p in range(LIST_TURNS):
+        order = list(trainers) if p % 2 == 0 else list(trainers)[::-1]
+        for form in order:
+            step, batch = runs[form]
+            q = trainers[form]._place_params(p0)
+            times[form].append(steps_ms(step, q, batch, FM_TIMED_STEPS))
+            del q
+            torch.cuda.empty_cache()
+    rec = {f"{form}_ms": float(np.median(v)) for form, v in times.items()}
+    rec["turns_ms"] = times
+    step, batch = runs["list"]
+    q = trainers["list"]._place_params(p0)
+    by_name, parts, busy, window = profile_run(lambda: step(q, batch),
+                                               LIST_FM_PARTS, profile)
+    total = sum(by_name.values())
+    rec["profile"] = {"device_ms": total, "window_ms": window,
+                      "idle_share": 1 - busy / window, "parts_ms": parts,
+                      "rest_ms": total - sum(parts.values()),
+                      "by_name_ms": by_name}
+    print(f"FFM {name} over the list: {rec['list_ms']:.3f} ms a step "
+          f"against packed {rec['packed_ms']:.3f} (medians of "
+          f"{LIST_TURNS} in turns: list {times['list']}, packed "
+          f"{times['packed']}); profiled step: device {total:.3f} ms of a "
+          f"{window:.3f} ms window (idle {1 - busy / window:.1%}); "
+          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items() if v)
+          + f", rest {rec['profile']['rest_ms']:.3f} ms; by kernel: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in
+                      list(by_name.items())[:6]), flush=True)
+    return rec
+
+
+def run_list_ffm(devs, ffm_rec):
+    """FFM at Criteo width (phase 7's config, data and initial table) over
+    ``make_mesh(4, devices=devs)`` on the dense, sparse and sharded
+    paths: ``fit`` of FM_FIT_STEPS steps against phase 7's packed losses
+    at rtol 1e-5, every member's replica the same bits, the sharded
+    table's ``full_table`` against the packed one at rtol 1e-5 and its
+    ``predict`` against a local scorer on the whole table; ms a step in
+    turns with the packed ``make_mesh(4)``; the profiled step."""
+    dev = torch.device("cuda", 0)
+    cfg = FMConfig(**CRITEO)
+    data = criteo_data(cfg, dev)
+    lmesh = make_mesh(MEMBERS, devices=devs)
+    pmesh = make_mesh(MEMBERS)
+    p0 = FMTrainer(cfg, mesh=pmesh).init_params(seed=0)
+    rec = {}
+    for name, kw in FM_PATHS.items():
+        torch.cuda.reset_peak_memory_stats()
+        tr = FMTrainer(cfg, mesh=lmesh, **kw)
+        params, losses = tr.fit(*data, n_steps=FM_FIT_STEPS, params=p0)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = np.asarray(ffm_rec[name]["losses"])
+        err = float(np.max(np.abs(losses - want) / np.abs(want)))
+        check(np.allclose(losses, want, rtol=1e-5, atol=1e-6),
+              f"{name} FFM over the list {losses} != packed {want}")
+        k = 2 if name == "sharded" else 3
+        for m, (rep, d) in enumerate(zip(tr.replicas_, lmesh.devices)):
+            check(all(a.device == d and torch.equal(a, b.to(d))
+                      for a, b in zip(rep[:k], tr.replicas_[0][:k])),
+                  f"{name} FFM over the list: member {m}'s replica differs")
+        r = {"losses": losses.tolist(), "rel_err_vs_packed": err,
+             "peak_gib": peak}
+        if name == "sharded":
+            pk = FMTrainer(cfg, mesh=pmesh, **kw)
+            pp, _ = pk.fit(*data, n_steps=FM_FIT_STEPS, params=p0)
+            lt, pt = tr.full_table(params), pk.full_table(pp)
+            r["table_max_abs_vs_packed"] = float(np.max(np.abs(lt - pt)))
+            check(np.allclose(lt, pt, rtol=1e-5, atol=1e-6),
+                  "sharded FFM over the list: table != packed")
+            del pk, pp, pt
+            sub = tuple(a[:SCORED_ROWS] for a in data[:3])
+            got = tr.predict(params, *sub)
+            whole = (params[0], params[1],
+                     torch.from_numpy(lt).to(params[0].device))
+            local = fm_mod.predict(whole, *sub,
+                                   (sub[2] != 0).to(torch.float32), cfg)
+            check(torch.allclose(got, local, rtol=1e-5, atol=1e-6),
+                  "sharded FFM over the list: predict != local scorer")
+            r["predict_max_abs"] = float((got - local).abs().max())
+            del lt, whole
+        del tr, params
+        torch.cuda.empty_cache()
+        r.update(list_step_turns(
+            {"packed": FMTrainer(cfg, mesh=pmesh, **kw),
+             "list": FMTrainer(cfg, mesh=lmesh, **kw)}, data, p0, name,
+            f"ffm_list_{name}_step_trace.json"))
+        print(f"FFM {name} over the list of {len(devs)}: losses "
+              f"{r['losses']} (largest relative difference from phase 7's "
+              f"packed {err:.2e}); replicas bitwise; peak {peak:.2f} GiB",
+              flush=True)
+        rec[name] = r
+        torch.cuda.empty_cache()
+    del data, p0
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_list_linear(devs, linear_rec):
+    """Phase 7's linear run (the headline rows as floats, LINEAR_STEPS
+    steps) over the list: losses against phase 7's at rtol 1e-5, every
+    replica the same bits; ms a step from CUDA events around ``fit``, in
+    turns with the packed mesh."""
+    x, yl = linear_data(torch.device("cuda", 0))
+    cfg = LinearConfig(**LINEAR_CFG)
+    trainers = {"packed": LinearTrainer(cfg, mesh=make_mesh(MEMBERS)),
+                "list": LinearTrainer(cfg, mesh=make_mesh(MEMBERS,
+                                                          devices=devs))}
+    for tr in trainers.values():
+        tr.fit(x, yl, n_steps=1)                              # warm-up
+    times = {form: [] for form in trainers}
+    for p in range(LIST_TURNS):
+        order = list(trainers) if p % 2 == 0 else list(trainers)[::-1]
+        for form in order:
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            _, losses = trainers[form].fit(x, yl, n_steps=LINEAR_STEPS)
+            end.record()
+            torch.cuda.synchronize()
+            times[form].append(start.elapsed_time(end) / LINEAR_STEPS)
+            if form == "list":
+                list_losses = losses
+    want = np.asarray(linear_rec["losses"])
+    check(np.allclose(list_losses, want, rtol=1e-5, atol=1e-6),
+          f"linear over the list {list_losses} != packed {want}")
+    reps = trainers["list"].replicas_
+    check(all(torch.equal(a, b) for rep in reps
+              for a, b in zip(rep, reps[0])),
+          "linear over the list: the replicas differ")
+    rec = {"losses": list_losses.tolist(), "turns_ms": times,
+           "list_ms": float(np.median(times["list"])),
+           "packed_ms": float(np.median(times["packed"]))}
+    print(f"linear over the list of {len(devs)}: {rec['list_ms']:.3f} ms a "
+          f"step against packed {rec['packed_ms']:.3f} (in turns: list "
+          f"{times['list']}, packed {times['packed']}); losses == phase "
+          "7's (rtol 1e-5); replicas bitwise", flush=True)
+    # one step of each under the profiler: device ms and idle share
+    for form, tr in trainers.items():
+        batch = tr.shard_data(x, yl)
+        params, vel = tr._start(None)
+        by_name, parts, busy, window = profile_run(
+            lambda: tr._train_step(params, vel, batch),
+            {"grads": (linear_mod, "_grad_sums"),
+             "fold": (coll, "allreduce")},
+            f"linear_{form}_step_trace.json")
+        total = sum(by_name.values())
+        rec[f"{form}_profile"] = {"device_ms": total, "window_ms": window,
+                                  "idle_share": 1 - busy / window,
+                                  "parts_ms": parts, "by_name_ms": by_name}
+        print(f"linear {form} step profile: device {total:.3f} ms of a "
+              f"{window:.3f} ms window (idle {1 - busy / window:.1%}); "
+              + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+              + "; by kernel: " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in list(by_name.items())[:5]),
+              flush=True)
+    del x, yl, trainers
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_list_maps(devs):
+    """configs[2] over ``GpuCommCluster(mesh=<list mesh>)``: 20,000 string
+    keys a member at 50 % overlap through ``allreduce_map`` and a chain of
+    ``allreduce_map_async``, each equal to the host merge and to the
+    packed cluster; merged keys/s in turns with the packed cluster."""
+    lst = GpuCommCluster(mesh=make_mesh(MEMBERS, devices=devs))
+    packed = GpuCommCluster(MEMBERS)
+    maps = overlap_maps(MAP_KEYS, lambda c: f"w{c}")
+    want = host_merge(maps)
+    a, b = [dict(m) for m in maps], [dict(m) for m in maps]
+    lst.allreduce_map(a, Operands.DOUBLE)
+    packed.allreduce_map(b, Operands.DOUBLE)
+    check(a == b, "configs[2] over the list != the packed cluster")
+    rates = {"packed": [], "list": []}
+    for p in range(LIST_TURNS):
+        order = ("packed", "list") if p % 2 == 0 else ("list", "packed")
+        for form in order:
+            cl = lst if form == "list" else packed
+            rates[form].append(map_rate(cl, maps, want, MAP_REPS)[0])
+    work = [[dict(m) for m in maps] for _ in range(MAP_CHAIN)]
+    t0 = time.perf_counter()
+    handles = [lst.allreduce_map_async(w, Operands.DOUBLE) for w in work]
+    for h in handles:
+        h.result()
+    chain_s = time.perf_counter() - t0
+    check(all(m == want for w in work for m in w),
+          "allreduce_map_async over the list != the host merge")
+    rec = {"list_keys_s": float(np.median(rates["list"])),
+           "packed_keys_s": float(np.median(rates["packed"])),
+           "turns_keys_s": rates,
+           "list_chained_keys_s": MAP_CHAIN * len(want) / chain_s}
+    print(f"configs[2] over the list of {len(devs)} (host clock): "
+          f"{rec['list_keys_s']:.0f} merged keys/s against packed "
+          f"{rec['packed_keys_s']:.0f} (in turns {rates}), chained "
+          f"{MAP_CHAIN} deep {rec['list_chained_keys_s']:.0f} keys/s; "
+          "every result == the host merge and the packed cluster",
+          flush=True)
+    return rec
+
+
+def run_list_trainers(devs, slice6):
+    """Phase 14's list trainers (slice 13): the dry run between the
+    counts, FFM on its three paths, linear, configs[2]."""
+    t0 = time.perf_counter()
+    rec = {"dryrun": run_list_dryrun(devs),
+           "ffm_criteo": run_list_ffm(devs, slice6["ffm_criteo"]),
+           "linear": run_list_linear(devs, slice6["linear"]),
+           "maps": run_list_maps(devs)}
+    rec["s"] = time.perf_counter() - t0
+    print(f"list trainers over {devs}: {rec['s']:.1f} s", flush=True)
+    return rec
 
 
 def main():
@@ -3529,9 +3872,11 @@ def main():
     torch.cuda.empty_cache()
     slice10["checks"] = run_check_suites()
     slice11 = run_examples_and_traces()
-    member_entries, slice12 = run_device_list(ring_record)
+    member_entries, slice12 = run_device_list(ring_record, slice6)
     kernels += member_entries
     hist_entry["device_list_launches"] = slice12["counts"]["hist_kernel"]
+    dry = slice12["trainers"]["dryrun"]["counts"]
+    hist_entry["dryrun_list_launches"] = dry["hist_kernel"]
     hist_entry["max_abs_err"] = max(hist_entry["max_abs_err"],
                                     slice7["nccl_world1"]["max_abs_err"],
                                     slice7["gloo"]["max_abs_err"],
@@ -3545,6 +3890,7 @@ def main():
     for e in ring_entries:
         e["check_path_launches"] = slice10["checks"]["launches"][e["name"]]
         e["device_list_launches"] = slice12["counts"][e["name"]]
+        e["dryrun_list_launches"] = dry[e["name"]]
     for e in [hist_entry] + ring_entries:
         e["example_path_launches"] = {
             name: rec["launches"][e["name"]]

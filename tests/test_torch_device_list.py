@@ -14,12 +14,17 @@ computes its plain version.
   (bitwise) and against ``TpuCommCluster(mesh=make_mesh(n))`` for the
   dense and nonblocking families under every algo, at the tolerances of
   ``tests/test_torch_collectives.py`` (f32 SUM under ``xla``: rtol 1e-5,
-  atol 1e-6; bitwise elsewhere); the map family raises.
+  atol 1e-6; bitwise elsewhere), and the map family bitwise both
+  (``tests/test_torch_list_trainers.py`` holds every method).
 - ``GBDTTrainer`` over a list mesh: trees and margins bitwise the packed
   mesh's, and against the reference's ``make_mesh(4)`` as
   ``tests/test_torch_gbdt_mesh.py`` holds the packed form (trees equal,
   leaves and margins to rtol 1e-4, atol 1e-5).
-- ``checkgpu --devices``: the reference's 618 check names at n = 8.
+- ``FMTrainer`` and ``LinearTrainer`` take a list mesh
+  (``tests/test_torch_list_trainers.py`` holds them against the
+  reference).
+- ``checkgpu --devices``: the reference's 618 check names at n = 8, the
+  packed battery's names, every part over the list.
 """
 
 import json
@@ -31,6 +36,7 @@ import torch
 
 import jax
 
+from test_torch_map_collectives import assert_same_maps
 from test_torch_gbdt import (ATOL, RTOL, _assert_clear_splits,
                              _assert_same_trees, _cfg_kwargs, _data)
 from test_torch_ring_kernel import _jax
@@ -374,18 +380,38 @@ def test_cluster_nonblocking_family_over_a_list(clusters, algo):
     lst.barrier()
 
 
-def test_cluster_map_family_raises_on_a_list(clusters):
-    lst = clusters[4][0]
-    maps = [{"a": 1.0} for _ in range(4)]
-    for call in (lambda: lst.allreduce_map(maps),
-                 lambda: lst.allreduce_map_async(maps),
-                 lambda: lst.iallreduce_map(maps),
-                 lambda: lst.reduce_scatter_map(maps),
-                 lambda: lst.broadcast_map(maps),
-                 lambda: lst.gather_map(maps)):
-        with pytest.raises(Mp4jError, match="later slice"):
-            call()
-    assert maps == [{"a": 1.0}] * 4
+@pytest.mark.parametrize("n", [3, 4, 8])
+def test_cluster_map_family_over_a_list(clusters, n):
+    """Every map method over the list cluster: bitwise the packed
+    cluster's and the reference's post-state."""
+    lst, packed, ref = clusters[n]
+    rng = np.random.default_rng(40 + n)
+    maps = [{f"k{int(k)}": float(rng.standard_normal())
+             for k in rng.integers(0, 3 * n, 6)} for _ in range(n)]
+    disjoint = [{f"r{r}:{i}": float(r + i) for i in range(3)}
+                for r in range(n)]
+    for method, src, kw in (
+            ("allreduce_map", maps, dict(operator=Operators.MAX)),
+            ("reduce_map", maps, dict(root=n - 1)),
+            ("reduce_scatter_map", maps, {}),
+            ("allgather_map", disjoint, {}),
+            ("gather_map", disjoint, dict(root=1)),
+            ("broadcast_map", maps, dict(root=2)),
+            ("scatter_map", maps, dict(root=0))):
+        got = [[dict(m) for m in src] for _ in range(3)]
+        jkw = dict(kw)
+        if "operator" in jkw:
+            jkw["operator"] = JOperators.MAX
+        getattr(lst, method)(got[0], Operands.DOUBLE, **kw)
+        getattr(packed, method)(got[1], Operands.DOUBLE, **kw)
+        getattr(ref, method)(got[2], JOperands.DOUBLE, **jkw)
+        assert_same_maps(got[0], got[1])
+        assert_same_maps(got[0], got[2])
+    got = [dict(m) for m in maps]
+    lst.iallreduce_map(got, Operands.DOUBLE).wait()
+    want = [dict(m) for m in maps]
+    packed.allreduce_map_async(want, Operands.DOUBLE).result()
+    assert_same_maps(got, want)
 
 
 def test_cluster_mesh_arguments():
@@ -486,13 +512,45 @@ def test_gbdt_list_train_raw_predict_and_eval_set():
                                   lm[:N].numpy())
 
 
-def test_fm_and_linear_refuse_a_list_mesh():
-    mesh = make_mesh(2, devices=cpus(2))
-    with pytest.raises(Mp4jError, match="later slice"):
-        FMTrainer(FMConfig(n_features=8, n_fields=2, k=2, max_nnz=2),
-                  mesh=mesh)
-    with pytest.raises(Mp4jError, match="later slice"):
-        LinearTrainer(LinearConfig(n_features=4), mesh=mesh)
+@pytest.mark.parametrize("trainer", ["fm_dense", "fm_sparse", "fm_sharded",
+                                     "linear"])
+def test_fm_and_linear_take_a_list_mesh(trainer):
+    """Member m's rows go to its device as a tensor of its own; ``fit``
+    returns member 0's parameters (the blocks for the sharded table) and
+    equals the packed mesh's to rtol 1e-5."""
+    rng = np.random.default_rng(9)
+    feats = rng.integers(0, 8, (21, 2)).astype(np.int32)
+    data = (feats, np.tile(np.arange(2, dtype=np.int32), (21, 1)),
+            np.ones((21, 2), np.float32),
+            (feats[:, 0] > 3).astype(np.float32))
+    kw = {"fm_dense": {}, "fm_sparse": dict(sparse_grads=True),
+          "fm_sharded": dict(sparse_grads=True,
+                             table_sharding="sharded")}.get(trainer)
+
+    def make(mesh):
+        if kw is None:
+            return LinearTrainer(LinearConfig(n_features=2), mesh=mesh)
+        return FMTrainer(FMConfig(n_features=8, n_fields=2, k=2, max_nnz=2,
+                                  model="ffm"), mesh=mesh, **kw)
+
+    args = ((feats / 8).astype(np.float32), data[3]) if kw is None else data
+    lst = make(make_mesh(3, devices=cpus(3)))
+    shards = lst.shard_data(*args)
+    assert all(isinstance(a, list) and len(a) == 3 for a in shards)
+    assert all(t.shape[0] == 7 and t.device == CPU for a in shards
+               for t in a)
+    lp, ll = lst.fit(*args, n_steps=3)
+    pp, pl = make(make_mesh(3, "cpu")).fit(*args, n_steps=3)
+    np.testing.assert_allclose(ll, pl, rtol=1e-5, atol=1e-6)
+    assert len(lst.replicas_) == 3
+    if trainer == "fm_sharded":
+        assert [b.shape[0] for b in lp[2]] == [6, 6, 6]
+        np.testing.assert_allclose(lst.full_table(lp), pp[2][:16].numpy(),
+                                   rtol=1e-5, atol=1e-6)
+    else:
+        for a, b in zip(lp, pp):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                       atol=1e-6)
 
 
 # ----------------------------------------------------------------------
@@ -522,3 +580,7 @@ def test_checkgpu_over_a_cpu_list_runs_the_reference_battery(tmp_path):
         checktpu.Tally.expect = orig
     assert ref["ok"] and got["passed"] == ref["passed"] == 618
     assert Counter(got["checks"]) == Counter(names)
+    assert "packed_parts" not in got
+    # every part runs over the list: the packed battery's names
+    packed = checkgpu._run_battery(8, device="cpu")
+    assert packed["ok"] and got["checks"] == packed["checks"]

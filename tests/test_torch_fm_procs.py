@@ -18,7 +18,10 @@ and returned to their owners by an all-to-all with split sizes. So:
   the sparse and sharded paths bit for bit (a slot's gradient is its
   instance's alone);
 - the runs equal the JAX package's trainer on ``make_mesh(n)`` to the same
-  tolerance.
+  tolerance;
+- on the sparse and sharded paths, P processes of one member each equal a
+  list mesh of P CPU members (``make_mesh(P, devices=["cpu"] * P)``) bit
+  for bit.
 
 The module also holds ``fit(comm=)`` (blocking == overlapped, bit for
 bit), rank 0's model file, ``params_from_numpy`` on a process mesh, and
@@ -332,3 +335,30 @@ def test_checkdist_checks_pass_and_catch_planted_faults(jobs, world, check):
         assert res[check] == 0
         assert res["planted", check] >= 1
 
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("name", ["ffm_sparse", "fm_sparse_cap",
+                                  "ffm_sharded", "stream_sharded",
+                                  "weighted_eval_sparse",
+                                  "weighted_eval_sharded"])
+def test_processes_equal_a_cpu_list_bitwise(jobs, world, name):
+    """P processes of one member each and a list mesh of P members on the
+    CPU fold the same partials (loss, weight sum, w0's and w's gradients)
+    in the same rank order and add the same slot rows into the table in
+    the same order: the same bits (the dense path's table gradient takes
+    the backend's all-reduce over processes, in its own order)."""
+    case = CASES["fit"][name]
+    tr = FMTrainer(FMConfig(**case["cfg"]),
+                   mesh=make_mesh(world, devices=["cpu"] * world),
+                   **case["path"])
+    if case.get("chunks") is not None:
+        params, losses = tr.fit_stream(iter(case["chunks"]), **case["fit"])
+    else:
+        params, losses = tr.fit(*case["data"], **case["fit"])
+    got = jobs[world][0][0][name]
+    np.testing.assert_array_equal(got["losses"], losses)
+    np.testing.assert_array_equal(got["table"], tr.full_table(params))
+    for a, b in zip(got["params"][:2], params[:2]):
+        np.testing.assert_array_equal(a, b.numpy())
+    assert got["eval_history"] == tr.eval_history_

@@ -16,9 +16,11 @@ the kernel's scale seeded from the job, the in-order row adds that keep a
 replicated table identical on every rank); and the list form (members on
 a device list, ``make_mesh(n, devices=["cuda:0"] * n)``): the ring kernel
 launched a member at a time against the packed launch and the plain
-version, its refusals and its spin bound, ``GpuCommCluster(mesh=)`` and
-GBDT over a list, bitwise the packed form. Every test skips where there
-is no CUDA device.
+version, its refusals and its spin bound, ``GpuCommCluster(mesh=)``
+(dense and map families) and GBDT over a list, bitwise the packed form,
+FFM on every gradient path and linear over a list against the packed
+form at rtol 1e-5, and ``entry.dryrun`` over a list. Every test skips
+where there is no CUDA device.
 
 This file imports neither jax nor the JAX package and uses no fixture of
 tests/conftest.py, so it also runs where JAX is not installed:
@@ -824,8 +826,8 @@ def test_member_spin_bound_raises_and_recovers(cuda):
 
 
 def test_gpu_comm_cluster_over_a_device_list(cuda):
-    """The dense family under every algo over a list mesh equals the
-    packed cluster bit for bit; the map family raises."""
+    """The dense family under every algo and the map family over a list
+    mesh equal the packed cluster bit for bit."""
     lst = GpuCommCluster(mesh=make_mesh(4, devices=_cards(4)))
     packed = GpuCommCluster(4)
     rng = np.random.default_rng(7)
@@ -840,8 +842,87 @@ def test_gpu_comm_cluster_over_a_device_list(cuda):
     a = [x.copy() for x in base]
     lst.iallreduce(a, Operands.FLOAT, Operators.MAX, algo="rdma").wait()
     assert all(np.array_equal(p, np.max(base, 0)) for p in a)
-    with pytest.raises(Mp4jError, match="later slice"):
-        lst.allreduce_map([{"k": 1.0}] * 4)
+    maps = [{f"k{(r * 500 + i) % 2000}": float(i) for i in range(1000)}
+            for r in range(4)]
+    got, want = [dict(m) for m in maps], [dict(m) for m in maps]
+    lst.allreduce_map(got, Operands.DOUBLE)
+    packed.allreduce_map(want, Operands.DOUBLE)
+    assert got == want
+    asynced = [dict(m) for m in maps]
+    assert lst.allreduce_map_async(asynced, Operands.DOUBLE).result() == want
+
+
+@pytest.mark.parametrize("path", ["dense", "sparse", "sharded"])
+def test_ffm_over_a_device_list(cuda, path):
+    """FFM over make_mesh(4, devices=cuda:0 x 4) against the packed
+    make_mesh(4) at rtol 1e-5; every member's replica the same bits and
+    two runs bitwise on every path (the members' merges and the replicas'
+    adds run in one fixed order)."""
+    rng = np.random.default_rng(4)
+    feats = rng.integers(0, 64, (96, 4)).astype(np.int32)
+    data = (feats, np.tile(np.arange(4, dtype=np.int32), (96, 1)),
+            np.ones((96, 4), np.float32),
+            ((feats[:, 0] + feats[:, 1]) % 2).astype(np.float32))
+    cfg = FMConfig(n_features=64, n_fields=4, k=4, max_nnz=4, model="ffm",
+                   learning_rate=0.3, l2=1e-3, init_scale=0.1)
+    kw = {"dense": {}, "sparse": dict(sparse_grads=True),
+          "sharded": dict(sparse_grads=True,
+                          table_sharding="sharded")}[path]
+    runs = []
+    for _ in range(2):
+        tr = FMTrainer(cfg, mesh=make_mesh(4, devices=_cards(4)), **kw)
+        runs.append((tr,) + tr.fit(*data, n_steps=5, seed=2))
+    pk = FMTrainer(cfg, mesh=make_mesh(4), **kw)
+    pp, pl = pk.fit(*data, n_steps=5, seed=2)
+    tr, lp, ll = runs[0]
+    np.testing.assert_allclose(ll, pl, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(tr.full_table(lp), pk.full_table(pp),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(ll, runs[1][2])
+    np.testing.assert_array_equal(tr.full_table(lp),
+                                  runs[1][0].full_table(runs[1][1]))
+    k = 2 if path == "sharded" else 3
+    for m in tr.replicas_:
+        assert all(torch.equal(a, b) for a, b in zip(m[:k],
+                                                     tr.replicas_[0][:k]))
+    torch.testing.assert_close(tr.predict(lp, *data[:3]),
+                               pk.predict(pp, *data[:3]), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("loss", ["squared", "logistic", "softmax"])
+def test_linear_over_a_device_list(cuda, loss):
+    """Linear over cuda:0 x 4 against the packed mesh at rtol 1e-5, every
+    replica the same bits."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((1001, 6)).astype(np.float32)
+    y = {"squared": x @ np.arange(6, dtype=np.float32),
+         "logistic": (x[:, 0] > 0).astype(np.float32),
+         "softmax": (x[:, 0] > 0).astype(np.int32)
+         + (x[:, 1] > 0).astype(np.int32)}[loss]
+    cfg = LinearConfig(n_features=6, loss=loss, n_classes=3,
+                       learning_rate=0.1, momentum=0.5, l1=1e-3, l2=1e-3)
+    tr = LinearTrainer(cfg, mesh=make_mesh(4, devices=_cards(4)))
+    lp, ll = tr.fit(x, y, n_steps=10)
+    pp, pl = LinearTrainer(cfg, mesh=make_mesh(4)).fit(x, y, n_steps=10)
+    np.testing.assert_allclose(ll, pl, rtol=1e-5, atol=1e-6)
+    for a, b in zip(lp, pp):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    for m in tr.replicas_:
+        assert all(torch.equal(a, b) for a, b in zip(m, tr.replicas_[0]))
+
+
+def test_dryrun_over_a_device_list(cuda):
+    """entry.dryrun over cuda:0 x 4 (hierarchical) and x 3 (flat): the
+    histogram kernel launched one time a member a level, the ring kernel
+    a member at a time (``algo="rdma"``)."""
+    for n in (4, 3):
+        hist0 = hk.histograms.launches
+        ring0 = rk.ring_kernel.member_launches
+        entry.dryrun(n, devices=_cards(n))
+        torch.cuda.synchronize()
+        assert hk.histograms.launches > hist0
+        assert rk.ring_kernel.member_launches >= ring0 + n
 
 
 @pytest.mark.parametrize("sampled", [False, True])

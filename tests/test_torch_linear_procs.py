@@ -11,7 +11,9 @@ one-process ``make_mesh(n)`` and the JAX package's trainer on
 one autograd pass). Squared, logistic (from nonzero parameters: the
 reference's gradient at a margin of 0 is wrong) and softmax, with
 momentum, L1 and L2, sample weights, an eval set with early stopping, the
-stream, ``predict``, ``params_from_numpy`` and ``fit(comm=)``."""
+stream, ``predict``, ``params_from_numpy`` and ``fit(comm=)``. P processes
+of one member each equal a list mesh of P CPU members bit for bit (the
+same partials folded in the same rank order)."""
 
 import pickle
 
@@ -221,3 +223,23 @@ def test_params_from_numpy_on_a_process_mesh(jobs, world):
     for res in jobs[world]:
         for a, b in zip(res["from_numpy"], res["squared"]["params"]):
             np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("name", ["squared", "logistic", "softmax",
+                                  "weighted_softmax", "eval", "stream"])
+def test_processes_equal_a_cpu_list_bitwise(jobs, world, name):
+    """P processes of one member each and a list mesh of P members on the
+    CPU fold the same partials in the same rank order: the same bits."""
+    case = CASES["fit"][name]
+    tr = LinearTrainer(LinearConfig(**case["cfg"]),
+                       mesh=make_mesh(world, devices=["cpu"] * world))
+    if case.get("chunks") is not None:
+        params, losses = tr.fit_stream(iter(case["chunks"]), **case["fit"])
+    else:
+        params, losses = tr.fit(*case["data"], **case["fit"])
+    got = jobs[world][0][name]
+    np.testing.assert_array_equal(got["losses"], losses)
+    for a, b in zip(got["params"], params):
+        np.testing.assert_array_equal(a, b.numpy())
+    assert got["eval_history"] == tr.eval_history_

@@ -23,17 +23,16 @@ the slots and the exit barrier alone).
 ``--devices`` (a comma-separated list; ``--n`` defaults to its length)
 runs the battery over a list mesh, member r on its r-th entry, as the
 reference's ``_run_battery(n, devices=)``: ``GpuCommCluster(mesh=
-make_mesh(n, devices=...))``, the functional collectives on member lists
-and the ring kernels launched a member at a time; the CPU section then
-runs over a CPU list too. Two parts have no list form yet and run packed
-on member 0's device, which the artifact says (``packed_parts``): the map
-family (``cluster/allreduce_map``) and ``ops.sparse``
-(``functional/sparse_*``).
+make_mesh(n, devices=...))`` with its map family, the functional and
+sparse collectives on member lists and the ring kernels launched a
+member at a time; the CPU section then runs over a CPU list too. Every
+part runs over the list: the check names and counts are the packed
+battery's (618 at n = 8).
 
-Divergences from the reference: the n members of a section are rows of
-one tensor on one device (``device.make_mesh(n)``), so ``--n`` (default 8)
-counts members, not devices, and n > 1 executes cross-member semantics on
-one card; ``--device`` (default ``cuda``) picks the device, and without
+Divergences from the reference: without ``--devices`` the n members of
+a section are rows of one tensor on one device (``device.make_mesh(n)``),
+so ``--n`` (default 8) counts members, not devices, and n > 1 executes
+cross-member semantics on one card; ``--device`` (default ``cuda``) picks the device, and without
 CUDA the default exits non-zero with ``Mp4jError``'s message -- the CPU
 runs only when asked; DOUBLE and LONG always run (there is no x64
 switch); the CPU section (``--cpu-mesh-n``, default 8) runs the same
@@ -100,11 +99,6 @@ def _host(x) -> np.ndarray:
     return x.detach().to("cpu").numpy()
 
 
-# the parts of the battery that run packed on member 0's device over a
-# list mesh (no list form yet; ROADMAP)
-PACKED_PARTS = ("cluster/allreduce_map", "functional/sparse_*")
-
-
 def _list(x, devices):
     """``[n, ...]`` host or device rows as a member list on ``devices``."""
     return [torch.as_tensor(x[r]).to(d) for r, d in enumerate(devices)]
@@ -122,10 +116,8 @@ def check_cluster(t: Tally, n: int, length: int = 192, device=None,
     """Driver mode: all 7 dense collectives x operators + map family."""
     if devices is None:
         cluster = GpuCommCluster(n, device=device)
-        map_cluster = cluster
     else:
         cluster = GpuCommCluster(mesh=make_mesh(n, devices=devices))
-        map_cluster = GpuCommCluster(n, device=cluster.device)
     for operand in OPERANDS:
         exact = operand.dtype.kind != "f"
         alls = [rank_data(r, length, operand, SEED_BASE) for r in range(n)]
@@ -177,7 +169,7 @@ def check_cluster(t: Tally, n: int, length: int = 192, device=None,
         for m in maps:
             for k, v in m.items():
                 want[k] = op.np_fn(want[k], v) if k in want else v
-        map_cluster.allreduce_map(maps, Operands.FLOAT, op)
+        cluster.allreduce_map(maps, Operands.FLOAT, op)
         for m in maps:
             t.expect(f"cluster/allreduce_map/{op_name}",
                      np.array([m.get(k, np.nan) for k in sorted(want)]),
@@ -195,8 +187,15 @@ def check_functional(t: Tally, n: int, length: int = 64, device=None,
             .standard_normal(length).astype(np.float32) for r in range(n)]
     stacked = np.stack(alls)  # [n, L]
     x = torch.from_numpy(stacked).to(dev)
+    # the members' sparse buffers: two keys a member, disjoint
+    idx_np = np.stack([np.array([r, n + r], np.int32) for r in range(n)])
+    val_np = np.stack([np.array([1.0, 2.0], np.float32) for r in range(n)])
+    idx, val = torch.from_numpy(idx_np).to(dev), torch.from_numpy(
+        val_np).to(dev)
     if devices is not None:
-        x = _list(stacked, make_mesh(n, devices=devices).devices)
+        members = make_mesh(n, devices=devices).devices
+        x = _list(stacked, members)
+        idx, val = _list(idx_np, members), _list(val_np, members)
     custom = Operator.custom(
         "ABSMAX", lambda a, b: np.maximum(np.abs(a), np.abs(b)), 0.0,
         torch_fn=lambda a, b: torch.maximum(torch.abs(a), torch.abs(b)))
@@ -236,10 +235,6 @@ def check_functional(t: Tally, n: int, length: int = 64, device=None,
     t.expect("functional/allgather", _rows(coll.allgather(x, tiled=True)),
              stacked.reshape(1, -1).repeat(n, 0), False)
     # sparse allreduce on device
-    idx = torch.from_numpy(np.stack(
-        [np.array([r, n + r], np.int32) for r in range(n)])).to(dev)
-    val = torch.from_numpy(np.stack(
-        [np.array([1.0, 2.0], np.float32) for r in range(n)])).to(dev)
     oi, ov = sparse_ops.sparse_allreduce(idx, val, 2 * n, Operators.SUM)
     got = {int(i): float(v) for i, v in zip(_host(oi[0]), _host(ov[0]))
            if i != sparse_ops.SENTINEL}
@@ -252,7 +247,7 @@ def check_functional(t: Tally, n: int, length: int = 64, device=None,
     size = 2 * n
     oi, ov = sparse_ops.sparse_reduce_scatter(idx, val, 2 * n, size,
                                               Operators.SUM)
-    oi, ov = _host(oi), _host(ov)
+    oi, ov = _rows(oi), _rows(ov)
     got_rs = {}
     for r in range(n):
         for i, v in zip(oi[r], ov[r]):
@@ -269,7 +264,7 @@ def check_functional(t: Tally, n: int, length: int = 64, device=None,
     t.expect("functional/sparse_allgather",
              np.array(sorted(zip(oi[live], ov[live]))),
              np.array(sorted((int(i), float(v))
-                             for row_i, row_v in zip(_host(idx), _host(val))
+                             for row_i, row_v in zip(idx_np, val_np)
                              for i, v in zip(row_i, row_v))), False)
 
 
@@ -315,7 +310,6 @@ def _section(checks, n: int, device, devices=None) -> dict:
     section: dict = {"n_members": n}
     if devices is not None:
         section["devices"] = [str(d) for d in devices[:n]]
-        section["packed_parts"] = list(PACKED_PARTS)
     try:
         for check in checks:
             if devices is None:

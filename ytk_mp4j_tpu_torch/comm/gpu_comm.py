@@ -14,8 +14,9 @@ as the reference's ``TpuCommCluster(mesh=)`` takes a mesh over devices:
 rank r's block is staged on member r's device, the dense and nonblocking
 families run the list form of their collective (bitwise the packed
 form's), and each rank's result is read from its member's device. The
-map family over a list mesh is a later slice of the port: it raises
-:class:`Mp4jError`.
+map family stages rank r's ``(code, value)`` buffer on member r's device
+and reduces the union through the list form of ``ops.sparse`` (on member
+0's device, bitwise the packed form's).
 
 ``algo`` selects the schedule: ``"xla"`` (the default; ``"auto"`` resolves
 to it) reduces in rank order through ``ops.collectives`` -- its NCCL form
@@ -190,13 +191,6 @@ class GpuCommCluster:
         if isinstance(res, list):
             return [to_numpy(t) for t in res]
         return to_numpy(res)
-
-    def _check_packed(self, what: str) -> None:
-        if self.mesh.is_list:
-            raise Mp4jError(
-                f"{what} over a list mesh (members on a device list) is a "
-                "later slice of the port; use a packed mesh "
-                "(make_mesh(n, device)) for the map family")
 
     @staticmethod
     def _write_back(arrs, rows, lo, hi, ranks):
@@ -402,7 +396,6 @@ class GpuCommCluster:
     # rank's dict is mutated in place, as the reference's maps
     # ------------------------------------------------------------------
     def _norm_maps(self, maps, operand: Operand):
-        self._check_packed("the map family")
         if len(maps) != self.n:
             raise Mp4jError(f"expected {self.n} per-rank maps, got "
                             f"{len(maps)}")
@@ -457,11 +450,11 @@ class GpuCommCluster:
 
     def _device_sparse_allreduce(self, idx, val, capacity, operator):
         """The union's values on the device, [capacity, ...]: every
-        member holds the same union, so one row is returned."""
+        member holds the same union, so member 0's is returned (on a list
+        mesh, on member 0's device, where the union was reduced)."""
         capacity = keycodec.pow2_bucket(capacity)
         _oi, ov = sparse_ops.sparse_allreduce(
-            to_tensor(idx, self.device), to_tensor(val, self.device),
-            capacity, operator)
+            self._stack(idx), self._stack(val), capacity, operator)
         return ov[0]
 
     @staticmethod
@@ -520,10 +513,13 @@ class GpuCommCluster:
         ov = ov[: codes.size]
         event = None
         if ov.device.type == "cuda":
+            # the copy runs on the current stream of the device that
+            # holds the union (member 0's), whichever device is current:
+            # the event goes there too
             host = torch.empty(ov.shape, dtype=ov.dtype, pin_memory=True)
             host.copy_(ov, non_blocking=True)
             event = torch.cuda.Event()
-            event.record()
+            event.record(torch.cuda.current_stream(ov.device))
             ov = host
         return PendingMap(codec, codes, ov, event, maps)
 

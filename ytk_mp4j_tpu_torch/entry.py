@@ -3,18 +3,22 @@
 - :func:`entry` returns one GBDT boosting round (histograms + split +
   route + leaf update) with example arguments on one device, as the
   reference's ``entry`` returns a jittable step;
-- :func:`dryrun` runs, over n members on one device, the whole of the
-  reference's ``dryrun_multichip``, in its order: data-parallel GBDT over
-  a hierarchical mesh (flat where n is odd), the missing-bucket and
+- :func:`dryrun` runs, over n members, the whole of the reference's
+  ``dryrun_multichip``, in its order: data-parallel GBDT over a
+  hierarchical mesh (flat where n is odd), the missing-bucket and
   categorical configuration, ``train_raw`` -> ``predict_raw``, the map
-  allreduce, the dense allreduce under every algo (the reference's
-  ring step is ``algo="ring"``'s schedule), FFM with sparse gradients --
-  replicated, then with the sharded table, whose losses must equal the
-  replicated ones at rtol 1e-4, then streamed one full batch a chunk,
-  replicated and sharded, equal to the full batch at rtol 1e-5 -- and the
-  softmax linear model.
+  allreduce and the dense allreduce under every algo (the reference's
+  ring step is ``algo="ring"``'s schedule) through ``GpuCommCluster(mesh=
+  mesh)``, as the reference's ``TpuCommCluster(mesh=mesh)``, FFM with
+  sparse gradients over a flat mesh -- replicated, then with the sharded
+  table, whose losses must equal the replicated ones at rtol 1e-4, then
+  streamed one full batch a chunk, replicated and sharded, equal to the
+  full batch at rtol 1e-5 -- and the softmax linear model. The members
+  are packed on one device, or, given ``devices``, one a list entry (a
+  list mesh: the reference's members are chips).
 
-Both run on ``cuda:0`` unless given ``device="cpu"``.
+Both run on ``cuda:0`` unless given ``device="cpu"`` (or CPU
+``devices``).
 """
 
 from __future__ import annotations
@@ -60,12 +64,15 @@ def _check(ok: bool, what: str) -> None:
         raise Mp4jError(f"dryrun: {what}")
 
 
-def dryrun(n_devices: int, device=None) -> None:
-    """Train over n members and drive the dense collectives once; raises
-    Mp4jError on any wrong result."""
+def dryrun(n_devices: int, device=None, devices=None) -> None:
+    """Train over n members and drive the collectives once; raises
+    Mp4jError on any wrong result. ``devices`` (at least n entries,
+    repeats allowed) runs every step over a list mesh, member m on
+    ``devices[m]``; without it the members are packed on ``device``."""
     # two-level inter x intra mesh where n is even, else flat
-    mesh = (make_hier_mesh(n_devices // 2, 2, device) if n_devices % 2 == 0
-            else make_mesh(n_devices, device))
+    mesh = (make_hier_mesh(n_devices // 2, 2, device, devices)
+            if n_devices % 2 == 0
+            else make_mesh(n_devices, device, devices))
 
     bins, y = _tiny_data(n=64 * n_devices, f=8, b=32)
     cfg = GBDTConfig(n_features=8, n_bins=32, depth=3, n_trees=1)
@@ -94,7 +101,7 @@ def dryrun(n_devices: int, device=None) -> None:
            "predict_raw not finite")
 
     # the sparse-map allreduce over the same members
-    cluster = GpuCommCluster(n_devices, mesh.device)
+    cluster = GpuCommCluster(mesh=mesh)
     maps = [{f"w:{r % 3}": float(r)} for r in range(n_devices)]
     cluster.allreduce_map(maps, Operands.FLOAT, Operators.SUM)
     want_map = {f"w:{j}": float(sum(range(j, n_devices, 3)))
@@ -110,7 +117,7 @@ def dryrun(n_devices: int, device=None) -> None:
         _check(all(float(a[0]) == want for a in arrs),
                f"allreduce under {algo}")
 
-    _dryrun_fm_linear(make_mesh(n_devices, device))
+    _dryrun_fm_linear(make_mesh(n_devices, device, devices))
 
 
 def _dryrun_fm_linear(mesh) -> None:

@@ -12,8 +12,8 @@ Member m's shard is rows ``[m * per, (m + 1) * per)`` of the input (the
 reference's ``_put_sharded:327``). On a one-process mesh that is one
 contiguous tensor on the mesh's device; on a list mesh
 (``make_mesh(n, devices=...)``) member m's rows are a tensor of their own
-on ``devices[m]`` (:meth:`DataParallelTrainer._to_members`; only the GBDT
-trainer takes a list mesh so far); on a mesh over processes every
+on ``devices[m]`` (:meth:`DataParallelTrainer._to_members`), for every
+trainer; on a mesh over processes every
 rank passes the same global arrays and stages only its own members' rows
 (:meth:`DataParallelTrainer._row_span`), and
 :meth:`DataParallelTrainer._gather_rows` gathers every member's rows onto
@@ -21,13 +21,18 @@ every rank (``_to_host:371``'s counterpart). Every trainer runs over
 processes: each rank's partial sums (histograms and leaf sums; the
 weighted loss, the sample-weight sum and the small gradients) are gathered
 and folded in rank order, so every rank holds the same bits, and a step
-divides by the job's weight sum, never the rank's.
+divides by the job's weight sum, never the rank's. Over a list mesh each
+member's partial sums are folded the same way, in rank order on member
+0's device (:func:`fold_members`), and every member holds a replica of
+its own of the replicated parameters (:meth:`DataParallelTrainer.
+_replicas`), to which it applies the same update.
 
 The streaming loop (``_stream_fit``) keeps the reference's double
 buffer: while the device runs step k, the host stages chunk k + 1 (numpy
 chunks go through pinned memory with a non-blocking copy), at most
-``max_in_flight`` steps are queued (the host waits on the CUDA event of
-step k - max_in_flight), and the losses are fetched once at the end.
+``max_in_flight`` steps are queued (the host waits on the CUDA events of
+step k - max_in_flight, one on each card of the members), and the losses
+are fetched once at the end.
 
 ``save_npz`` writes on rank 0 of a ``torch.distributed`` job only (the
 reference gates on ``jax.process_index()``), and on every one-process
@@ -110,6 +115,21 @@ def job_sum(v, group):
     if group is None:
         return v
     return fold_across(v.reshape(1, -1), 1, group).reshape(v.shape)
+
+
+def fold_members(parts):
+    """The list counterpart of :func:`job_sum`: member m's partial sums
+    ``parts[m]`` (a tuple of tensors on member m's device) summed over the
+    members in rank order on member 0's device (``ops.collectives.
+    allreduce`` of one flat vector a member, as :func:`fold_across` folds
+    one partial a rank) and handed back to every member's device, in the
+    partials' shapes: a list of tuples, one a member."""
+    shapes = [t.shape for t in parts[0]]
+    sizes = [t.numel() for t in parts[0]]
+    flats = coll.allreduce([torch.cat([t.reshape(-1) for t in p])
+                            for p in parts])
+    return [tuple(t.reshape(shape) for t, shape in
+                  zip(torch.split(f, sizes), shapes)) for f in flats]
 
 
 def stage_softmax_labels(y, n_classes: int) -> np.ndarray:
@@ -297,21 +317,14 @@ class DataParallelTrainer:
     every device, which on the port's one card is one member. A mesh over
     processes (``comm.distributed.global_mesh``) makes every method a
     collective: every rank calls it together, with the same arguments.
-    A list mesh (member m on ``devices[m]``) is taken by the trainers
-    whose ``takes_list_mesh`` is True; ``device`` is then member 0's."""
-
-    takes_list_mesh = False
+    On a list mesh (member m on ``devices[m]``) ``device`` is member
+    0's."""
 
     def __init__(self, mesh=None, n_devices=None, device=None):
         if mesh is None:
             mesh = make_mesh(1 if n_devices is None else n_devices, device)
         elif n_devices is not None or device is not None:
             raise Mp4jError("give a mesh, or n_devices and device, not both")
-        if mesh.is_list and not self.takes_list_mesh:
-            raise Mp4jError(
-                f"{type(self).__name__} over a list mesh (members on a "
-                "device list) is a later slice of the port; use a packed "
-                "mesh (make_mesh(n, device))")
         self.mesh = mesh
         self.device = mesh.device
 
@@ -377,8 +390,7 @@ class DataParallelTrainer:
         tensor itself on a one-process mesh; a list mesh's member tensors
         concatenated on ``device``)."""
         if isinstance(t, list):
-            return torch.cat([m.to(self.device, non_blocking=True)
-                              for m in t])
+            return coll.concat_on_first(t)
         if self.mesh.group is None:
             return t
         from ytk_mp4j_tpu_torch.comm.distributed import all_gather_rows
@@ -386,9 +398,20 @@ class DataParallelTrainer:
         g = all_gather_rows(t, self.mesh.group)
         return g.reshape((-1,) + tuple(t.shape[1:]))
 
+    def _replicas(self, params):
+        """On a list mesh: a tuple of tensors as one replica a member (a
+        list of tuples), member m's on ``devices[m]``, each a tensor of its
+        own even where the devices repeat (a step may write into a
+        member's replica in place)."""
+        return [tuple(t.to(d, copy=True) for t in params)
+                for d in self.mesh.devices]
+
     def _members(self, arrays, per: int):
         """[n_local * per, ...] tensors (this process's members' rows) as
-        member tensors [n_local, per, ...]."""
+        member tensors [n_local, per, ...]; on a list mesh, as lists of
+        member tensors (:meth:`_to_members`)."""
+        if self.mesh.is_list:
+            return self._to_members(arrays, per)
         n = self.mesh.n_local
         return tuple(a.reshape((n, per) + tuple(a.shape[1:]))
                      for a in arrays)
@@ -428,17 +451,21 @@ class DataParallelTrainer:
         return torch.stack(losses).cpu().numpy()
 
     def _record(self):
-        """A CUDA event after the work queued so far (None on the
-        CPU, where every step has run when it returns)."""
-        if self.device.type != "cuda":
-            return None
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
-        return event
+        """CUDA events after the work queued so far, one on the current
+        stream of each card the members use (none on the CPU, where every
+        step has run when it returns)."""
+        events = []
+        for d in dict.fromkeys(self.mesh.devices or (self.device,)):
+            if d.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(d))
+                events.append(event)
+        return events
 
     @staticmethod
-    def _wait(event) -> None:
-        if event is not None:
+    def _wait(events) -> None:
+        """Wait until every member's stream has passed the step."""
+        for event in events:
             event.synchronize()
 
     def _stream_span(self, N: int, batch_rows: int) -> int:

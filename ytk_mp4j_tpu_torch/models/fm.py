@@ -54,6 +54,41 @@ the first step's table is bitwise the one-process table, but the folded
 sums of ``w0``, ``w`` and the loss round apart from one autograd pass, so
 over several steps the runs agree to rounding (rtol 1e-5), not bitwise.
 
+Over a list mesh (``make_mesh(n, devices=...)``, member m on
+``devices[m]``) a batch is a tuple of member lists and each member
+computes its gradients over its own rows on its device; the members'
+loss, weight sum and gradients of ``w0`` and ``w`` are folded in rank
+order on member 0's device (``_base.fold_members``, the reference's
+``psum``) and handed back. Each member holds a replica of its own of the
+replicated parameters (a tensor of its own even where the devices
+repeat, since the sparse steps write in place) or, with the sharded
+table, its block ``[B, k]`` on its device:
+
+- **dense** (:func:`train_step_dense_members`): the members' table
+  gradients folded in rank order (``ops.collectives.allreduce``);
+- **sparse** (:func:`train_step_sparse_members`): each member's slots,
+  merged on its device when ``capacity < S``, concatenated in rank order
+  onto every member (the list ``allgather``) and added into every
+  replica, the merges and the adds in one fixed order
+  (``index_put_(accumulate=True)`` on a card), so every replica holds
+  the same bits and two runs the same bits;
+- **sharded** (:func:`train_step_sparse_sharded_members`): the packed
+  form's owner-routed fetch and gradient return, its dense ``[n_own,
+  n_req, S, k]`` blocks split by owner, through the list ``allgather``
+  of the row ids and the list ``all_to_all``; each owner's merge in one
+  fixed order.
+
+The fold is the process path's (one partial a member, in rank order), so
+on the CPU a list of n members equals n processes of one member bit for
+bit; against the packed mesh, whose one autograd pass sums every
+member's rows, the losses and parameters agree to rounding (rtol 1e-5).
+``fit`` and ``fit_stream`` return member 0's replica ``(w0, w, V)`` or,
+with the sharded table, ``(w0, w, blocks)``, ``blocks`` the list of the
+members' blocks on their devices (every member's parameters stay in
+``replicas_``); the eval set, ``predict``, ``full_table`` and
+``save_params`` work on member 0's device, and every entry point takes
+either that form or a whole table, of either package.
+
 Every method of a trainer over processes is a collective where the
 sharded table is concerned (``fit``, ``fit_stream``, ``predict``,
 ``full_table``, ``save_params``): every rank calls it together, with the
@@ -74,8 +109,10 @@ Intended divergences from the reference:
   atomics, in an order that changes from run to run, so two runs of the
   same steps agree to float rounding (rtol 1e-5 on the losses, as the
   reference's dry run holds its stream to its full batch), not bitwise;
-  on the CPU every add runs in stream order and ``fit_stream`` over one
-  full-batch chunk per epoch equals ``fit`` bitwise;
+  on a list mesh every merge and every add runs in one fixed order, so
+  the replicas hold the same bits and two runs are bitwise on every
+  path; on the CPU every add runs in stream order and ``fit_stream``
+  over one full-batch chunk per epoch equals ``fit`` bitwise;
 - :class:`FMServable` (:func:`servable`, the serve plane's pull-mode
   adapter, scoring on the host in numpy as the reference does) takes the
   port's tensors on any device, keeping detached float32 host copies, or
@@ -101,9 +138,10 @@ from ytk_mp4j_tpu_torch.exceptions import Mp4jError
 from ytk_mp4j_tpu_torch.models._base import (DataParallelTrainer,
                                              EarlyStopper,
                                              StepStatsExchanger, as_numpy,
-                                             as_tensor, job_sum,
-                                             per_example_loss)
+                                             as_tensor, fold_members,
+                                             job_sum, per_example_loss)
 from ytk_mp4j_tpu_torch.operators import Operators
+from ytk_mp4j_tpu_torch.ops import collectives as coll
 from ytk_mp4j_tpu_torch.ops import sparse as sparse_ops
 from ytk_mp4j_tpu_torch.ops.collectives import all_to_all, flat_index
 
@@ -183,6 +221,31 @@ def _score(params, feats, fields, vals, mask, cfg: FMConfig):
     return _score_from_slots(w0, w, E, feats, xv, cfg)
 
 
+def _grad_sums(leaves, score_fn, y, sw, cfg: FMConfig):
+    """The weighted loss SUM over the rows, the weight sum and the loss
+    sum's gradients with respect to ``leaves`` (one autograd pass):
+    (sum_loss, sw_sum, grads)."""
+    leaves = [t.detach().requires_grad_(True) for t in leaves]
+    with torch.enable_grad():
+        sum_loss = torch.sum(
+            per_example_loss(score_fn(*leaves), y, cfg.loss) * sw)
+        grads = list(torch.autograd.grad(sum_loss, leaves))
+    return sum_loss.detach(), torch.sum(sw), grads
+
+
+def _fold_member_sums(sums):
+    """The members' ``(sum_loss, sw_sum, grads)`` (one a member of a
+    list, on its device): the loss, weight sums and the gradients of w0
+    and w folded in rank order (``_base.fold_members``). Returns, a
+    member, (loss, g0, gw, denom) on its device."""
+    out = []
+    for sum_loss, sw_sum, g0, gw in fold_members(
+            [(s, w, g[0], g[1]) for s, w, g in sums]):
+        denom = torch.clamp(sw_sum, min=1.0)
+        out.append((sum_loss / denom, g0, gw, denom))
+    return out
+
+
 def _loss_and_grads(leaves, score_fn, y, sw, cfg: FMConfig, group=None):
     """The weighted-mean loss over the local members' rows and the
     gradients of the weighted loss SUM with respect to ``leaves`` ``(w0,
@@ -191,12 +254,7 @@ def _loss_and_grads(leaves, score_fn, y, sw, cfg: FMConfig, group=None):
     the loss sum, the weight sum and the gradients of w0 and w are the
     job's (:func:`_base.job_sum`); X's stays the rank's. Returns (loss,
     grads, denom)."""
-    leaves = [t.detach().requires_grad_(True) for t in leaves]
-    with torch.enable_grad():
-        sum_loss = torch.sum(
-            per_example_loss(score_fn(*leaves), y, cfg.loss) * sw)
-        grads = list(torch.autograd.grad(sum_loss, leaves))
-    sum_loss, sw_sum = sum_loss.detach(), torch.sum(sw)
+    sum_loss, sw_sum, grads = _grad_sums(leaves, score_fn, y, sw, cfg)
     if group is not None:
         g0, gw = grads[0], grads[1]
         flat = job_sum(torch.cat([sum_loss.reshape(1), sw_sum.reshape(1),
@@ -264,16 +322,21 @@ def train_step_dense(params, batch, cfg: FMConfig, group=None):
     return (w0, w, V), loss
 
 
+def _slot_score(batch, cfg: FMConfig):
+    """The score of ``batch``'s instances as a function of ``(w0, w,
+    E)``, ``E`` the gathered slot rows (what the sparse steps
+    differentiate)."""
+    feats, _, vals, mask = batch[:4]
+    xv = vals * mask
+    return lambda a, b, c: _score_from_slots(a, b, c, feats, xv, cfg)
+
+
 def _sparse_grads(params, batch, cfg: FMConfig, E, group=None):
     """Loss and gradients of the sparse steps, differentiated with
     respect to the gathered slot rows ``E``: (loss, g0, gw, gE, denom)."""
-    feats, fields, vals, mask, y, sw = batch
-    w0, w, _ = params
-    xv = vals * mask
     loss, (g0, gw, gE), denom = _loss_and_grads(
-        (w0, w, E),
-        lambda a, b, c: _score_from_slots(a, b, c, feats, xv, cfg),
-        y, sw, cfg, group)
+        (params[0], params[1], E), _slot_score(batch, cfg), batch[4],
+        batch[5], cfg, group)
     return loss, g0, gw, gE, denom
 
 
@@ -379,15 +442,17 @@ def _return_grads_across(gE, route: _Route, group):
     return all_to_all_rows(gE[route.order], route.send, route.recv, group)
 
 
-def _merge_owned(Vs, ids, g, m: int, C: int, scale):
-    """Member m's merge: the received gradient rows ``g`` of its local
+def _merge_owned(block, ids, g, C: int, scale, in_order: bool = False):
+    """A member's merge: the received gradient rows ``g`` of its local
     rows ``ids`` (SENTINEL where another member owns the slot; those
-    are dropped first), sorted and segment-reduced into ``C`` slots,
-    then added into its block ``Vs[m]`` scaled by ``scale``."""
+    are dropped first), sorted and segment-reduced into ``C`` slots (in
+    one fixed order on a card with ``in_order``), then added into its
+    ``block`` scaled by ``scale``."""
     own = ids != sparse_ops.SENTINEL
     li, lv = sparse_ops.segment_reduce_sorted(
-        *sparse_ops.sort_by_key(ids[own], g[own]), C, Operators.SUM)
-    _add_rows(Vs[m], li, scale * lv)
+        *sparse_ops.sort_by_key(ids[own], g[own]), C, Operators.SUM,
+        in_order)
+    _add_rows(block, li, scale * lv)
 
 
 def train_step_sparse_sharded(params, batch, cfg: FMConfig, group=None,
@@ -424,7 +489,7 @@ def train_step_sparse_sharded(params, batch, cfg: FMConfig, group=None,
         for m in range(n):
             ids = torch.where(member == m, route.local - m * B,
                               sparse_ops.SENTINEL).to(torch.int32)
-            _merge_owned(Vs, ids, recvg, m, C, -(lr / denom))
+            _merge_owned(Vs[m], ids, recvg, C, -(lr / denom))
         return (w0, w, V), loss
 
     # forward: owner-routed row fetch
@@ -448,9 +513,153 @@ def train_step_sparse_sharded(params, batch, cfg: FMConfig, group=None,
         # SENTINEL, which the reference sorts along in its static shapes
         # and whose segment it discards; here they are dropped first
         # (they would all add into one discarded slot)
-        _merge_owned(Vs, loc_ids[m].reshape(-1), recvg[m].reshape(n * S, k),
-                     m, C, -(lr / denom))
+        _merge_owned(Vs[m], loc_ids[m].reshape(-1),
+                     recvg[m].reshape(n * S, k), C, -(lr / denom))
     return (w0, w, V), loss
+
+
+# ----------------------------------------------------------------------
+# the steps over a member list (a list mesh): ``params`` one (w0, w, V)
+# a member on its device, ``batch`` a tuple of member lists
+# ----------------------------------------------------------------------
+def _member_batches(batch):
+    """A tuple of member lists as one batch tuple a member."""
+    return list(zip(*batch))
+
+
+def train_step_dense_members(params, batch, cfg: FMConfig):
+    """:func:`train_step_dense` over a member list: each member's
+    gradients over its rows, the table's folded in rank order on member 0's
+    device (``ops.collectives.allreduce``, the reference's ``psum``) and
+    the rest by :func:`_fold_member_sums`; every member applies the same
+    update to its replica. Returns (params, member 0's loss)."""
+    sums = [_grad_sums(p, lambda *q, b=b: _score(q, *b[:4], cfg), b[4],
+                       b[5], cfg)
+            for p, b in zip(params, _member_batches(batch))]
+    gV = coll.allreduce([g[2] for _, _, g in sums])
+    folded = _fold_member_sums(sums)
+    out = []
+    for (w0, w, V), (_, g0, gw, denom), gVm in zip(params, folded, gV):
+        w0, w = _update_linear(w0, w, g0, gw, denom, cfg)
+        out.append((w0, w, V - cfg.learning_rate * (gVm / denom
+                                                    + cfg.l2 * V)))
+    return out, folded[0][0]
+
+
+def train_step_sparse_members(params, batch, cfg: FMConfig, capacity: int):
+    """:func:`train_step_sparse` over a member list: each member's (row,
+    gradient row) slots, merged on its device into ``capacity`` slots
+    when that is below its slot count S, are concatenated in rank order
+    onto every member (``ops.collectives.allgather``, the reference's
+    tiled ``all_gather``) and added into every member's replica; the
+    merges and the adds run in one fixed order. Updates the replicas in
+    place; returns (params, member 0's loss)."""
+    sums, ids, upd = [], [], []
+    for (w0, w, V), b in zip(params, _member_batches(batch)):
+        rows = _slot_rows(b[0], b[1], cfg)            # [per, K(, K)]
+        S, k = rows.numel(), V.shape[1]
+        s = _grad_sums((w0, w, _gather_slots(V, rows)), _slot_score(b, cfg),
+                       b[4], b[5], cfg)
+        sums.append(s)
+        i, u = rows.reshape(S), s[2][2].reshape(S, k)
+        if capacity < S:
+            i, u = sparse_ops.segment_reduce_sorted(
+                *sparse_ops.sort_by_key(i, u), capacity, Operators.SUM,
+                in_order=True)
+        ids.append(i)
+        upd.append(u)
+    ids, upd = coll.allgather(ids), coll.allgather(upd)
+    folded = _fold_member_sums(sums)
+    lr = cfg.learning_rate
+    out = []
+    for (w0, w, V), (_, g0, gw, denom), i, u in zip(params, folded, ids,
+                                                     upd):
+        w0, w = _update_linear(w0, w, g0, gw, denom, cfg)
+        if cfg.l2:
+            V.mul_(1.0 - lr * cfg.l2)
+        if capacity < S:
+            _add_rows(V, i, -(lr / denom) * u, in_order=True)
+        else:
+            _index_add(V, i, -(lr / denom) * u, in_order=True)
+        out.append((w0, w, V))
+    return out, folded[0][0]
+
+
+def _fetch_rows_members(blocks, gi):
+    """:func:`_fetch_rows_sharded` over a member list: member m's block
+    ``blocks[m]`` [B, k] and row ids ``gi[m]`` [S] on its device. Every
+    owner gets every member's ids (the list ``allgather``), answers with
+    the rows it holds (zeros elsewhere) as [n_req, S, k] -- owner m's
+    slice of the packed form's [n_own, n_req, S, k] blocks -- and the list
+    ``all_to_all`` delivers them; each member sums its [n_own, S, k]
+    answers. Returns (member m's [S, k] rows, every member's ids [n, S]
+    on each member's device)."""
+    B = blocks[0].shape[0]
+    every = coll.allgather(gi, tiled=False)
+    contrib = []
+    for m, (block, g) in enumerate(zip(blocks, every)):
+        mine = torch.div(g, B, rounding_mode="floor") == m      # [req, S]
+        # two index tensors, as the packed form's ``Vs[me, local]``: on a
+        # card ATen then runs its elementwise index kernel, where one
+        # index tensor (``block[idx]``, ``index_select``) takes its row
+        # gather, a warp for each 16-byte row (4x the time at Criteo
+        # width)
+        first = torch.zeros((1, 1), dtype=torch.long, device=block.device)
+        rows = block.unsqueeze(0)[first, torch.where(mine, g - m * B, 0)]
+        contrib.append(torch.where(mine.unsqueeze(-1), rows, 0.0))
+    return [torch.sum(r, dim=0) for r in coll.all_to_all(contrib)], every
+
+
+def train_step_sparse_sharded_members(params, batch, cfg: FMConfig):
+    """:func:`train_step_sparse_sharded` over a member list: member m's
+    block [B, k] of the padded table on its device. The rows come through
+    :func:`_fetch_rows_members`; each member's gradient rows go to their
+    owners through the list ``all_to_all`` ([n_dst, S, k] a member, the
+    packed form's blocks), and each owner merges the rows it owns into
+    ``C = min(n * S, B)`` slots, in one fixed order, and adds them into
+    its block. Updates the blocks in place; returns (params, member 0's
+    loss)."""
+    members = _member_batches(batch)
+    n = len(params)
+    B, k = params[0][2].shape
+    rows = [_slot_rows(b[0], b[1], cfg) for b in members]
+    S = rows[0].numel()
+    C = min(n * S, B)
+    E, every = _fetch_rows_members([p[2] for p in params],
+                                   [r.reshape(S) for r in rows])
+    sums, send = [], []
+    for (w0, w, _), b, r, e in zip(params, members, rows, E):
+        s = _grad_sums((w0, w, e.reshape(r.shape + (k,))),
+                       _slot_score(b, cfg), b[4], b[5], cfg)
+        sums.append(s)
+        dst = torch.arange(n, device=r.device).unsqueeze(1)     # [dst, 1]
+        owned = torch.div(r.reshape(1, S), B, rounding_mode="floor") == dst
+        send.append(torch.where(owned.unsqueeze(-1),
+                                s[2][2].reshape(1, S, k), 0.0))
+    recvg = coll.all_to_all(send)                       # [src, S, k] a member
+    folded = _fold_member_sums(sums)
+    lr = cfg.learning_rate
+    out = []
+    for m, ((w0, w, block), (_, g0, gw, denom), g, rg) in enumerate(
+            zip(params, folded, every, recvg)):
+        w0, w = _update_linear(w0, w, g0, gw, denom, cfg)
+        if cfg.l2:
+            block.mul_(1.0 - lr * cfg.l2)
+        # received row (j, s) carries my local row id iff I own gi[j, s]
+        loc_ids = torch.where(torch.div(g, B, rounding_mode="floor") == m,
+                              g - m * B, sparse_ops.SENTINEL).to(torch.int32)
+        _merge_owned(block, loc_ids.reshape(-1), rg.reshape(n * S, k), C,
+                     -(lr / denom), in_order=True)
+        out.append((w0, w, block))
+    return out, folded[0][0]
+
+
+def _snapshot(params):
+    """A copy of the step's parameters (a list of member tuples on a list
+    mesh) for early stopping's rollback."""
+    if isinstance(params, list):
+        return [_snapshot(p) for p in params]
+    return tuple(p.clone() for p in params)
 
 
 def _link(z, cfg: FMConfig):
@@ -508,20 +717,43 @@ def _block(mesh, n_rows_padded: int):
     return mesh.first * B, (mesh.first + mesh.n_local) * B
 
 
+def _split_blocks(params, devices, copy: bool):
+    """A staged (w0, w, padded table) as one (w0, w, block) a member of a
+    list mesh: member m's rows ``[m * B, (m + 1) * B)`` on ``devices[m]``
+    (copied with ``copy``; a view where it is the table's own device),
+    and a replica of its own of w0 and w."""
+    w0, w, V = params
+    blocks = V.view(len(devices), -1, V.shape[1])
+    return [(w0.to(d, copy=True), w.to(d, copy=True),
+             blocks[m].to(d, copy=copy)) for m, d in enumerate(devices)]
+
+
+def _returned(members, sharded: bool):
+    """What ``fit`` returns on a list mesh: member 0's ``(w0, w, V)``, or
+    with the sharded table ``(w0, w, blocks)``, the members' blocks."""
+    w0, w, V = members[0]
+    return (w0, w, [m[2] for m in members]) if sharded else (w0, w, V)
+
+
 def params_from_numpy(params, cfg: FMConfig,
                       table_sharding: str = "replicated", mesh=None):
     """The reference's parameters ``(w0, w, V)`` as numpy arrays (as
     ``ytk_mp4j_tpu`` trains or loads them; the table [n_rows, k]) as the
     port's, on ``mesh``'s device (default: one member on ``cuda:0``),
     the table padded for ``mesh``'s member count when sharded; on a mesh
-    over processes each process takes its own members' blocks."""
+    over processes each process takes its own members' blocks; on a list
+    mesh, as ``fit`` returns them there: the whole table on member 0's
+    device, or the list of the members' blocks, each on its device."""
     mesh = make_mesh(1) if mesh is None else mesh
     n_rows = n_table_rows(cfg)
     padded = -(-n_rows // mesh.n) * mesh.n
     sharded = table_sharding == "sharded"
-    return _stage_params(params, cfg, padded, mesh.device, sharded,
-                         copy=True,
-                         block=_block(mesh, padded) if sharded else None)
+    staged = _stage_params(params, cfg, padded, mesh.device, sharded,
+                           copy=True,
+                           block=_block(mesh, padded) if sharded else None)
+    if sharded and mesh.is_list:
+        return _returned(_split_blocks(staged, mesh.devices, False), True)
+    return staged
 
 
 class FMTrainer(DataParallelTrainer):
@@ -558,6 +790,7 @@ class FMTrainer(DataParallelTrainer):
                 "dense step has no capacity at all")
         self.table_sharding = table_sharding
         self.eval_history_: list[float] = []
+        self.replicas_ = None
 
     @property
     def n_rows(self) -> int:
@@ -577,32 +810,74 @@ class FMTrainer(DataParallelTrainer):
         return self.table_sharding == "sharded"
 
     def init_params(self, seed: int = 0):
-        """(w0, w, V) on the device; V drawn from numpy's
-        ``default_rng(seed)`` exactly as the reference draws it, so both
-        packages start from the same table, bitwise."""
+        """(w0, w, V) on the device (member 0's on a list mesh); V drawn
+        from numpy's ``default_rng(seed)`` exactly as the reference draws
+        it, so both packages start from the same table, bitwise."""
         rng = np.random.default_rng(seed)
         V = (self.cfg.init_scale
              * rng.standard_normal((self.n_rows, self.cfg.k))).astype(
                  np.float32)
-        return self._place_params(
+        return self._stage_whole(
             (np.zeros((), np.float32),
              np.zeros((self.cfg.n_features,), np.float32), V), copy=False)
 
-    def _place_params(self, params, copy: bool = True):
+    def _stage_whole(self, params, copy: bool = True):
+        """(w0, w, V) as one tensor each on the device: the table cut to
+        its rows, or padded when sharded (over processes, this process's
+        blocks). A list of blocks (what ``fit`` returns with the sharded
+        table on a list mesh) is concatenated first."""
+        w0, w, V = params
+        if isinstance(V, (list, tuple)):
+            V = torch.cat([as_tensor(b, torch.float32, self.device)
+                           for b in V])
         return _stage_params(
-            params, self.cfg, self.n_rows_padded, self.device, self._sharded,
-            copy, _block(self.mesh, self.n_rows_padded)
+            (w0, w, V), self.cfg, self.n_rows_padded, self.device,
+            self._sharded, copy, _block(self.mesh, self.n_rows_padded)
             if self._sharded else None)
+
+    def _place_params(self, params, copy: bool = True):
+        """Parameters as the step takes them: (w0, w, V) on the device
+        (:meth:`_stage_whole`); on a list mesh, one (w0, w, V) a member on
+        its device, a replica of its own of the table or member m's block
+        of the sharded one."""
+        if not self.mesh.is_list:
+            return self._stage_whole(params, copy)
+        staged = self._stage_whole(params, copy=False)
+        if self._sharded:
+            return _split_blocks(staged, self.mesh.devices, copy)
+        return self._replicas(staged)
+
+    def _start(self, params, seed: int):
+        """The step's parameters at the start of ``fit`` / ``fit_stream``:
+        a copy of ``params`` (either package's), or ``init_params(seed)``."""
+        if params is not None:
+            return self._place_params(params)
+        params = self.init_params(seed)
+        if self.mesh.is_list:
+            return self._place_params(params, copy=False)
+        return params
+
+    def _finish(self, params):
+        """What ``fit`` returns: the step's parameters, or on a list mesh
+        member 0's replica, or with the sharded table (w0, w, the members'
+        blocks); the members' parameters stay in ``replicas_``."""
+        if not self.mesh.is_list:
+            return params
+        self.replicas_ = params
+        return _returned(params, self._sharded)
 
     @property
     def _sharded_across(self) -> bool:
-        """Whether the table is sharded over the processes of a job."""
-        return self._sharded and self.group is not None
+        """Whether the sharded table lies in pieces: over the processes
+        of a job, or over the devices of a list mesh."""
+        return self._sharded and (self.group is not None
+                                  or self.mesh.is_list)
 
     def full_table(self, params) -> np.ndarray:
         """The complete [n_rows, k] embedding table on the host, whatever
-        the sharding (the serve/save shape). A collective where the table
-        is sharded over processes: every rank gets the gathered table."""
+        the sharding (the serve/save shape): a list mesh's blocks are
+        gathered on member 0's device. A collective where the table is
+        sharded over processes: every rank gets the gathered table."""
         V = params[2]
         if self._sharded_across:
             V = self._gather_rows(V)
@@ -622,11 +897,17 @@ class FMTrainer(DataParallelTrainer):
         stale, smaller one would drop gradient rows silently."""
         cfg = self.cfg
         group = self.group
+        listed = self.mesh.is_list
         if self._sharded:
+            if listed:
+                return lambda p, b: train_step_sparse_sharded_members(p, b,
+                                                                      cfg)
             first = self.mesh.first
             return lambda p, b: train_step_sparse_sharded(p, b, cfg, group,
                                                           first)
         if not self.sparse_grads:
+            if listed:
+                return lambda p, b: train_step_dense_members(p, b, cfg)
             return lambda p, b: train_step_dense(p, b, cfg, group)
         cap = self.sparse_capacity
         if cap is None:
@@ -636,6 +917,8 @@ class FMTrainer(DataParallelTrainer):
             if cfg.model == "ffm":
                 bound *= cfg.max_nnz
             cap = min(self.n_rows, bound)
+        if listed:
+            return lambda p, b: train_step_sparse_members(p, b, cfg, cap)
         return lambda p, b: train_step_sparse(p, b, cfg, cap, group)
 
     def _check_instances(self, feats, fields):
@@ -719,7 +1002,9 @@ class FMTrainer(DataParallelTrainer):
     def shard_data(self, feats, fields, vals, y, sample_weight=None):
         """Pad and shard padded-sparse instances (numpy or tensors):
         returns ``(feats, fields, vals, mask, y, sw)`` as member tensors
-        ``[n_local, per, ...]`` (this process's members). feats/fields:
+        ``[n_local, per, ...]`` (this process's members; on a list mesh,
+        lists of member m's ``[per, ...]`` rows on ``devices[m]``).
+        feats/fields:
         [N, K] int (K <= max_nnz); vals: [N, K] float; y: [N].
         ``sample_weight`` ([N]) scales each example's loss and gradient
         (the step normalizes by the job's weight sum, so integer weights
@@ -749,9 +1034,8 @@ class FMTrainer(DataParallelTrainer):
             raise Mp4jError("early_stopping_rounds requires an eval_set")
         batch = self.shard_data(feats, fields, vals, y,
                                 sample_weight=sample_weight)
-        step = self._step(int(batch[0].shape[1]) * self.cfg.max_nnz)
-        params = (self.init_params(seed) if params is None
-                  else self._place_params(params))
+        step = self._step(int(batch[0][0].shape[0]) * self.cfg.max_nnz)
+        params = self._start(params, seed)
         va = None if eval_set is None else self._prep_eval(*eval_set)
         stopper = EarlyStopper(early_stopping_rounds)
         self.eval_history_ = stopper.history
@@ -763,13 +1047,14 @@ class FMTrainer(DataParallelTrainer):
             exchanger.submit_loss(loss)
             if va is not None and stopper.update(
                     self._eval_loss(params, va), i,
-                    state=(tuple(p.clone() for p in params)
+                    state=(_snapshot(params)
                            if early_stopping_rounds is not None else None)):
                 if stopper.best_state is not None:
                     params = stopper.best_state
                     losses = losses[:stopper.best_round + 1]
                 break
         self.sync_loss_history_ = exchanger.loss_history()
+        params = self._finish(params)
         if not losses:
             return params, np.zeros(0, np.float32)
         return params, torch.stack(losses).cpu().numpy()
@@ -790,8 +1075,7 @@ class FMTrainer(DataParallelTrainer):
         after another. Over processes every rank streams the same
         chunks and stages its members' rows of each. Returns (params,
         per-chunk losses)."""
-        state = [self.init_params(seed) if params is None
-                 else self._place_params(params)]
+        state = [self._start(params, seed)]
 
         def dispatch(staged):
             batch, per_shard_slots = staged
@@ -800,7 +1084,7 @@ class FMTrainer(DataParallelTrainer):
 
         losses = self._stream_fit(batches, self._stage_stream_chunk,
                                   dispatch, batch_rows, max_in_flight)
-        return state[0], losses
+        return self._finish(state[0]), losses
 
     def _stage_stream_chunk(self, chunk, batch_rows: int | None):
         """Host half of one stream step: validate, copy to the device,
@@ -824,7 +1108,8 @@ class FMTrainer(DataParallelTrainer):
         if self._sharded_across:
             z = self._scores_sharded(params, feats, fields, vals, mask)
         else:
-            z = _score(params, feats, fields, vals, mask, self.cfg)
+            z = _score(params[0] if self.mesh.is_list else params, feats,
+                       fields, vals, mask, self.cfg)
         return float(torch.mean(per_example_loss(z, y, self.cfg.loss)))
 
     def _scores_sharded(self, params, feats, fields, vals, mask):
@@ -832,12 +1117,21 @@ class FMTrainer(DataParallelTrainer):
         the owner-routed row fetch (no member reads a row it does not
         own), one member a block of rows; over processes each rank scores
         its members' rows and every rank gets all N scores (a
-        collective)."""
+        collective); over a list mesh each member scores its rows on its
+        device and the scores are gathered on member 0's."""
         N = feats.shape[0]
         cfg = self.cfg
         local = [self._local_rows(a, N) for a in (feats, fields, vals, mask)]
         (f, fl, v, m), per, _ = self._pad_rows(local, N)
         f, fl, v, m = self._members([f, fl, v, m], per)
+        if self.mesh.is_list:
+            rows = [_slot_rows(a, b, cfg) for a, b in zip(f, fl)]
+            E, _ = _fetch_rows_members([p[2] for p in params],
+                                       [r.reshape(-1) for r in rows])
+            z = [_score_from_slots(p[0], p[1], e.reshape(r.shape + (cfg.k,)),
+                                   a, b * c, cfg)
+                 for p, r, e, a, b, c in zip(params, rows, E, f, v, m)]
+            return self._gather_rows(z)[:N]
         w0, w, V = params
         n = f.shape[0]
         rows = _slot_rows(f, fl, cfg)
@@ -858,7 +1152,8 @@ class FMTrainer(DataParallelTrainer):
         processes."""
         feats, fields, vals, mask = self._stage_instances(feats, fields,
                                                           vals)
-        params = self._place_params(params, copy=False)
+        params = (self._place_params(params, copy=False) if self._sharded
+                  else self._stage_whole(params, copy=False))
         with torch.no_grad():
             if self._sharded:
                 return _link(self._scores_sharded(params, feats, fields,

@@ -736,8 +736,6 @@ class GBDTTrainer(DataParallelTrainer):
     ``device`` raises Mp4jError). Over a list mesh the trees, margins and
     predictions live on member 0's device (``mesh.device``)."""
 
-    takes_list_mesh = True
-
     def __init__(self, cfg: GBDTConfig, mesh=None, n_devices=None,
                  device=None):
         super().__init__(mesh, n_devices, device)

@@ -18,6 +18,21 @@ bit. The sums are divided by the job's total sample weight, so padding
 rows (weight 0) and integer instance weights train exactly like the
 unpadded, duplicated rows.
 
+Over a list mesh (``make_mesh(n, devices=...)``, member m on
+``devices[m]``) a batch is a tuple of member lists, each member holds a
+replica of its own of ``(w, b)`` and the momentum, and computes its
+sums over its own rows on its device (:func:`train_step_members`); the
+members' sums are folded in rank order on member 0's device
+(``_base.fold_members``, the reference's ``psum``) and every member
+applies the same update, so the replicas stay bitwise equal. The fold
+is the process path's (one partial a member, in rank order), so on the
+CPU a list of n members equals n processes of one member bit for bit;
+against the packed mesh, whose one autograd pass sums the members' rows
+in another order, it agrees to rounding (rtol 1e-5). ``fit`` and
+``fit_stream`` return member 0's replica (every member's stays in
+``replicas_``); the eval set, ``predict`` and the returned parameters
+live on member 0's device.
+
 Losses: ``squared``, ``logistic`` ({0, 1} labels) and ``softmax`` (w is
 [F, C], labels are class ids). L2 is a penalty gradient added before the
 momentum update (not on the bias); L1 a proximal shrink after the step.
@@ -49,8 +64,8 @@ from ytk_mp4j_tpu_torch.exceptions import Mp4jError
 from ytk_mp4j_tpu_torch.models._base import (DataParallelTrainer,
                                              EarlyStopper,
                                              StepStatsExchanger, as_numpy,
-                                             as_tensor, job_sum,
-                                             per_example_loss,
+                                             as_tensor, fold_members,
+                                             job_sum, per_example_loss,
                                              stage_softmax_labels)
 
 LOSSES = ("squared", "logistic", "softmax")
@@ -73,31 +88,43 @@ class LinearConfig:
             raise Mp4jError("softmax needs n_classes >= 2")
 
 
-def _mean_loss_grad(params, x, y, sw, cfg: LinearConfig, group=None):
-    """The weighted-mean loss (data term only) and its gradient over the
-    local members' rows ``x`` [..., F]; with a process ``group``, the
-    job's: every rank's sums folded in rank order and divided by the
-    job's weight sum."""
+def _grad_sums(params, x, y, sw, cfg: LinearConfig):
+    """The weighted loss sum (data term only), the weight sum and the
+    loss sum's gradient over the rows ``x`` [..., F]: (sum_loss, sw_sum,
+    gw, gb)."""
     w, b = (p.detach().requires_grad_(True) for p in params)
     with torch.enable_grad():
         z = x @ w + b
         sum_loss = torch.sum(per_example_loss(z, y, cfg.loss) * sw)
         gw, gb = torch.autograd.grad(sum_loss, (w, b))
-    sum_loss, sw_sum = sum_loss.detach(), torch.sum(sw)
+    return sum_loss.detach(), torch.sum(sw), gw, gb
+
+
+def _means(sum_loss, sw_sum, gw, gb):
+    """Sums divided by the weight sum: (loss, (gw, gb))."""
+    denom = torch.clamp(sw_sum, min=1.0)
+    return sum_loss / denom, (gw / denom, gb / denom)
+
+
+def _mean_loss_grad(params, x, y, sw, cfg: LinearConfig, group=None):
+    """The weighted-mean loss (data term only) and its gradient over the
+    local members' rows ``x`` [..., F]; with a process ``group``, the
+    job's: every rank's sums folded in rank order and divided by the
+    job's weight sum."""
+    sum_loss, sw_sum, gw, gb = _grad_sums(params, x, y, sw, cfg)
     if group is not None:
         flat = job_sum(torch.cat([sum_loss.reshape(1), sw_sum.reshape(1),
                                   gw.reshape(-1), gb.reshape(-1)]), group)
         sum_loss, sw_sum = flat[0], flat[1]
         gw = flat[2: 2 + gw.numel()].reshape(gw.shape)
         gb = flat[2 + gw.numel():].reshape(gb.shape)
-    denom = torch.clamp(sw_sum, min=1.0)
-    return sum_loss / denom, (gw / denom, gb / denom)
+    return _means(sum_loss, sw_sum, gw, gb)
 
 
-def train_step_shard(params, vel, x, y, sw, cfg: LinearConfig, group=None):
-    """One optimization step over member batches (this process's members
-    of the job of ``group``). Returns (params, vel, loss)."""
-    loss, (gw, gb) = _mean_loss_grad(params, x, y, sw, cfg, group)
+def _update(params, vel, grads, cfg: LinearConfig):
+    """The momentum step with L2 and L1 from the mean gradients:
+    (params, vel)."""
+    gw, gb = grads
     w, b = params
     gw = gw + cfg.l2 * w                      # L2 penalty (not on bias)
     vw, vb = vel
@@ -109,7 +136,30 @@ def train_step_shard(params, vel, x, y, sw, cfg: LinearConfig, group=None):
         # proximal shrink keeps the objective smooth for momentum
         shrink = cfg.learning_rate * cfg.l1
         w = torch.sign(w) * torch.clamp(torch.abs(w) - shrink, min=0.0)
-    return (w, b), (vw, vb), loss
+    return (w, b), (vw, vb)
+
+
+def train_step_shard(params, vel, x, y, sw, cfg: LinearConfig, group=None):
+    """One optimization step over member batches (this process's members
+    of the job of ``group``). Returns (params, vel, loss)."""
+    loss, grads = _mean_loss_grad(params, x, y, sw, cfg, group)
+    return _update(params, vel, grads, cfg) + (loss,)
+
+
+def train_step_members(params, vel, x, y, sw, cfg: LinearConfig):
+    """:func:`train_step_shard` over a member list (a list mesh):
+    ``params`` and ``vel`` are lists of the members' replicas, ``x``,
+    ``y``, ``sw`` lists of their rows, each on its member's device. Each
+    member's sums over its rows are folded in rank order
+    (``_base.fold_members``) and every member applies the same update to
+    its replica. Returns (params, vel, member 0's loss)."""
+    sums = fold_members([_grad_sums(p, *b, cfg)
+                         for p, b in zip(params, zip(x, y, sw))])
+    out = []
+    for p, v, s in zip(params, vel, sums):
+        loss, grads = _means(*s)
+        out.append(_update(p, v, grads, cfg) + (loss,))
+    return [o[0] for o in out], [o[1] for o in out], out[0][2]
 
 
 def predict(params, x, cfg: LinearConfig):
@@ -133,7 +183,8 @@ def params_from_numpy(params, cfg: LinearConfig, mesh=None):
     """The reference's parameters ``(w, b)`` as numpy arrays (as
     ``ytk_mp4j_tpu`` trains or loads them) as the port's, on ``mesh``'s
     device (default: one member on ``cuda:0``; on a mesh over processes
-    every rank holds the whole replicated copy)."""
+    every rank holds the whole replicated copy; on a list mesh, member
+    0's device, as ``fit`` returns them)."""
     mesh = make_mesh(1) if mesh is None else mesh
     w, b = _stage_params(params, mesh.device)
     want = ((cfg.n_features, cfg.n_classes) if cfg.loss == "softmax"
@@ -146,13 +197,37 @@ def params_from_numpy(params, cfg: LinearConfig, mesh=None):
 class LinearTrainer(DataParallelTrainer):
     """Data-parallel linear/logistic/softmax regression over a mesh of
     members (``mesh``, or ``n_devices`` members on ``device``; ``cuda:0``
-    unless ``device="cpu"``), or over processes."""
+    unless ``device="cpu"``; a list mesh), or over processes."""
 
     def __init__(self, cfg: LinearConfig, mesh=None, n_devices=None,
                  device=None):
         super().__init__(mesh, n_devices, device)
         self.cfg = cfg
         self.eval_history_: list[float] = []
+        self.replicas_ = None
+
+    def _start(self, params):
+        """The step's (params, vel) from given parameters (either
+        package's) or zeros: one replica a member on a list mesh."""
+        params = (self.init_params() if params is None
+                  else _stage_params(params, self.device))
+        vel = tuple(torch.zeros_like(p) for p in params)
+        if self.mesh.is_list:
+            return self._replicas(params), self._replicas(vel)
+        return params, vel
+
+    def _train_step(self, params, vel, batch):
+        if self.mesh.is_list:
+            return train_step_members(params, vel, *batch, self.cfg)
+        return train_step_shard(params, vel, *batch, self.cfg, self.group)
+
+    def _finish(self, params):
+        """What ``fit`` returns: the parameters, or member 0's replica on
+        a list mesh (the members' replicas stay in ``replicas_``)."""
+        if self.mesh.is_list:
+            self.replicas_ = params
+            return params[0]
+        return params
 
     def init_params(self):
         cfg = self.cfg
@@ -207,7 +282,8 @@ class LinearTrainer(DataParallelTrainer):
     def shard_data(self, x, y, sample_weight=None):
         """Pad and shard ``x`` [N, F] and ``y`` [N] (numpy or tensors):
         returns member tensors ``(x, y, sw)`` [n_local, per, ...] (this
-        process's members). Padding rows weigh 0; ``sample_weight`` ([N])
+        process's members; on a list mesh, lists of member m's [per, ...]
+        rows on ``devices[m]``). Padding rows weigh 0; ``sample_weight`` ([N])
         scales each example's loss and gradient (integer weights == row
         duplication)."""
         x, y, N = self._stage_xy(x, y)
@@ -233,10 +309,8 @@ class LinearTrainer(DataParallelTrainer):
         drained at the loop's end (the same results, bit for bit)."""
         if early_stopping_rounds is not None and eval_set is None:
             raise Mp4jError("early_stopping_rounds requires an eval_set")
-        dx, dy, dsw = self.shard_data(x, y, sample_weight=sample_weight)
-        params = (self.init_params() if params is None
-                  else _stage_params(params, self.device))
-        vel = tuple(torch.zeros_like(p) for p in params)
+        batch = self.shard_data(x, y, sample_weight=sample_weight)
+        params, vel = self._start(params)
         va = None
         if eval_set is not None:
             x_va = self._stage_x(eval_set[0], "eval x")
@@ -250,8 +324,7 @@ class LinearTrainer(DataParallelTrainer):
         exchanger = StepStatsExchanger(comm)
         losses = []
         for i in range(n_steps):
-            params, vel, loss = train_step_shard(params, vel, dx, dy, dsw,
-                                                 self.cfg, self.group)
+            params, vel, loss = self._train_step(params, vel, batch)
             losses.append(loss)
             exchanger.submit_loss(loss)
             if va is not None and stopper.update(
@@ -261,6 +334,7 @@ class LinearTrainer(DataParallelTrainer):
                     losses = losses[:stopper.best_round + 1]
                 break
         self.sync_loss_history_ = exchanger.loss_history()
+        params = self._finish(params)
         if not losses:
             return params, np.zeros(0, np.float32)
         return params, torch.stack(losses).cpu().numpy()
@@ -276,18 +350,16 @@ class LinearTrainer(DataParallelTrainer):
         chunks; the loop double-buffers as ``FMTrainer.fit_stream``
         (``max_in_flight=0`` runs the steps one after another). Returns
         (params, per-chunk losses)."""
-        params = (self.init_params() if params is None
-                  else _stage_params(params, self.device))
-        state = [params, tuple(torch.zeros_like(p) for p in params)]
+        state = list(self._start(params))
 
         def dispatch(staged):
-            state[0], state[1], loss = train_step_shard(
-                state[0], state[1], *staged, self.cfg, self.group)
+            state[0], state[1], loss = self._train_step(state[0], state[1],
+                                                        staged)
             return loss
 
         losses = self._stream_fit(batches, self._stage_stream_chunk,
                                   dispatch, batch_rows, max_in_flight)
-        return state[0], losses
+        return self._finish(state[0]), losses
 
     def _stage_stream_chunk(self, chunk, batch_rows: int | None):
         """Host half of one stream step: validate, copy to the device,
@@ -305,7 +377,8 @@ class LinearTrainer(DataParallelTrainer):
         return self._members([x, y, sw], per), batch_rows
 
     def _eval_loss(self, params, va) -> float:
-        w, b = params
+        """The held-out loss, on member 0's replica on a list mesh."""
+        w, b = params[0] if self.mesh.is_list else params
         x, y = va
         return float(torch.mean(per_example_loss(x @ w + b, y,
                                                  self.cfg.loss)))

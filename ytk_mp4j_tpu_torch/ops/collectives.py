@@ -62,13 +62,16 @@ def _gather_to(x, device):
     return [t.to(device, non_blocking=True) for t in x]
 
 
-def _spread(v, devices):
-    """``v`` on every member's device: a list, one entry a member."""
-    return [v.to(d, non_blocking=True) for d in devices]
+def concat_on_first(x):
+    """Members ``x`` (a list) concatenated along dim 0 in rank order on
+    member 0's device: the list form's tiled gather."""
+    return torch.cat(_gather_to(_check_list(x), x[0].device))
 
 
-def _devices(x):
-    return [t.device for t in x]
+def spread(v, like):
+    """``v`` on the device of each member of ``like`` (a list): one entry
+    a member (``v`` itself for a member on ``v``'s device)."""
+    return [v.to(t.device, non_blocking=True) for t in like]
 
 
 def _replicate(v, n: int):
@@ -103,7 +106,7 @@ def reduce_all(x, operator: Operator = Operators.SUM):
 def allreduce(x, operator: Operator = Operators.SUM):
     """Every member gets the element-wise reduction."""
     if is_list(x):
-        return _spread(reduce_all(x, operator), _devices(x))
+        return spread(reduce_all(x, operator), x)
     return _replicate(reduce_all(x, operator), x.shape[0])
 
 
@@ -116,7 +119,7 @@ def reduce(x, operator: Operator = Operators.SUM, root: int = 0):
 def broadcast(x, root: int = 0):
     """Every member receives ``root``'s row."""
     if is_list(x):
-        return _spread(_check_list(x)[root], _devices(x))
+        return spread(_check_list(x)[root], x)
     return _replicate(x[root], x.shape[0])
 
 
@@ -124,9 +127,9 @@ def allgather(x, tiled: bool = True):
     """Every member gets the members' rows concatenated along dim 0
     (``tiled=True``) or stacked on a new leading axis."""
     if is_list(x):
-        parts = _gather_to(_check_list(x), x[0].device)
-        g = torch.cat(parts) if tiled else torch.stack(parts)
-        return _spread(g, _devices(x))
+        g = (concat_on_first(x) if tiled else
+             torch.stack(_gather_to(_check_list(x), x[0].device)))
+        return spread(g, x)
     n = x.shape[0]
     g = x.reshape((n * x.shape[1],) + tuple(x.shape[2:])) if tiled else x
     return _replicate(g, n)

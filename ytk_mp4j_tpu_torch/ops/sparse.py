@@ -4,14 +4,23 @@
 A member's sparse contribution is a pair of dense buffers: int32 key
 codes ``idx`` and values ``val`` (``[L]`` or ``[L, ...]``), unused slots
 carrying :data:`SENTINEL` and the operator's identity, so padding never
-changes a result. The member forms take the members' buffers as the rows
-of ``[n, L]`` / ``[n, L, ...]`` tensors on one device, as
-``ops/collectives.py`` does, and return what every member holds
+changes a result. The member forms take the members' buffers in either
+form of ``ops/collectives.py`` and return what every member holds
 afterwards::
 
     concatenate the members' (idx, val)   # the reference's all_gather
     stable sort by idx                    # payload rows follow their keys
     segment-reduce runs of equal idx      # into ``capacity`` slots
+
+- **packed**: the rows of ``[n, L]`` / ``[n, L, ...]`` tensors on one
+  device; results are ``[n, ...]``;
+- **list**: lists of n ``[L]`` / ``[L, ...]`` tensors, member m's on its
+  own device (``make_mesh(n, devices=...)``). The members' buffers are
+  copied to member 0's device and concatenated there in rank order, then
+  sorted and reduced there as the packed rows are, and member m's result
+  is copied to member m's device: a list of n tensors, bitwise the packed
+  form's rows. Members that share a device may share one result tensor
+  (copy before writing into it).
 
 The single-stream functions (:func:`sort_by_key`, :func:`pad_to`,
 :func:`segment_reduce_sorted`) are what the FM trainer's sparse steps
@@ -22,7 +31,8 @@ raises on them. Here such a target goes to one extra dump slot past the
 end, which is cut off afterwards: padding is never folded into the last
 live slot. Every builtin reduction folds a segment in stream order, as
 the reference's scatter does on the CPU; on a CUDA device float SUM adds
-with atomics, in an order that changes from run to run.
+with atomics, in an order that changes from run to run, unless the
+caller asks :func:`segment_reduce_sorted` for a fixed order.
 
 The host numpy twins at the end are copies of the reference's.
 """
@@ -33,6 +43,7 @@ import numpy as np
 import torch
 
 from ytk_mp4j_tpu_torch.operators import Operator, Operators
+from ytk_mp4j_tpu_torch.ops import collectives as coll
 
 # Index sentinel for padding slots: int32 max sorts to the end and is
 # never a legal key code.
@@ -94,16 +105,22 @@ def _segments(idx, capacity: int):
 
 
 def segment_reduce_sorted(idx, val, capacity: int,
-                          operator: Operator = Operators.SUM):
+                          operator: Operator = Operators.SUM,
+                          in_order: bool = False):
     """Reduce runs of equal index in an idx-sorted stream into at most
     ``capacity`` unique (idx, val) slots, packed at the front in
     ascending idx order, SENTINEL / identity after them. Runs past
     ``capacity`` are dropped, as the reference's segment ops drop them;
-    the run of SENTINEL slots never opens a live slot."""
+    the run of SENTINEL slots never opens a live slot. ``in_order``: a
+    CUDA float SUM adds each run in one fixed order
+    (``index_put_(accumulate=True)``: the same bits on every run, where
+    ``index_add_``'s atomics change from run to run)."""
     seg = _segments(idx, capacity)
     vshape = tuple(val.shape[1:])
     out_val = _identity_like(operator, val, (capacity + 1,) + vshape)
-    if operator == Operators.SUM:
+    if operator == Operators.SUM and in_order and val.device.type == "cuda":
+        out_val.index_put_((seg,), val, accumulate=True)
+    elif operator == Operators.SUM:
         out_val.index_add_(0, seg, val)
     elif operator in _SCATTER_REDUCE:
         out_val.scatter_reduce_(0, _rows(seg, val.dim()).expand_as(val),
@@ -151,22 +168,33 @@ def _replicate(x, n: int):
 
 def _gathered(idx, val):
     """The members' buffers concatenated in rank order (the reference's
-    tiled ``all_gather``): [n * L], [n * L, ...]."""
+    tiled ``all_gather``): [n * L], [n * L, ...]; a member list's on
+    member 0's device."""
+    if coll.is_list(idx):
+        return coll.concat_on_first(idx), coll.concat_on_first(val)
     n, L = idx.shape[:2]
     return idx.reshape(n * L), val.reshape((n * L,) + tuple(val.shape[2:]))
+
+
+def _every_member(like, *xs):
+    """One result ``xs`` for every member of ``like``: expanded over the
+    rows of a packed form, or copied to each member's device (a list)."""
+    if coll.is_list(like):
+        return tuple(coll.spread(x, like) for x in xs)
+    return tuple(_replicate(x, like.shape[0]) for x in xs)
 
 
 def sparse_allreduce(idx, val, capacity: int,
                      operator: Operator = Operators.SUM):
     """Key-union sparse allreduce over members ``idx`` [n, L] and ``val``
-    [n, L, ...]: every member receives the union of keys, values reduced
-    by ``operator``, packed ascending into ``capacity`` slots. Returns
-    [n, capacity] / [n, capacity, ...], one union expanded over the
-    members (a view: copy before writing into it)."""
-    n = idx.shape[0]
+    [n, L, ...] (or member lists): every member receives the union of
+    keys, values reduced by ``operator``, packed ascending into
+    ``capacity`` slots. Returns [n, capacity] / [n, capacity, ...], one
+    union expanded over the members (a view: copy before writing into
+    it), or lists of n, one a member on its device."""
     oi, ov = segment_reduce_sorted(*sort_by_key(*_gathered(idx, val)),
                                    capacity, operator)
-    return _replicate(oi, n), _replicate(ov, n)
+    return _every_member(idx, oi, ov)
 
 
 def block_owner(codes, size: int, n: int):
@@ -184,17 +212,11 @@ def block_owner(codes, size: int, n: int):
                        torch.full_like(owner, n))
 
 
-def sparse_reduce_scatter(idx, val, capacity: int, size: int,
-                          operator: Operator = Operators.SUM):
-    """The union reduced as by :func:`sparse_allreduce`, then member m
-    keeps only the keys it owns under the block partition of ``[0,
-    size)`` (:func:`block_owner`), packed ascending into ``capacity``
-    slots. Returns [n, capacity] / [n, capacity, ...]."""
-    n = idx.shape[0]
-    oi, ov = sparse_allreduce(idx, val, capacity, operator)
-    oi, ov = oi[0], ov[0]
-    members = torch.arange(n, device=idx.device).unsqueeze(1)
-    mine = block_owner(oi, size, n).unsqueeze(0) == members   # [n, cap]
+def _keep_owned(oi, ov, members, size: int, n: int, operator: Operator):
+    """Rows of the union ``(oi, ov)`` for each member rank of ``members``
+    ([m, 1]): the keys it owns, packed ascending to the front, SENTINEL /
+    identity after them. Returns [m, capacity] / [m, capacity, ...]."""
+    mine = block_owner(oi, size, n).unsqueeze(0) == members   # [m, cap]
     keep_i = torch.where(mine, oi.unsqueeze(0),
                          torch.full_like(oi, SENTINEL).unsqueeze(0))
     keep_v = torch.where(_rows(mine, ov.dim() + 1), ov.unsqueeze(0),
@@ -205,14 +227,31 @@ def sparse_reduce_scatter(idx, val, capacity: int, size: int,
     return si, torch.gather(keep_v, 1, order)
 
 
+def sparse_reduce_scatter(idx, val, capacity: int, size: int,
+                          operator: Operator = Operators.SUM):
+    """The union reduced as by :func:`sparse_allreduce`, then member m
+    keeps only the keys it owns under the block partition of ``[0,
+    size)`` (:func:`block_owner`), packed ascending into ``capacity``
+    slots. Returns [n, capacity] / [n, capacity, ...]; of member lists,
+    lists, member m's share computed on member m's device."""
+    oi, ov = sparse_allreduce(idx, val, capacity, operator)
+    if coll.is_list(idx):
+        n = len(idx)
+        shares = [_keep_owned(i, v, torch.tensor([[m]], device=i.device),
+                              size, n, operator)
+                  for m, (i, v) in enumerate(zip(oi, ov))]
+        return [i[0] for i, _ in shares], [v[0] for _, v in shares]
+    n = idx.shape[0]
+    members = torch.arange(n, device=idx.device).unsqueeze(1)
+    return _keep_owned(oi[0], ov[0], members, size, n, operator)
+
+
 def sparse_allgather(idx, val):
     """Every member's entries concatenated and sorted by key: the
     disjoint-union gather of the map family. Returns [n, n * L] / [n, n *
-    L, ...], live entries ascending, SENTINEL padding at the end;
-    duplicate codes across members stay as adjacent entries."""
-    n = idx.shape[0]
-    si, sv = sort_by_key(*_gathered(idx, val))
-    return _replicate(si, n), _replicate(sv, n)
+    L, ...] (or lists of n), live entries ascending, SENTINEL padding at
+    the end; duplicate codes across members stay as adjacent entries."""
+    return _every_member(idx, *sort_by_key(*_gathered(idx, val)))
 
 
 def sparse_to_dense(idx, val, size: int,
@@ -220,7 +259,11 @@ def sparse_to_dense(idx, val, size: int,
     """Scatter (idx, val) into a dense identity-filled [size] vector (or
     [size, ...]); SENTINEL and other out-of-range slots are dropped.
     ``idx`` [L] gives one vector; member buffers ``idx`` [n, L] give one
-    per member, [n, size, ...]."""
+    per member, [n, size, ...]; member lists give a list, member m's
+    vector on its device."""
+    if coll.is_list(idx):
+        return [sparse_to_dense(i, v, size, operator)
+                for i, v in zip(idx, val)]
     lead = idx.shape[:-1]
     m = int(np.prod(lead)) if lead else 1
     L = idx.shape[-1]
