@@ -51,15 +51,20 @@ as a user calls them, and the device planes' collectives traced
 Slice 12, members on a device list: ``make_mesh(n, devices=[...])``, one
 member a tensor of its own on its list entry, in one process -- GBDT,
 ``GpuCommCluster(mesh=)`` and the ring kernel launched a member at a
-time (``ring_kernel.cu``, each member on a stream of its own, its
-neighbours' slots and flags reached through device pointer tables). One
-card runs the whole path with the list ``["cuda:0"] * n``.
+time. One card runs the whole path with the list ``["cuda:0"] * n``.
 
 Slice 13, the rest of the list form: ``FMTrainer`` (dense, sparse,
 sharded) and ``LinearTrainer`` over ``make_mesh(4, devices=[...])``, the
 map family of ``GpuCommCluster(mesh=<list mesh>)``, and
 ``entry.dryrun(n, devices=[...])``, the counterpart of the reference's
 ``dryrun_multichip``, whose members are chips.
+
+Slice 14, the list form's ring kernel redesigned (``ring_member.cu``):
+each member's launch reads the chunks it owes straight from every
+member's input and folds each in the ring's order; CUDA events order
+the launches (no flag, no spin); an allreduce is one launch a member
+below a size threshold and two above it (fold the owned chunk, then
+copy the others from their owners).
 
 Phases:
 
@@ -224,16 +229,26 @@ Phases:
     ``GpuCommCluster(mesh=<list mesh>).allreduce_array(algo="rdma")``, the
     histogram payload bidirectional and configs[1] (reduce-scatter then
     allgather over 8) through the ring kernel launched a member at a
-    time (4 + 8 + 8 one-way launches, 4 two-way); then each result held
-    against its plain version and BITWISE against the packed launch on
-    the stacked members, the trees and margins bitwise the packed
+    time (``ring_member.cu``: the launches each call's plan makes -- one
+    a member, two a member for an allreduce above
+    ``ring_kernel.ONE_SHOT_BYTES``); then each result held against its
+    plain version and BITWISE against the packed launch on the stacked
+    members, the trees and margins bitwise the packed
     ``make_mesh(4)``'s, trees/s in 10 pairs in turns against the packed
-    form, each ring call's device ms (``torch.profiler``: the span from
-    the first member's kernel start to the last one's end, and the sum of
-    the members' kernel times), the packed launch's, the plain version's
-    and the library's ms beside the bound (HBM bytes at 3.35 TB/s: one
-    card moves no NVLink byte); ``stall_member`` on a list raising at its
-    spin bound; ``checkgpu --devices cuda:0 x 8`` (618 checks on the
+    form, each ring call's device ms (``torch.profiler``, calls told
+    apart by ``torch.cuda._sleep`` marker kernels between them: the span
+    from the call's first kernel start to its last one's end, and the sum
+    of its kernels' times), its ms by CUDA events around back-to-back
+    calls (host included), the packed launch's, the plain version's and
+    the library's ms beside the bound (HBM bytes at 3.35 TB/s: one card
+    moves no NVLink byte); the member kernel held BITWISE against its
+    plain version and the packed launch over phase 5's grid (every mode,
+    both directions, both allreduce forms, each call made twice with no
+    synchronize between); a list call refusing ``spin_s``; the one-shot
+    threshold's sweep (allreduces of 4 and 8 f32 members, one launch a
+    member against two, in turns, by CUDA events) and configs[1]'s spans
+    at 1, 2 and 4 blocks an SM (the plan's two per-SM constants);
+    ``checkgpu --devices cuda:0 x 8`` (618 checks on the
     card's list and on a CPU list, the ring kernels launched a member at
     a time). Then the list trainers (slice 13): ``entry.dryrun(4,
     devices=["cuda:0"] * 4)`` with every launch count set to 0 just
@@ -270,6 +285,7 @@ Usage: ``python3 chip_smoke.py`` from the repo root (no arguments; the
 script starts itself with ``--rank-worker`` for phases 8, 9 and 10).
 """
 
+import bisect
 import contextlib
 import hashlib
 import io
@@ -1044,9 +1060,10 @@ def ring_data(shape, dt, gen, dev):
                          device=dev).to(dt)
 
 
-def device_ms(fn, reps=TIMING_REPS, match=None):
+def device_ms(fn, reps=TIMING_REPS, match=None, copies=False):
     """Mean device ms of the kernels ``fn`` launches (those whose name
-    holds ``match``, default all; copies and fills excluded), from
+    holds ``match``, default all; copies and fills excluded unless
+    ``copies``), from
     ``torch.profiler`` over ``reps`` calls after one warm-up: the host's
     launch latency between calls counts on no side. A profile with no
     device time is taken again, PROFILE_ATTEMPTS times at most."""
@@ -1063,7 +1080,8 @@ def device_ms(fn, reps=TIMING_REPS, match=None):
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = e.self_cuda_time_total
-            if us and "Memcpy" not in e.key and "Memset" not in e.key \
+            moves = "Memcpy" in e.key or "Memset" in e.key
+            if us and (copies or not moves) \
                     and (match is None or match in e.key):
                 total += us
         if total > 0:
@@ -3151,8 +3169,13 @@ def run_examples_and_traces():
 # ----------------------------------------------------------------------
 LIST_RING_MEMBERS = 8              # configs[1]'s members
 NVLINK_BYTES_PER_S = 450e9         # H100 NVLink to one peer, each way
-STALL_SPIN_S = 0.5                 # the stalled ring's spin bound
 MEMBER_ERR = {"ring_kernel": 0.0, "ring_kernel_bidir": 0.0}
+MARK_CYCLES = 1000                 # the marker kernel between profiled calls
+SWEEP_MEMBERS = (4, 8)             # the one-shot threshold's sweep
+SWEEP_LENGTHS = tuple(1 << k for k in (12, 14, 16, 18, 20, 21, 22, 23,
+                                        24))    # f32 elements a member
+PER_SM = (1, 2, 4)                 # blocks an SM tried for the member plan
+SWEEP_REPS = 20
 
 
 def list_devices(n, cards=1):
@@ -3174,43 +3197,71 @@ def member_held(name, got, packed, plain, what):
         check(same(t, b), f"{what}: member {r} != plain")
 
 
-def device_span_ms(fn, launches, reps=TIMING_REPS, match="ring_"):
-    """Device time of a call made of ``launches`` kernels (those whose name
-    holds ``match``) that run at once on several streams or cards, from
-    ``torch.profiler`` over ``reps`` calls after one warm-up: (the mean
-    span from the first kernel's start to the last one's end, the mean
-    sum of the kernels' times). Calls do not overlap (each reads its
-    error words), while a call's members all run together (each spins on
-    its neighbours): kernels that overlap in time form one call. Only
-    calls whose every kernel the profiler recorded count (CUPTI now and
-    then drops a few); at least half of them must."""
+def device_span_ms(fn, counter, reps=TIMING_REPS, match="ring_"):
+    """Device time of one list call, from ``torch.profiler`` over ``reps``
+    calls after one warm-up: (the mean span from the call's first
+    kernel's start to its last one's end, the mean sum of its kernels'
+    times, its launches). A call's kernels are those whose name holds
+    ``match``, as many as ``counter.last_plan`` launches. Marker kernels
+    (``torch.cuda._sleep``: ATen's ``spin_kernel``) on the current stream
+    between the calls tell them apart: a call's launches all start after
+    the marker before it (they wait on its cards' ready events) and end
+    before the marker after it (the current stream waits on every
+    launch), whichever stream or card they ran on. Only calls whose
+    every kernel the profiler recorded count (CUPTI now and then drops a
+    few); at least half of them must."""
     fn()
     torch.cuda.synchronize()
+    launches = counter.last_plan.launches
     for _ in range(PROFILE_ATTEMPTS):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
+                torch.cuda._sleep(MARK_CYCLES)
                 fn()
+            torch.cuda._sleep(MARK_CYCLES)
             torch.cuda.synchronize()
-        kern = sorted(
-            (e.time_range.start, e.time_range.end) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and match in e.name)
-        calls = []
+        marks, kern = [], []
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            if "spin_kernel" in e.name:
+                marks.append(e.time_range.start)
+            elif match in e.name:
+                kern.append((e.time_range.start, e.time_range.end))
+        marks.sort()
+        calls = [[] for _ in marks[1:]]
         for start, end in kern:
-            if calls and start < max(e for _, e in calls[-1]):
-                calls[-1].append((start, end))
-            else:
-                calls.append([(start, end)])
+            k = bisect.bisect(marks, start) - 1
+            if 0 <= k < len(calls):
+                calls[k].append((start, end))
         whole = [c for c in calls if len(c) == launches]
         if 2 * len(whole) >= reps:
             break
     check(2 * len(whole) >= reps,
           f"the profiler saw {len(whole)} whole calls of {launches} "
-          f"kernels in {reps} ({len(kern)} kernels)")
+          f"kernels in {reps} ({len(kern)} kernels, {len(marks)} markers)")
     spans = [max(e for _, e in c) - min(s for s, _ in c) for c in whole]
     sums = [sum(e - s for s, e in c) for c in whole]
-    return sum(spans) / len(whole) / 1e3, sum(sums) / len(whole) / 1e3
+    return (sum(spans) / len(whole) / 1e3, sum(sums) / len(whole) / 1e3,
+            launches)
+
+
+def call_ms(fn, reps=SWEEP_REPS):
+    """Mean ms of ``reps`` back-to-back calls by CUDA events on the
+    current stream, after one warm-up: nothing synchronizes between the
+    calls, so this is the device's time or the host's, whichever is the
+    longer -- what a caller that issues calls one after another pays."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def nvlink_bound_ms(mode, n, length, dt, ndir):
@@ -3225,21 +3276,25 @@ def nvlink_bound_ms(mode, n, length, dt, ndir):
 
 def member_row(name, mode, n, length, dt, ndir, kernel, packed, plain,
                library, cards=1, nccl=None, measured=None):
-    """One list call timed: the member launches' span and sum, the packed
-    launch's, the plain version's and the library's device ms, and the
-    bound (HBM bytes; across cards also NVLink bytes). ``measured``: phase
-    6's row of the same call on the same shapes, whose packed (cluster
-    path), plain and library ms this run already took; else they are
-    measured here."""
-    span, total = device_span_ms(kernel, n)
+    """One list call timed: the member launches' span and sum, their ms
+    by CUDA events around back-to-back calls (host included), the
+    packed launch's, the plain version's (the list's, ``plain``, copies
+    included: an allgather's plain version is nothing else) and the
+    library's device ms, and the bound (HBM bytes; across cards also
+    NVLink bytes). ``measured``: phase 6's row of the same call on the
+    same shapes, whose packed (cluster path) and library ms this run
+    already took; else they are measured here."""
+    span, total, launches = device_span_ms(kernel, COUNTERS[name])
     lp = COUNTERS[name].last_plan
     if measured is None:
         measured = dict(ms=device_ms(packed, match="ring_"),
-                        plain_ms=device_ms(plain),
                         library_ms=device_ms(library))
     row = dict(call=name, mode=mode, n=n, length=length, dtype=str(dt),
-               cards=cards, cols=lp.cols, ms=span, member_sum_ms=total,
-               packed_ms=measured["ms"], plain_ms=measured["plain_ms"],
+               cards=cards, launches=launches, rounds=lp.rounds,
+               cols=list(lp.cols), ms=span, member_sum_ms=total,
+               event_ms=call_ms(kernel, TIMING_REPS),
+               packed_ms=measured["ms"],
+               plain_ms=device_ms(plain, copies=True),
                library_ms=measured["library_ms"],
                bound_ms=ring_bound_ms(mode, n, length, dt), bound_by="bytes")
     if cards > 1:
@@ -3248,16 +3303,146 @@ def member_row(name, mode, n, length, dt, ndir, kernel, packed, plain,
         if nccl is not None:
             row["nccl_ms"] = device_ms(nccl)
     torch.cuda.empty_cache()
-    print(f"{row['call']} ({cards} card(s)): member path, {n} launches of "
-          f"{lp.cols} blocks, span {span:.4f} ms (members' kernels summed "
-          f"{total:.4f} ms), packed launch {row['packed_ms']:.4f} ms, plain "
-          f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
-          f"bound {row['bound_ms']:.4f} ms"
+    print(f"{row['call']} ({cards} card(s)): member path, {launches} "
+          f"launches ({n} members x {lp.rounds} round(s), columns "
+          f"{row['cols']} a job), span {span:.4f} ms (members' kernels "
+          f"summed {total:.4f} ms; CUDA events around back-to-back calls "
+          f"{row['event_ms']:.4f} ms), packed launch "
+          f"{row['packed_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+          f"library {row['library_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms"
           + (f" (NVLink {row['nvlink_bound_ms']:.4f} ms, NCCL "
              f"{row.get('nccl_ms', float('nan')):.4f} ms)" if cards > 1
              else " (HBM bytes: one card moves no NVLink byte)"),
           flush=True)
     return row
+
+
+def per_sm_spans(name, kernel, knob):
+    """The span of one list call with ``ring_kernel.<knob>`` (the member
+    plan's ``FOLD_BLOCKS_PER_SM`` or ``COPY_BLOCKS_PER_SM``) set to each
+    of PER_SM, restored after: the measurement behind the constant."""
+    real = getattr(rk, knob)
+    spans = {}
+    try:
+        for v in PER_SM:
+            setattr(rk, knob, v)
+            rk.member_plan.cache_clear()
+            spans[v] = device_span_ms(kernel, COUNTERS[name])[0]
+    finally:
+        setattr(rk, knob, real)
+        rk.member_plan.cache_clear()
+    print(f"{knob} (now {real}): span by blocks an SM "
+          + ", ".join(f"{v}: {ms:.4f} ms" for v, ms in spans.items()),
+          flush=True)
+    return spans
+
+
+def phase_member_checks(dev):
+    """The member kernel against its plain version (the list's) and the
+    packed launch, BITWISE (NaN as NaN), over phase 5's grid: both
+    directions, allreduce in one launch a member and in two, reduce-
+    scatter and allgather, every operator and dtype, n in RING_MEMBERS;
+    every call made twice with no synchronize between the two."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    ops = (Operators.SUM, Operators.PROD, Operators.MAX, Operators.MIN)
+    cases = 0
+    t0 = time.perf_counter()
+
+    def twice(name, call, packed, plain, what):
+        first, again = call(), call()
+        member_held(name, first, packed, plain, what)
+        member_held(name, again, packed, plain, what + " (again)")
+
+    for dt in RING_DTYPES:
+        c = 2 * rk.granule(dt, dev) * 3     # RS/AG chunk: both halves odd
+        for n in RING_MEMBERS:
+            forms = ("one_shot", "two_round") if n > 1 else ("one_shot",)
+            for bidir in (False, True):
+                name = "ring_kernel_bidir" if bidir else "ring_kernel"
+                for op in ops:
+                    x = ring_data((n, 1001 + 2 * n), dt, gen, dev)
+                    if dt.is_floating_point and op.name in ("MAX", "MIN"):
+                        x[0, 3] = x[n - 1, 700] = float("nan")
+                    xs = [t.clone() for t in x]
+                    packed = rk.ring_allreduce_kernel(x, op, bidir,
+                                                      force_kernel=True)
+                    plain = rk.ring_allreduce_reference(xs, op, bidir,
+                                                        force_kernel=True)
+                    for form in forms:
+                        twice(name, lambda: rk.ring_allreduce_kernel(
+                            xs, op, bidir, force_kernel=True, path=form),
+                            packed, plain,
+                            f"member allreduce {form} {dt} n={n} {op.name}")
+                        cases += 1
+                    x = ring_data((n, n * c), dt, gen, dev)
+                    xs = [t.clone() for t in x]
+                    twice(name, lambda: rk.ring_reduce_scatter_kernel(
+                        xs, op, bidir, force_kernel=True),
+                        rk.ring_reduce_scatter_kernel(x, op, bidir,
+                                                      force_kernel=True),
+                        rk.ring_reduce_scatter_reference(
+                            xs, op, bidir, force_kernel=True),
+                        f"member reduce_scatter {dt} n={n} {op.name}")
+                    cases += 1
+                x = ring_data((n, c), dt, gen, dev)
+                xs = [t.clone() for t in x]
+                twice(name, lambda: rk.ring_allgather_kernel(
+                    xs, bidir, force_kernel=True),
+                    rk.ring_allgather_kernel(x, bidir, force_kernel=True),
+                    rk.ring_allgather_reference(xs, bidir,
+                                                force_kernel=True),
+                    f"member allgather {dt} n={n}")
+                cases += 1
+    torch.cuda.synchronize()
+    print(f"member ring kernel == plain == packed, bitwise, in {cases} "
+          f"cases, each made twice ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    return cases
+
+
+def member_threshold_sweep(dev):
+    """The measurement behind ``ring_kernel.ONE_SHOT_BYTES``: allreduces
+    of n f32 members on cuda:0 (n in SWEEP_MEMBERS, lengths
+    SWEEP_LENGTHS), one launch a member (every member folds every chunk)
+    against two (fold the owned chunk, then copy the others), each
+    ``call_ms`` in turns (one, two, two, one), the two forms' results
+    held bitwise. Returns the rows and, per n, the largest inputs' bytes
+    at which one launch was not slower than two."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    rows = []
+    crossover = {}
+    for n in SWEEP_MEMBERS:
+        crossover[n] = 0
+        for length in SWEEP_LENGTHS:
+            xs = list(torch.randn((n, length), generator=gen, device=dev))
+            one = lambda: rk.ring_allreduce_kernel(xs, path="one_shot")
+            two = lambda: rk.ring_allreduce_kernel(xs, path="two_round")
+            a, b = one(), two()
+            check(all(same(p, q) for p, q in zip(a, b)),
+                  f"one launch != two launches at n={n}, L={length}")
+            del a, b
+            times = {"one_shot": [], "two_round": []}
+            for form, fn in (("one_shot", one), ("two_round", two),
+                             ("two_round", two), ("one_shot", one)):
+                times[form].append(call_ms(fn))
+            row = dict(n=n, length=length, input_bytes=n * length * 4,
+                       one_shot_ms=sum(times["one_shot"]) / 2,
+                       two_round_ms=sum(times["two_round"]) / 2)
+            rows.append(row)
+            if row["one_shot_ms"] <= row["two_round_ms"]:
+                crossover[n] = row["input_bytes"]
+            print(f"threshold sweep n={n} L={length} ({row['input_bytes']} "
+                  f"B of inputs): one launch a member "
+                  f"{row['one_shot_ms']:.4f} ms, two "
+                  f"{row['two_round_ms']:.4f} ms", flush=True)
+            del xs
+            torch.cuda.empty_cache()
+    print(f"one-shot threshold: one launch a member was not slower up to "
+          f"{crossover} B of inputs (by n); ring_kernel.ONE_SHOT_BYTES = "
+          f"{rk.ONE_SHOT_BYTES}", flush=True)
+    return {"rows": rows, "one_shot_not_slower_up_to": crossover,
+            "one_shot_bytes": rk.ONE_SHOT_BYTES}
 
 
 def trees_bitwise(a, b, what):
@@ -3319,11 +3504,17 @@ def run_device_list(ring_record, slice6):
           f"cuda:0): GBDT {TIMED_TREES} trees {1 / tree_s:.3f} trees/s "
           f"(host clock {host_s:.3f} s), launches by path {counts}",
           flush=True)
+    # configs[0] and the histogram payload divide into equal chunks, so
+    # their rows need no padding: the plan's rounds follow from L
+    one_way = (MEMBERS * rk.allreduce_rounds(MEMBERS, CONFIG0_LEN,
+                                             torch.float32)
+               + 2 * LIST_RING_MEMBERS)
+    two_way = MEMBERS * rk.allreduce_rounds(MEMBERS, HIST_PAYLOAD,
+                                            torch.float32)
     want = {"hist_kernel": DEPTH * TIMED_TREES * MEMBERS,
-            "ring_kernel": MEMBERS + 2 * LIST_RING_MEMBERS,
-            "ring_kernel.member": MEMBERS + 2 * LIST_RING_MEMBERS,
-            "ring_kernel_bidir": MEMBERS,
-            "ring_kernel_bidir.member": MEMBERS}
+            "ring_kernel": one_way, "ring_kernel.member": one_way,
+            "ring_kernel_bidir": two_way,
+            "ring_kernel_bidir.member": two_way}
     for k, v in want.items():
         check(counts[k] == v, f"device list: {k} launched {counts[k]} "
               f"times, want {v}")
@@ -3367,51 +3558,58 @@ def run_device_list(ring_record, slice6):
     for r in range(MEMBERS):
         check(np.array_equal(arrs[r], packed_arrs[r]),
               f"configs[0] list rank {r} != the packed cluster")
+    xs = list(stacked)
     member_held("ring_kernel",
                 [torch.from_numpy(a).to(dev) for a in arrs],
-                rk.ring_allreduce_kernel(stacked), plain, "configs[0]")
+                rk.ring_allreduce_kernel(stacked),
+                rk.ring_allreduce_reference(xs), "configs[0]")
+    check(all(same(p, q) for p, q in zip(rk.ring_allreduce_reference(xs),
+                                         plain)),
+          "configs[0]: the member plain version != the ring's")
     rows = {"ring_kernel": [], "ring_kernel_bidir": []}
-    xs = list(stacked)
     rows["ring_kernel"].append(member_row(
         "ring_kernel", "allreduce", MEMBERS, CONFIG0_LEN, torch.float32, 1,
         lambda: rk.ring_allreduce_kernel(xs),
         lambda: rk.ring_allreduce_kernel(stacked),
-        lambda: rk.ring_allreduce_reference(stacked),
+        lambda: rk.ring_allreduce_reference(xs),
         replicated_sum(stacked), measured=phase6("ring_kernel", 0)))
     rows["ring_kernel"][-1]["call"] = "configs[0] allreduce 4 x 1M f32"
+    hs = list(hist)
     member_held("ring_kernel_bidir", hist_out,
                 rk.ring_allreduce_kernel(hist, bidirectional=True),
-                rk.ring_allreduce_reference(hist, bidirectional=True),
+                rk.ring_allreduce_reference(hs, bidirectional=True),
                 "histogram payload")
-    hs = list(hist)
     rows["ring_kernel_bidir"].append(member_row(
         "ring_kernel_bidir", "allreduce", MEMBERS, HIST_PAYLOAD,
         torch.float32, 2,
         lambda: rk.ring_allreduce_kernel(hs, bidirectional=True),
         lambda: rk.ring_allreduce_kernel(hist, bidirectional=True),
-        lambda: rk.ring_allreduce_reference(hist, bidirectional=True),
+        lambda: rk.ring_allreduce_reference(hs, bidirectional=True),
         replicated_sum(hist), measured=phase6("ring_kernel_bidir", 0)))
     rows["ring_kernel_bidir"][-1]["call"] = (
         "histogram payload allreduce 4 x 2x16x28x256 f32 bidir")
     packed_rs = rk.ring_reduce_scatter_kernel(big)
+    bs = list(big)
     member_held("ring_kernel", scattered, packed_rs,
-                rk.ring_reduce_scatter_reference(big),
+                rk.ring_reduce_scatter_reference(bs),
                 "configs[1] reduce-scatter")
     torch.cuda.empty_cache()
-    bs = list(big)
     rows["ring_kernel"].append(member_row(
         "ring_kernel", "reduce_scatter", LIST_RING_MEMBERS, CONFIG1_LEN,
         torch.float64, 1, lambda: rk.ring_reduce_scatter_kernel(bs),
         lambda: rk.ring_reduce_scatter_kernel(big),
-        lambda: rk.ring_reduce_scatter_reference(big),
+        lambda: rk.ring_reduce_scatter_reference(bs),
         lambda: big.sum(0).view(LIST_RING_MEMBERS, -1),
         measured=phase6("ring_kernel", 1)))
     rows["ring_kernel"][-1]["call"] = "configs[1] reduce-scatter 8 x 256M f64"
+    rows["ring_kernel"][-1]["span_by_blocks_per_sm"] = per_sm_spans(
+        "ring_kernel", lambda: rk.ring_reduce_scatter_kernel(bs),
+        "FOLD_BLOCKS_PER_SM")
     del big, bs
     torch.cuda.empty_cache()
     packed_ag = rk.ring_allgather_kernel(packed_rs)
     member_held("ring_kernel", gathered, packed_ag,
-                rk.ring_allgather_reference(packed_rs),
+                rk.ring_allgather_reference(scattered),
                 "configs[1] allgather")
     del gathered, packed_ag
     torch.cuda.empty_cache()
@@ -3420,36 +3618,31 @@ def run_device_list(ring_record, slice6):
         "ring_kernel", "allgather", LIST_RING_MEMBERS, c, torch.float64, 1,
         lambda: rk.ring_allgather_kernel(scattered),
         lambda: rk.ring_allgather_kernel(packed_rs),
-        lambda: rk.ring_allgather_reference(packed_rs),
+        lambda: rk.ring_allgather_reference(scattered),
         lambda: packed_rs.reshape(-1).expand(LIST_RING_MEMBERS,
                                              -1).contiguous(),
         measured=phase6("ring_kernel", 2)))
     rows["ring_kernel"][-1]["call"] = "configs[1] allgather 8 x 32M f64"
+    rows["ring_kernel"][-1]["span_by_blocks_per_sm"] = per_sm_spans(
+        "ring_kernel", lambda: rk.ring_allgather_kernel(scattered),
+        "COPY_BLOCKS_PER_SM")
     del scattered, packed_rs
     torch.cuda.empty_cache()
     part("rings")
 
-    # ---- a stalled member raises at the spin bound ----------------------
-    small = list(stacked[:, :100_000])
-    for m in (0, MEMBERS - 1):
-        t1 = time.perf_counter()
-        try:
-            rk.ring_allreduce_kernel(small, spin_s=STALL_SPIN_S,
-                                     stall_member=m)
-            raised = None
-        except Mp4jError as e:
-            raised = str(e)
-        took = time.perf_counter() - t1
-        check(raised is not None and "spin bound" in raised
-              and took < 10 * STALL_SPIN_S + 5,
-              f"stall_member={m} on a list: {raised!r} after {took:.2f} s")
-        print(f"stall_member={m} on a list raised in {took:.2f} s: {raised}",
-              flush=True)
-    after = rk.ring_allreduce_kernel(small)
-    ref = rk.ring_allreduce_reference(stacked[:, :100_000])
-    check(all(same(after[r], ref[r]) for r in range(MEMBERS)),
-          "the ring after a stalled call is wrong")
-    part("stall")
+    # ---- the member kernel over phase 5's grid; the refusal; the sweep ---
+    member_cases = phase_member_checks(dev)
+    try:
+        rk.ring_allreduce_kernel(xs, spin_s=0.5)
+        refused = None
+    except Mp4jError as e:
+        refused = str(e)
+    check(refused is not None and "spin_s and stall_member" in refused,
+          f"a list call with spin_s: {refused!r}")
+    print(f"a list call with spin_s=0.5 is refused: {refused}", flush=True)
+    part("member checks")
+    sweep = member_threshold_sweep(dev)
+    part("threshold sweep")
 
     # ---- checkgpu over the list ------------------------------------------
     gpath = os.path.join(OUT_DIR, "checkgpu_list.json")
@@ -3494,7 +3687,7 @@ def run_device_list(ring_record, slice6):
                            "packed_ms", "member_sum_ms")}
         entries.append({
             "name": f"{name}.member", "route": "cuda",
-            "source": "ytk_mp4j_tpu_torch/ops/csrc/ring_kernel.cu",
+            "source": "ytk_mp4j_tpu_torch/ops/csrc/ring_member.cu",
             "replaces": "ytk_mp4j_tpu/ops/ring_kernel.py" + replaces[name],
             "path": "member", "launches": counts[f"{name}.member"],
             "max_abs_err": MEMBER_ERR[name], "ms": total["ms"],
@@ -3505,6 +3698,7 @@ def run_device_list(ring_record, slice6):
     return entries, {"counts": counts, "trees_per_s": 1 / tree_s,
                      "host_s": host_s, "turns": turns,
                      "tree_profile": profile, "calls": rows,
+                     "member_cases": member_cases, "threshold_sweep": sweep,
                      "checkgpu_passed": g["passed"],
                      "checkgpu_cpu_passed": g["cpu_mesh"]["passed"],
                      "trainers": trainers, "distinct_cards": distinct,
@@ -3590,8 +3784,9 @@ def run_list_dryrun(devs):
     torch.cuda.synchronize()
     s = time.perf_counter() - t0
     counts = read_counts()
-    want = {"hist_kernel": n * sum(DRYRUN_DEPTHS), "ring_kernel": n,
-            "ring_kernel.member": n, "ring_kernel_bidir": 0}
+    ring = n * rk.allreduce_rounds(n, 16, torch.float32)  # 16-float arrays
+    want = {"hist_kernel": n * sum(DRYRUN_DEPTHS), "ring_kernel": ring,
+            "ring_kernel.member": ring, "ring_kernel_bidir": 0}
     for k, v in want.items():
         check(counts[k] == v, f"dryrun over {devs}: {k} launched "
               f"{counts[k]} times, want {v}")

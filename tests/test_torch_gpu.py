@@ -15,8 +15,10 @@ the dense plane over processes --, two NCCL ranks on one card refused,
 the kernel's scale seeded from the job, the in-order row adds that keep a
 replicated table identical on every rank); and the list form (members on
 a device list, ``make_mesh(n, devices=["cuda:0"] * n)``): the ring kernel
-launched a member at a time against the packed launch and the plain
-version, its refusals and its spin bound, ``GpuCommCluster(mesh=)``
+launched a member at a time (``ring_member.cu``) against the packed
+launch and the plain version on both sides of the one-shot threshold,
+its launch counts, its refusals and calls made back to back with no
+synchronize between them, ``GpuCommCluster(mesh=)``
 (dense and map families) and GBDT over a list, bitwise the packed form,
 FFM on every gradient path and linear over a list against the packed
 form at rtol 1e-5, and ``entry.dryrun`` over a list. Every test skips
@@ -774,55 +776,76 @@ def _cards(n):
 def test_member_launches_equal_packed_and_plain(cuda, dt, n, bidir):
     """Each member a launch of its own (one card, n streams): every mode
     and operator equals the packed launch and the plain version bit for
-    bit, and each call counts n member launches."""
+    bit, the allreduce on both sides of ONE_SHOT_BYTES (one launch a
+    member below, two above), and each call counts the launches its plan
+    makes."""
     counter = rk.ring_kernel_bidir if bidir else rk.ring_kernel
-    before = counter.member_launches
+    item = torch.empty((), dtype=dt).element_size()
+    above = rk.ONE_SHOT_BYTES // (n * item) + 3001
     c = 2 * rk.granule(dt, cuda) * 5
     for k, op in enumerate((Operators.SUM, Operators.PROD, Operators.MAX,
                             Operators.MIN)):
-        x = _ring_data(cuda, (n, 3001), dt, k)
-        got = rk.ring_allreduce_kernel(list(x), op, bidir, True)
-        assert all(_same(got[r], row) for r, row in enumerate(
-            rk.ring_allreduce_kernel(x, op, bidir, True)))
-        assert all(_same(got[r], row) for r, row in enumerate(
-            rk.ring_allreduce_reference(x, op, bidir, True)))
+        for length in (3001, above):
+            x = _ring_data(cuda, (n, length), dt, k)
+            before = counter.member_launches
+            got = rk.ring_allreduce_kernel(list(x), op, bidir, True)
+            rounds = 1 if length == 3001 or n == 1 else 2
+            assert counter.last_plan.rounds == rounds
+            assert counter.member_launches == before + n * rounds
+            assert all(_same(got[r], row) for r, row in enumerate(
+                rk.ring_allreduce_kernel(x, op, bidir, True)))
+            assert all(_same(got[r], row) for r, row in enumerate(
+                rk.ring_allreduce_reference(x, op, bidir, True)))
         x = _ring_data(cuda, (n, n * c), dt, k)
+        before = counter.member_launches
         got = rk.ring_reduce_scatter_kernel(list(x), op, bidir, True)
+        assert counter.member_launches == before + n
         assert all(_same(got[r], row) for r, row in enumerate(
             rk.ring_reduce_scatter_reference(x, op, bidir, True)))
     x = _ring_data(cuda, (n, c), dt, 9)
+    before = counter.member_launches
     got = rk.ring_allgather_kernel(list(x), bidir, True)
+    assert counter.member_launches == before + n
     assert all(_same(got[r], row) for r, row in enumerate(
         rk.ring_allgather_reference(x, bidir, True)))
-    assert counter.member_launches == before + 9 * n
     assert counter.last_plan.path == "member"
 
 
 def test_member_launch_refusals(cuda):
-    """More members on one card than it has work queues, a forced packed
-    path on a list, and members that cannot be co-resident are refused
+    """A forced packed path on a list, a forced allreduce form on another
+    mode, and the packed launch's spin bound and stall hook are refused
     before any launch."""
     before = rk.ring_kernel.member_launches
-    x = _ring_data(cuda, (rk.MAX_MEMBERS_PER_CARD + 1, 64), torch.float32, 3)
-    with pytest.raises(Mp4jError, match="at most"):
-        rk.ring_allreduce_kernel(list(x))
+    x = _ring_data(cuda, (4, 64), torch.float32, 3)
     with pytest.raises(Mp4jError, match="member path"):
         rk.ring_allreduce_kernel(list(x[:2]), path="global")
+    with pytest.raises(Mp4jError, match="forces the form"):
+        rk.ring_reduce_scatter_kernel(list(x), path="two_round")
+    with pytest.raises(Mp4jError, match="spin_s and stall_member"):
+        rk.ring_allreduce_kernel(list(x), spin_s=0.5)
+    with pytest.raises(Mp4jError, match="spin_s and stall_member"):
+        rk.ring_allreduce_kernel(list(x), stall_member=1)
     assert rk.ring_kernel.member_launches == before
 
 
-def test_member_spin_bound_raises_and_recovers(cuda):
-    """A stalled member: its neighbours' launches hit the spin bound and
-    the wrapper raises; the flags' epoch keeps the next call clean."""
-    x = _ring_data(cuda, (4, 100_000), torch.float32, 2)
-    for m in (0, 3):
-        t0 = time.perf_counter()
-        with pytest.raises(Mp4jError, match="spin bound"):
-            rk.ring_allreduce_kernel(list(x), spin_s=0.5, stall_member=m)
-        assert time.perf_counter() - t0 < 30
-        got = rk.ring_allreduce_kernel(list(x))
-        assert all(_same(got[r], row) for r, row in enumerate(
-            rk.ring_allreduce_reference(x)))
+@pytest.mark.parametrize("form", ["one_shot", "two_round"])
+def test_member_calls_back_to_back(cuda, form):
+    """Calls made one after another with no synchronize between them
+    reuse the same events and streams: each call's result is its own
+    (the inputs change between the calls), none leaks into the next."""
+    n = 4
+    xs = [_ring_data(cuda, (n, 100_003), torch.float32, s)
+          for s in range(6)]
+    got = [rk.ring_allreduce_kernel(list(x), path=form) for x in xs]
+    got += [rk.ring_reduce_scatter_kernel(list(x[:, :100_000]))
+            for x in xs]
+    torch.cuda.synchronize()
+    for x, out in zip(xs, got[:6]):
+        assert all(_same(o, row) for o, row in zip(
+            out, rk.ring_allreduce_reference(x)))
+    for x, out in zip(xs, got[6:]):
+        assert all(_same(o, row) for o, row in zip(
+            out, rk.ring_reduce_scatter_reference(x[:, :100_000])))
 
 
 def test_gpu_comm_cluster_over_a_device_list(cuda):

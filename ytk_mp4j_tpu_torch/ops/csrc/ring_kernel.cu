@@ -1,6 +1,7 @@
-// Ring allreduce / reduce-scatter / allgather for Hopper (sm_90a), in two
-// launch forms: n ring members on one card in one launch (packed), or one
-// launch a member, each on its member's card (the list form).
+// Ring allreduce / reduce-scatter / allgather for Hopper (sm_90a): n ring
+// members on one card in one launch (the packed form's global path, for
+// n > 8 members; ring_cluster.cu takes n <= 8, ring_member.cu the list
+// form, one launch a member).
 //
 // Replaces the Pallas TPU kernels ytk_mp4j_tpu/ops/ring_kernel.py:179
 // (_ring_kernel, called through _pallas_ring:244) and :276
@@ -19,7 +20,7 @@
 //     at chunk(me - s_d), then n-1 forwarding steps store chunk(me + s_d s)
 //   allgather: out[chunk(me)] = x; n-1 steps store chunk(me + s_d (s+1)).
 //
-// Members, packed (PEER = false). Member me is the row blockIdx.y; column
+// Members. Member me is the row blockIdx.y; column
 // blockIdx.x of blocks across the n members is an independent ring over
 // one sub-range of every chunk, walked in segments of kSeg elements (the
 // global step counter g runs on across segments). No member ever needs a
@@ -27,27 +28,6 @@
 // all n * cols blocks must be resident at once: the launch is
 // cooperative, and the wrapper refuses a grid over the occupancy capacity
 // before it launches.
-//
-// Members, a launch each (PEER = true; the TPU kernel's own shape, one
-// program a device). Member me is the parameter p.member, and the launch
-// is its column row alone (grid cols x 1) on its own stream on its own
-// card. Its x, out, err, receive slots and flags live on its card; it
-// reaches its neighbours' slots and flags through the pointer tables
-// p.slot_tab / p.flag_tab (device pointers, unified addressing: over
-// peer memory where a neighbour is on another card, enabled by the
-// wrapper). The n launches are separate grids, so co-residency is the
-// wrapper's: it counts the blocks of every member that shares a card
-// against that card's capacity and gives each launch a stream of its own
-// (launches on one stream would run one after another, and the first
-// would spin to its bound).
-//
-// Entry (the TPU kernel's _neighbor_barrier:116): the flags outlive a
-// call, and every flag value of a call carries its epoch, p.epoch (a
-// multiple of 2^32 that grows by 2^32 a call): a value written is epoch +
-// g + 1, a wait wants >= epoch + v. Flags thus only grow across calls, no
-// member zeroes them, a neighbour's first store may land before this
-// member starts, and nothing an earlier (or failed) call left can satisfy
-// a wait of this one.
 //
 // Protocol per direction (ring_kernel.py's PROTOCOL; the TPU kernel's
 // _direction:128 without its DMA semaphores -- a store here is the copy):
@@ -59,25 +39,20 @@
 //              __syncthreads; read the slot; __syncthreads; thread 0
 //              release-stores credit[up][slot] = g + 1.
 //   exit:      wait the last credit of each used slot.
-// Flags hold step numbers g + 1 and only grow within a launch; for the
-// packed launch the wrapper zeroes them on the launch's stream before
-// every launch, so nothing an earlier (or failed) launch left can satisfy
-// a wait (the launch a member at a time adds its epoch instead, above).
+// Flags hold step numbers g + 1 and only grow within a launch; the
+// wrapper zeroes them on the launch's stream before every launch, so
+// nothing an earlier (or failed) launch left can satisfy a wait.
 // Every spin is bounded by spin_ns of %globaltimer; hitting it (or seeing
 // another block of the launch hit it) sets the launch's error word and
 // returns, and the wrapper raises.
 //
-// Memory scope is the template parameter S of every flag access: device
-// scope for the packed launch, system scope for the launch a member at a
-// time (required across cards, and correct on one). The slots are moved
-// by weak .cg accesses (L2, never a stale L1 line); what orders them is
-// the flag protocol: the sender's threads store into the receiver's slot,
-// bar.sync orders those stores before thread 0's fence (fence.sc at S:
-// __threadfence, or __threadfence_system across cards) and its
-// release-store of the receiver's flag at S; the receiver's thread 0
-// acquire-loads the flag at S, and bar.sync orders that before its
-// threads' slot loads. A slot lies in its receiver's memory, so the
-// receiver's loads read its own card's L2, where the peer's stores land.
+// Every flag access is at device scope. The slots are moved by weak .cg
+// accesses (L2, never a stale L1 line); what orders them is the flag
+// protocol: the sender's threads store into the receiver's slot, bar.sync
+// orders those stores before thread 0's fence (__threadfence) and its
+// release-store of the receiver's flag; the receiver's thread 0
+// acquire-loads the flag, and bar.sync orders that before its threads'
+// slot loads.
 //
 // Operators match the reference's jnp ops on the operand type, rounding
 // at every step: MAX/MIN propagate NaN (fmaxf/fminf do not), narrow
@@ -119,13 +94,6 @@ struct RingParams {
   long long col_w;              // elements of a chunk one column covers
   long long spin_ns;
   int n, mode, cols, stall_member;
-  // the launch a member at a time only: every member's receive slots
-  // ([ndir][cols][2][kSeg]) and flags ([2][ndir][cols][2]), member m's at
-  // entry m; this launch's member; the call's epoch (see Entry above)
-  void* const* slot_tab;
-  unsigned long long* const* flag_tab;
-  unsigned long long epoch;
-  int member;
 };
 
 // ---- slot loads and stores through L2 (.cg): never a stale L1 line ----
@@ -262,45 +230,34 @@ __device__ __forceinline__ int mod(long long a, int n) {
   return (int)(r < 0 ? r + n : r);
 }
 
-template <bool PEER>
 struct Flags {
-  unsigned long long* base;               // packed: every member's flags
-  unsigned long long* const* tab;         // a member a launch: the table
+  unsigned long long* base;               // every member's flags
   int ndir, n, cols;
   __device__ unsigned long long* at(int kind, int d, int m, int col,
                                     int slot) const {
-    if (PEER) {
-      return tab[m] + (((long long)kind * ndir + d) * cols + col) * 2 + slot;
-    }
     return base + ((((long long)kind * ndir + d) * n + m) * cols + col) * 2 +
            slot;
   }
 };
 
 constexpr int kRecv = 0, kCredit = 1;
+constexpr cuda::thread_scope kScope = cuda::thread_scope_device;
 
-template <bool PEER>
-__host__ __device__ constexpr cuda::thread_scope scope_of() {
-  return PEER ? cuda::thread_scope_system : cuda::thread_scope_device;
-}
-
-template <cuda::thread_scope S>
 __device__ __forceinline__ void release(unsigned long long* f,
                                         unsigned long long v) {
-  cuda::atomic_ref<unsigned long long, S> a(*f);
+  cuda::atomic_ref<unsigned long long, kScope> a(*f);
   a.store(v, cuda::memory_order_release);
 }
 
 // Thread 0 spins until *f >= want (bounded); every thread gets the
 // verdict. On a timeout, or when another block already failed, records
 // the error (first writer wins) and returns false.
-template <cuda::thread_scope S>
 __device__ bool wait_geq(unsigned long long* f, unsigned long long want,
                          const RingParams& p, int me, long long g, int what) {
   __shared__ int ok;
   if (threadIdx.x == 0) {
-    cuda::atomic_ref<unsigned long long, S> a(*f);
-    cuda::atomic_ref<long long, S> err(p.err[0]);
+    cuda::atomic_ref<unsigned long long, kScope> a(*f);
+    cuda::atomic_ref<long long, kScope> err(p.err[0]);
     int good = 1;
     if (a.load(cuda::memory_order_acquire) < want) {
       const unsigned long long t0 = now_ns();
@@ -334,30 +291,25 @@ __device__ bool wait_geq(unsigned long long* f, unsigned long long want,
   return r != 0;
 }
 
-template <typename T, int OP, int NDIR, bool PEER>
+template <typename T, int OP, int NDIR>
 struct Ring {
-  static constexpr cuda::thread_scope S = scope_of<PEER>();
   const RingParams& p;
-  Flags<PEER> fl;
+  Flags fl;
   T* slots;
   int me, col;
   long long g;                   // global step
-  unsigned long long epoch;      // added to every flag value (0: packed)
 
   __device__ static int sign(int d) { return d == 0 ? -1 : 1; }
 
   __device__ T* slot(int d, int m, int s) const {
-    if (PEER) {
-      return (T*)p.slot_tab[m] + (((long long)d * p.cols + col) * 2 + s) *
-                                     kSeg;
-    }
     return slots +
            ((((long long)d * p.n + m) * p.cols + col) * 2 + s) * kSeg;
   }
 
   __device__ bool wait(int kind, int d, int m, int s, long long v,
                        int what) const {
-    return wait_geq<S>(fl.at(kind, d, m, col, s), epoch + v, p, me, g, what);
+    return wait_geq(fl.at(kind, d, m, col, s), (unsigned long long)v, p, me,
+                    g, what);
   }
 
   // send v right/left in every direction, then receive; v becomes what
@@ -379,12 +331,8 @@ struct Ring {
       }
       __syncthreads();
       if (threadIdx.x == 0) {
-        if (PEER) {
-          __threadfence_system();
-        } else {
-          __threadfence();
-        }
-        release<S>(fl.at(kRecv, d, dst, col, s), epoch + g + 1);
+        __threadfence();
+        release(fl.at(kRecv, d, dst, col, s), g + 1);
       }
     }
 #pragma unroll
@@ -400,8 +348,7 @@ struct Ring {
       }
       __syncthreads();
       if (threadIdx.x == 0) {
-        release<S>(fl.at(kCredit, d, mod(me + sign(d), p.n), col, s),
-                   epoch + g + 1);
+        release(fl.at(kCredit, d, mod(me + sign(d), p.n), col, s), g + 1);
       }
     }
     ++g;
@@ -438,8 +385,8 @@ struct Ring {
 
   // one segment [seg0, seg0 + len) of every chunk, all directions
   __device__ bool segment(long long seg0, int len) {
-    const T* x = (const T*)p.x + (PEER ? 0 : (long long)me * p.in_row);
-    T* out = (T*)p.out + (PEER ? 0 : (long long)me * p.out_row);
+    const T* x = (const T*)p.x + (long long)me * p.in_row;
+    T* out = (T*)p.out + (long long)me * p.out_row;
     const int n = p.n;
     T v[NDIR][kPerThread];
     if (p.mode == kAllgather) {
@@ -506,16 +453,13 @@ struct Ring {
   }
 };
 
-template <typename T, int OP, int NDIR, bool PEER>
+template <typename T, int OP, int NDIR>
 __global__ void __launch_bounds__(kThreads)
     ring_kernel(const __grid_constant__ RingParams p) {
-  const int me = PEER ? p.member : (int)blockIdx.y;
+  const int me = (int)blockIdx.y;
   if (me == p.stall_member) return;   // test hook: a member that never runs
-  Ring<T, OP, NDIR, PEER> r{p,
-                            Flags<PEER>{p.flags, p.flag_tab, NDIR, p.n,
-                                        p.cols},
-                            (T*)p.slots, me, (int)blockIdx.x, 0,
-                            PEER ? p.epoch : 0ull};
+  Ring<T, OP, NDIR> r{p, Flags{p.flags, NDIR, p.n, p.cols}, (T*)p.slots, me,
+                      (int)blockIdx.x, 0};
   const long long lo = (long long)blockIdx.x * p.col_w;
   const long long hi = lo + p.col_w < p.w ? lo + p.col_w : p.w;
   for (long long seg0 = lo; seg0 < hi; seg0 += kSeg) {
@@ -527,42 +471,36 @@ __global__ void __launch_bounds__(kThreads)
 
 using KernelFn = void (*)(RingParams);
 
-template <typename T, bool PEER>
+template <typename T>
 KernelFn pick(int op, int ndir) {
   if (ndir == 1) {
     switch (op) {
-      case kSum: return ring_kernel<T, kSum, 1, PEER>;
-      case kProd: return ring_kernel<T, kProd, 1, PEER>;
-      case kMax: return ring_kernel<T, kMax, 1, PEER>;
-      case kMin: return ring_kernel<T, kMin, 1, PEER>;
+      case kSum: return ring_kernel<T, kSum, 1>;
+      case kProd: return ring_kernel<T, kProd, 1>;
+      case kMax: return ring_kernel<T, kMax, 1>;
+      case kMin: return ring_kernel<T, kMin, 1>;
     }
   } else if (ndir == 2) {
     switch (op) {
-      case kSum: return ring_kernel<T, kSum, 2, PEER>;
-      case kProd: return ring_kernel<T, kProd, 2, PEER>;
-      case kMax: return ring_kernel<T, kMax, 2, PEER>;
-      case kMin: return ring_kernel<T, kMin, 2, PEER>;
+      case kSum: return ring_kernel<T, kSum, 2>;
+      case kProd: return ring_kernel<T, kProd, 2>;
+      case kMax: return ring_kernel<T, kMax, 2>;
+      case kMin: return ring_kernel<T, kMin, 2>;
     }
   }
   return nullptr;
 }
 
-template <typename T>
-KernelFn pick(int op, int ndir, int peer) {
-  return peer ? pick<T, true>(op, ndir) : pick<T, false>(op, ndir);
-}
-
-// dtype codes: must match ops/ring_kernel.py _DTYPE_CODES; peer: 0 the
-// packed kernel, 1 the kernel launched a member at a time
-KernelFn kernel_for(int dtype, int op, int ndir, int peer) {
+// dtype codes: must match ops/ring_kernel.py _DTYPE_CODES
+KernelFn kernel_for(int dtype, int op, int ndir) {
   switch (dtype) {
-    case 0: return pick<float>(op, ndir, peer);
-    case 1: return pick<double>(op, ndir, peer);
-    case 2: return pick<int32_t>(op, ndir, peer);
-    case 3: return pick<int64_t>(op, ndir, peer);
-    case 4: return pick<int16_t>(op, ndir, peer);
-    case 5: return pick<int8_t>(op, ndir, peer);
-    case 6: return pick<__nv_bfloat16>(op, ndir, peer);
+    case 0: return pick<float>(op, ndir);
+    case 1: return pick<double>(op, ndir);
+    case 2: return pick<int32_t>(op, ndir);
+    case 3: return pick<int64_t>(op, ndir);
+    case 4: return pick<int16_t>(op, ndir);
+    case 5: return pick<int8_t>(op, ndir);
+    case 6: return pick<__nv_bfloat16>(op, ndir);
   }
   return nullptr;
 }
@@ -590,7 +528,6 @@ void fill_params(RingParams& p, int n, int mode, int cols, long long w,
   p.mode = mode;
   p.cols = cols;
   p.stall_member = stall_member;
-  p.member = -1;
 }
 
 }  // namespace
@@ -600,10 +537,9 @@ extern "C" {
 // Both entry points work on the caller's current device (the wrapper
 // selects it) and never change it.
 
-// Blocks of the packed (peer = 0) or the member (peer = 1) kernel that can
-// be resident at once on the current device.
-int mp4j_ring_capacity(int dtype, int op, int ndir, int peer, int* blocks) {
-  KernelFn k = kernel_for(dtype, op, ndir, peer);
+// Blocks of the kernel that can be resident at once on the current device.
+int mp4j_ring_capacity(int dtype, int op, int ndir, int* blocks) {
+  KernelFn k = kernel_for(dtype, op, ndir);
   if (!k) return (int)cudaErrorInvalidValue;
   int device = 0;
   cudaError_t e = cudaGetDevice(&device);
@@ -630,7 +566,7 @@ int mp4j_ring_launch(int dtype, int op, int ndir, int mode, int n, int cols,
                      const void* x, void* out, void* slots, void* flags,
                      void* err, long long spin_ns, int stall_member,
                      void* stream) {
-  KernelFn k = kernel_for(dtype, op, ndir, 0);
+  KernelFn k = kernel_for(dtype, op, ndir);
   if (!k) return (int)cudaErrorInvalidValue;
   RingParams p;
   fill_params(p, n, mode, cols, w, stride, base0, base1, vbase0, vbase1,
@@ -643,58 +579,6 @@ int mp4j_ring_launch(int dtype, int op, int ndir, int mode, int n, int cols,
                                   (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
-}
-
-// The launch of member `member` alone: grid (cols, 1) on `stream` of its
-// card (the current device). x, out and err (4 int64, zero on the stream)
-// are the member's; slot_tab and flag_tab are device arrays of n pointers
-// on this card, entry m member m's receive slots (ndir * cols * 2 * kSeg
-// elements) and flags (2 * ndir * cols * 2 uint64, never zeroed: every
-// value of this call exceeds `epoch`, a multiple of 2^32 above every
-// value an earlier call stored). Returns the CUDA error of the launch.
-int mp4j_ring_member_launch(int dtype, int op, int ndir, int mode, int n,
-                            int cols, long long w, long long stride,
-                            long long base0, long long base1,
-                            long long vbase0, long long vbase1,
-                            long long col_w, const void* x, void* out,
-                            void* slot_tab, void* flag_tab, void* err,
-                            unsigned long long epoch, int member,
-                            long long spin_ns, int stall_member,
-                            void* stream) {
-  KernelFn k = kernel_for(dtype, op, ndir, 1);
-  if (!k) return (int)cudaErrorInvalidValue;
-  RingParams p;
-  fill_params(p, n, mode, cols, w, stride, base0, base1, vbase0, vbase1,
-              col_w, 0, 0, x, out, err, spin_ns, stall_member);
-  p.slot_tab = (void* const*)slot_tab;
-  p.flag_tab = (unsigned long long* const*)flag_tab;
-  p.epoch = epoch;
-  p.member = member;
-  void* args[] = {&p};
-  cudaError_t e = cudaLaunchKernel((const void*)k, dim3(cols, 1),
-                                   dim3(kThreads), args, 0,
-                                   (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
-
-// Lets the current device reach card `peer`'s memory (peer access, once a
-// pair; an earlier enable is no error). Refuses a pair the hardware
-// cannot join: nothing is staged through the host.
-int mp4j_ring_enable_peer(int peer) {
-  int device = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e != cudaSuccess) return (int)e;
-  int can = 0;
-  e = cudaDeviceCanAccessPeer(&can, device, peer);
-  if (e != cudaSuccess) return (int)e;
-  if (!can) return (int)cudaErrorPeerAccessUnsupported;
-  e = cudaDeviceEnablePeerAccess(peer, 0);
-  if (e == cudaErrorPeerAccessAlreadyEnabled) {
-    cudaGetLastError();        // clear the sticky-free error state
-    return 0;
-  }
-  return (int)e;
 }
 
 const char* mp4j_error_string(int code) {

@@ -20,16 +20,22 @@ Both follow the reference's slot and credit protocol (``_direction:128``).
 Members may also come as a list of n tensors, member r's on its own
 device (``device.make_mesh(n, devices=...)``, the reference's one member
 a device). Then each member is a launch of its own (``member`` path,
-``ops/csrc/ring_kernel.cu`` with the member as a parameter): on its card,
-on a stream of its own, reaching its neighbours' receive slots and flags
-through device-side pointer tables (peer memory between cards, enabled
-once a pair; a pair the hardware cannot join raises), flags that carry a
-per-call epoch in place of the packed launch's zeroing (the counterpart
-of the reference's ``_neighbor_barrier:116``), and the blocks of every
-member that shares a card counted against that card's capacity. The
-result is a list the same way, and it is bitwise the packed launch's on
-the stacked members. A ``ring_cluster.cu`` cluster cannot span launches
-or cards, so the list form always takes this path.
+``ops/csrc/ring_member.cu``), on its card and on a stream of its own,
+that reads the chunks it owes straight from every member's input (peer
+memory between cards, enabled once a pair; a pair the hardware cannot
+join raises) and folds each chunk over the members in exactly the order
+the ring's schedule folds it (:func:`fold_order`, from :class:`RingPlan`).
+CUDA events order the launches: each waits for every card's inputs, and
+every card's current stream waits for every launch; no kernel waits on
+another, so nothing spins and nothing needs to be co-resident. A
+reduce-scatter or an allgather is one launch a member; an allreduce is
+one launch a member that folds every chunk while the inputs together are
+small (:data:`ONE_SHOT_BYTES`), else two: each member folds the chunk it
+owns, then, behind every member's first launch, copies the others from
+their owners (:func:`member_plan`). The result is a list the same way,
+and it is bitwise the packed launch's on the stacked members. A
+``ring_cluster.cu`` cluster cannot span launches or cards, so the list
+form always takes this path.
 
 Entry points, each on a ``[n, ...]`` tensor of members (or a list):
 
@@ -57,7 +63,7 @@ plain version; on a CUDA tensor they launch a kernel or raise, and
 nothing retries on another kernel. Launches are counted on
 ``ring_kernel.launches`` (one direction) and ``ring_kernel_bidir.launches``
 (two), and per path on their ``cluster_launches`` / ``global_launches`` /
-``member_launches`` (one a member of a list).
+``member_launches`` (every launch of a member of a list).
 
 Chunk granule (:func:`granule`), the one place it is defined: 1 element
 on the CPU, as the reference's interpret mode, so the CPU version chunks
@@ -73,8 +79,9 @@ Divergences from the reference, intended:
 - on the global path, a member that cannot be co-resident with the
   others is refused: n x blocks per member over the card's occupancy
   raises before any launch (a cluster's blocks are co-resident by
-  construction); on both paths every wait is bounded, and a stuck ring
-  raises instead of hanging.
+  construction); on both packed paths every wait is bounded, and a stuck
+  ring raises instead of hanging. A list has no wait to bound: its call
+  refuses ``spin_s`` and ``stall_member``.
 """
 
 from __future__ import annotations
@@ -91,8 +98,8 @@ from ytk_mp4j_tpu_torch.exceptions import Mp4jError
 from ytk_mp4j_tpu_torch.operators import Operator, Operators
 from ytk_mp4j_tpu_torch.ops import _build
 
-# dtype codes: must match kernel_for in ops/csrc/ring_cluster.cu and
-# ops/csrc/ring_kernel.cu
+# dtype codes: must match kernel_for in ops/csrc/ring_cluster.cu,
+# ops/csrc/ring_kernel.cu and ops/csrc/ring_member.cu
 _DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.int32: 2,
                 torch.int64: 3, torch.int16: 4, torch.int8: 5,
                 torch.bfloat16: 6}
@@ -349,14 +356,8 @@ def launch_plan(n: int, w: int, dtype: torch.dtype, ndir: int, device, *,
 def _library() -> ctypes.CDLL:
     lib = _build.load("ring_kernel")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.mp4j_ring_capacity.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+    lib.mp4j_ring_capacity.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.mp4j_ring_capacity.restype = i
-    lib.mp4j_ring_member_launch.argtypes = [
-        i, i, i, i, i, i, ll, ll, ll, ll, ll, ll, ll, p, p, p, p, p,
-        ctypes.c_ulonglong, i, ll, i, p]
-    lib.mp4j_ring_member_launch.restype = i
-    lib.mp4j_ring_enable_peer.argtypes = [i]
-    lib.mp4j_ring_enable_peer.restype = i
     lib.mp4j_ring_seg.argtypes = []
     lib.mp4j_ring_seg.restype = i
     lib.mp4j_ring_launch.argtypes = [i, i, i, i, i, i, ll, ll, ll, ll, ll, ll,
@@ -386,6 +387,29 @@ def _cluster_library() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _member_library() -> ctypes.CDLL:
+    lib = _build.load("ring_member")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    ip, pp = ctypes.POINTER(i), ctypes.POINTER(p)
+    lib.mp4j_ring_members_launch.argtypes = [
+        i, i, i, i, i, i, ip, ip, ll, ll, ll, ll, ll, ll, ctypes.c_char_p,
+        ip, pp, pp, pp, i, ip, pp, pp, pp, pp, p, ip]
+    lib.mp4j_ring_members_launch.restype = i
+    lib.mp4j_ring_member_events.argtypes = [i, pp]
+    lib.mp4j_ring_member_events.restype = i
+    lib.mp4j_ring_enable_peer.argtypes = [i]
+    lib.mp4j_ring_enable_peer.restype = i
+    lib.mp4j_ring_member_max.argtypes = []
+    lib.mp4j_ring_member_max.restype = i
+    lib.mp4j_error_string.argtypes = [i]
+    lib.mp4j_error_string.restype = ctypes.c_char_p
+    if lib.mp4j_ring_member_max() != MAX_MEMBERS:
+        raise Mp4jError(f"ring_member.cu takes {lib.mp4j_ring_member_max()} "
+                        f"members, the wrapper assumes {MAX_MEMBERS}")
+    return lib
+
+
 def _device_index(device) -> int:
     dev = torch.device(device)
     return torch.cuda.current_device() if dev.index is None else dev.index
@@ -403,7 +427,6 @@ def _query(kind: str, dtype_code: int, op_code: int, ndir: int, n: int,
         else:
             lib = _library()
             rc = lib.mp4j_ring_capacity(dtype_code, op_code, ndir,
-                                        int(kind == "member_capacity"),
                                         ctypes.byref(value))
     if rc:
         raise Mp4jError(f"ring kernel occupancy query ({kind}) failed: "
@@ -412,13 +435,11 @@ def _query(kind: str, dtype_code: int, op_code: int, ndir: int, n: int,
 
 
 def capacity(dtype: torch.dtype, operator: Operator, ndir: int,
-             device, member: bool = False) -> int:
-    """Blocks of the global-memory kernel (``member``: of its launch a
-    member at a time) that fit on the card at once (queried once per
-    dtype, operator, directions, form and card)."""
-    return _query("member_capacity" if member else "capacity",
-                  _DTYPE_CODES[dtype], operator.kernel_code, ndir, 0,
-                  _device_index(device))
+             device) -> int:
+    """Blocks of the global-memory kernel that fit on the card at once
+    (queried once per dtype, operator, directions and card)."""
+    return _query("capacity", _DTYPE_CODES[dtype], operator.kernel_code,
+                  ndir, 0, _device_index(device))
 
 
 def max_clusters(dtype: torch.dtype, operator: Operator, ndir: int, n: int,
@@ -507,72 +528,198 @@ def _raise_if_stuck(err, spin_s):
 
 
 def _counted(counter, xp, plan, lay, operator, spin_s, stall_member, path):
+    err = None
     if isinstance(xp, list):
-        outs, errs, lp = _launch_members(xp, plan, lay, operator, spin_s,
-                                         stall_member, path)
-        launched = len(xp)
+        out, lp = _launch_members(xp, plan, lay, operator, path)
+        launched = lp.launches
     else:
         out, err, lp = _launch(xp, plan, lay, operator, spin_s,
                                stall_member, path)
-        outs, errs, launched = out, [err], 1
+        launched = 1
     counter.launches += launched
     setattr(counter, f"{lp.path}_launches",
             getattr(counter, f"{lp.path}_launches") + launched)
     counter.last_plan = lp
-    for err in errs:
+    if err is not None:
         _raise_if_stuck(err, spin_s)
-    return outs
+    return out
 
 
 # ----------------------------------------------------------------------
-# the launch a member at a time (the list form)
+# the list form: a launch a member (ops/csrc/ring_member.cu)
 # ----------------------------------------------------------------------
-# Members that share a card each need a stream of their own, and those
-# streams must not share one of the card's hardware work queues (a launch
-# queued behind a spinning neighbour would never start): CUDA gives a
-# context 8 such queues unless told otherwise, so a card takes at most 8
-# members of one ring.
-MAX_MEMBERS_PER_CARD = 8
-_EPOCH = 1 << 32            # flag values of one call: epoch + step + 1
+MAX_MEMBERS = 64            # ring_member.cu kMaxMembers: every member's
+                            # input and output pointer in the parameters
+ONE_SHOT_BYTES = 64 << 20   # an allreduce whose inputs together take at
+                            # most this many bytes runs in one launch a
+                            # member (PERF.md: the one-shot threshold)
+MEMBER_THREADS = 256        # ring_member.cu kThreads
+# blocks an SM that a card's members share, by what a launch does
+# (PERF.md: folds ran fastest at 2, copies at 1 on an H100)
+FOLD_BLOCKS_PER_SM = 2
+COPY_BLOCKS_PER_SM = 1
+MEMBER_PATHS = ("member", "one_shot", "two_round")
+# what a launch does: must match ring_member.cu
+_FOLD_OWN, _FOLD_ALL, _COPY_INPUTS, _COPY_OWNERS = 0, 1, 2, 3
 _member_lock = threading.Lock()
-# per-card streams (member k of a card takes stream k) and, per ring shape,
-# each member's slots, flags, pointer tables and the call epoch; created
-# once and reused, under _member_lock
+# per-card streams (member k of a card takes stream k), the state of each
+# list of member cards (_Cards), the pairs of cards with peer access:
+# created once and reused, under _member_lock
 # mp4j-lint: disable=R7 (process-wide launch state, guarded by _member_lock)
 _streams: dict = {}
 # mp4j-lint: disable=R7 (process-wide launch state, guarded by _member_lock)
-_rings: dict = {}
+_cards: dict = {}
 # mp4j-lint: disable=R7 (process-wide launch state, guarded by _member_lock)
 _peers: set = set()
 
 
-@dataclass
-class _MemberRing:
-    """What the launches of one ring shape keep across calls: member m's
-    receive slots, its flags (never zeroed: see :data:`_EPOCH`) and a
-    ``[2, n]`` table of every member's slot and flag addresses on its
-    card; ``epoch`` counts the calls."""
+@functools.cache
+def fold_order(n: int, mode: str, ndir: int) -> tuple:
+    """``order[d][K]``: the members whose chunk K of direction d the ring
+    folds, in the order it folds them (``acc = op(acc, x_m)``), read off
+    :class:`RingPlan`: member me starts with its chunk ``start(me, d)``,
+    and at reduce step s folds its chunk ``merge(me, d, s)`` into what
+    its upstream sent; after n - 1 steps each member holds one chunk
+    folded over every member."""
+    plan = RingPlan(n, mode, ndir)
+    order = []
+    for d in range(ndir):
+        held = [(plan.start(me, d), (me,)) for me in range(n)]
+        for s in range(n - 1):
+            held = [(plan.merge(me, d, s),
+                     held[RingPlan.upstream(me, d, n)][1] + (me,))
+                    for me in range(n)]
+        by_chunk = dict(held)
+        order.append(tuple(by_chunk[k] for k in range(n)))
+    return tuple(order)
 
-    slots: list
-    flags: list
-    tables: list
-    epoch: int = 0
+
+@functools.cache
+def member_order(n: int, mode: str, ndir: int) -> bytes:
+    """The order table of ``ring_member.cu``: ``[ndir][n]`` offsets, chunk
+    K's j-th member ``(K + order[d][j]) % n``. The ring folds every chunk
+    in a rotation of one order; a schedule that did not would raise."""
+    table = []
+    for d, chunks in enumerate(fold_order(n, mode, ndir)):
+        row = list(chunks[0])
+        for k, members in enumerate(chunks):
+            if [(m - k) % n for m in members] != row:
+                raise Mp4jError(f"ring fold order of chunk {k}, direction "
+                                f"{d} is no rotation of chunk 0's")
+        table += row
+    return bytes(table)
 
 
-def _member_stream(index: int, k: int):
-    key = (index, k)
-    stream = _streams.get(key)
-    if stream is None:
-        for j in range(k + 1):          # created in order, one a queue
-            if (index, j) not in _streams:
-                _streams[(index, j)] = torch.cuda.Stream(index)
-        stream = _streams[key]
-    return stream
+def allreduce_rounds(n: int, row: int, dtype: torch.dtype) -> int:
+    """Launches a member of a list allreduce of n ``[row]`` members: 1
+    (every member folds every chunk: n times the reads, no second round)
+    while the inputs together take at most :data:`ONE_SHOT_BYTES`, else
+    2 (fold the owned chunk, then copy the others from their owners)."""
+    return 1 if n == 1 or n * row * dtype.itemsize <= ONE_SHOT_BYTES else 2
+
+
+@dataclass(frozen=True)
+class MemberPlan:
+    """The launches of one list call: per round, what each member's
+    launch does (``tasks``, ``ring_member.cu``'s task codes), its jobs (a
+    chunk of one direction each) and the columns a job is cut into."""
+
+    path: str
+    n: int
+    ndir: int
+    mode: str
+    w: int
+    itemsize: int
+    tasks: tuple
+    jobs: tuple
+    cols: tuple
+
+    @property
+    def rounds(self) -> int:
+        return len(self.tasks)
+
+    @property
+    def launches(self) -> int:
+        return self.n * self.rounds
+
+
+@functools.cache
+def member_plan(n: int, mode: str, ndir: int, w: int, row: int,
+                dtype: torch.dtype, sms: int, per_card: int,
+                path=None) -> MemberPlan:
+    """The plan of a list call of n members (at most ``per_card`` on one
+    card of ``sms`` SMs) on chunks of ``w`` elements (``row`` the input
+    row). The grid is sized by bytes: a job's columns take at least one
+    16-byte vector a thread, and a member at most ``FOLD_BLOCKS_PER_SM``
+    (a copy: ``COPY_BLOCKS_PER_SM``) ``* sms / per_card`` blocks, so that
+    the members of a card run side by side. ``path`` "one_shot" /
+    "two_round" forces an allreduce's form (tests and measurements)."""
+    if path not in (None,) + MEMBER_PATHS:
+        raise Mp4jError(f"a member list takes the member path "
+                        f"({MEMBER_PATHS}), not {path!r}")
+    if path in ("one_shot", "two_round") and (
+            mode != "allreduce" or (path == "two_round" and n < 2)):
+        raise Mp4jError(f"path {path!r} forces the form of an allreduce of "
+                        f"n >= 2 members, not a {mode} of {n}")
+    if mode == "reduce_scatter":
+        tasks = (_FOLD_OWN,)
+    elif mode == "allgather":
+        tasks = (_COPY_INPUTS,)
+    else:
+        rounds = {"one_shot": 1, "two_round": 2}.get(
+            path, allreduce_rounds(n, row, dtype))
+        tasks = (_FOLD_ALL,) if rounds == 1 else (_FOLD_OWN, _COPY_OWNERS)
+    item = dtype.itemsize
+    vectors = -(-w * item // _VECTOR_BYTES)
+    jobs = tuple({_FOLD_OWN: ndir, _COPY_OWNERS: ndir * (n - 1)}.get(
+        t, ndir * n) for t in tasks)
+    cols = []
+    for t, j in zip(tasks, jobs):
+        per_sm = (COPY_BLOCKS_PER_SM if t in (_COPY_INPUTS, _COPY_OWNERS)
+                  else FOLD_BLOCKS_PER_SM)
+        blocks = max(1, per_sm * sms // per_card)
+        cols.append(max(1, min(-(-blocks // j),
+                               -(-vectors // MEMBER_THREADS))))
+    return MemberPlan("member", n, ndir, mode, w, item, tasks, jobs,
+                      tuple(cols))
+
+
+def _members_plain(xs, plan: RingPlan, lay: _Layout, operator: Operator):
+    """The plain version of ``ring_member.cu``: chunk K of direction d
+    folded over the members in :func:`fold_order`, on the device of the
+    member that owns it, and copied to every member that receives it."""
+    n = plan.n
+    outs = [torch.empty(lay.out_row, dtype=t.dtype, device=t.device)
+            for t in xs]
+    order = fold_order(n, plan.mode, plan.ndir)
+    for d in range(plan.ndir):
+        for k in range(n):
+            at = lay.base[d] + k * lay.stride
+            if plan.mode == "allgather":
+                part = xs[k][lay.vbase[d]:lay.vbase[d] + lay.w]
+                for out in outs:
+                    out[at:at + lay.w].copy_(part)
+                continue
+            acc = None
+            for m in order[d][k]:
+                v = xs[m][at:at + lay.w].to(xs[k].device)
+                acc = v if acc is None else operator.torch_fn(acc, v)
+            if plan.mode == "reduce_scatter":
+                outs[k][lay.vbase[d]:lay.vbase[d] + lay.w].copy_(acc)
+                continue
+            for out in outs:
+                out[at:at + lay.w].copy_(acc)
+    return outs
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _enable_peers(indexes) -> None:
     """Peer access for every ordered pair of distinct cards, once."""
-    lib = _library()
+    lib = _member_library()
     for a in indexes:
         for b in indexes:
             if a == b or (a, b) in _peers:
@@ -580,8 +727,8 @@ def _enable_peers(indexes) -> None:
             if not torch.cuda.can_device_access_peer(a, b):
                 raise Mp4jError(
                     f"ring kernel: cuda:{a} cannot reach cuda:{b}'s memory "
-                    "(no peer access between the cards); the list form's "
-                    "ring never stages through the host")
+                    "(no peer access between the cards); the list form "
+                    "never stages through the host")
             with torch.cuda.device(a):
                 rc = lib.mp4j_ring_enable_peer(b)
             if rc:
@@ -591,136 +738,109 @@ def _enable_peers(indexes) -> None:
             _peers.add((a, b))
 
 
-def _member_ring(indexes, lp: LaunchPlan) -> _MemberRing:
-    key = (tuple(indexes), lp.ndir, lp.cols, lp.itemsize)
-    ring = _rings.get(key)
-    if ring is None:
-        slot_bytes = lp.ndir * lp.cols * 2 * GLOBAL_SEG * lp.itemsize
-        n_flags = 2 * lp.ndir * lp.cols * 2
-        slots = [torch.empty(slot_bytes, dtype=torch.uint8,
-                             device=f"cuda:{i}") for i in indexes]
-        flags = [torch.zeros(n_flags, dtype=torch.int64, device=f"cuda:{i}")
-                 for i in indexes]
-        addrs = [[t.data_ptr() for t in slots], [t.data_ptr() for t in flags]]
-        tables = [torch.tensor(addrs, dtype=torch.int64, device=f"cuda:{i}")
-                  for i in indexes]
-        for i in set(indexes):
-            torch.cuda.synchronize(i)   # zeroed flags and tables in place
-        ring = _rings[key] = _MemberRing(slots, flags, tables)
-    return ring
+def _new_event(index: int) -> int:
+    lib = _member_library()
+    event = (ctypes.c_void_p * 1)()
+    with torch.cuda.device(index):
+        rc = lib.mp4j_ring_member_events(1, event)
+    if rc:
+        raise Mp4jError(f"ring kernel: an event on cuda:{index} failed: "
+                        f"{lib.mp4j_error_string(rc).decode()}")
+    return event[0]
 
 
-def _plan_members(xs, plan: RingPlan, lay: _Layout, operator: Operator,
-                  path) -> LaunchPlan:
-    """The plan of the launch a member at a time: columns as the global
-    path cuts them, as many a member as every card holds for all of its
-    members at once."""
-    if path not in (None, "member"):
-        raise Mp4jError(f"a member list takes the member path, not "
-                        f"{path!r}")
-    x0 = xs[0]
-    per_card: dict = {}
-    for t in xs:
-        per_card[t.device.index] = per_card.get(t.device.index, 0) + 1
-    caps = {i: capacity(x0.dtype, operator, plan.ndir, f"cuda:{i}",
-                        member=True) for i in per_card}
-    for i, k in per_card.items():
-        if k > MAX_MEMBERS_PER_CARD:
-            raise Mp4jError(
-                f"ring kernel: {k} members on cuda:{i}; a card takes at "
-                f"most {MAX_MEMBERS_PER_CARD} members of a ring (one "
-                "stream a member, each on a hardware queue of its own)")
-    cols_fit = min(caps[i] // k for i, k in per_card.items())
-    lp = launch_plan(plan.n, lay.w, x0.dtype, plan.ndir, x0.device,
-                     capacity=plan.n * cols_fit)
-    for i, k in per_card.items():
-        if k * lp.cols > caps[i]:
-            raise Mp4jError(
-                f"ring kernel: {k} members on cuda:{i} x {lp.cols} blocks "
-                f"each need {k * lp.cols} co-resident blocks, the card "
-                f"holds {caps[i]}; every member spins on its neighbours, "
-                "so launches that do not fit together would hang")
-    return dataclasses.replace(lp, path="member")
+class _Cards:
+    """What every call over one list of member cards reuses, made once:
+    the native call's arrays of member cards, distinct cards and member
+    streams (member k of a card on that card's k-th stream), and the
+    events -- a ready event a card, a first-launch and a last-launch
+    event a member, the join event on member 0's card."""
+
+    def __init__(self, indexes: tuple):
+        self.cards = sorted(set(indexes))
+        self.per_card = max(indexes.count(i) for i in self.cards)
+        self.sms = min(_sm_count(i) for i in self.cards)
+        n, c = len(indexes), len(self.cards)
+        _enable_peers(self.cards)
+        seen: dict = {}
+        streams = []
+        for i in indexes:
+            k = seen[i] = seen.get(i, -1) + 1
+            stream = _streams.get((i, k))
+            if stream is None:
+                stream = _streams[(i, k)] = torch.cuda.Stream(i)
+            streams.append(stream.cuda_stream)
+        self.devices = (ctypes.c_int * n)(*indexes)
+        self.card_ids = (ctypes.c_int * c)(*self.cards)
+        self.streams = (ctypes.c_void_p * n)(*streams)
+        self.ready = (ctypes.c_void_p * c)(*map(_new_event, self.cards))
+        self.done1 = (ctypes.c_void_p * n)(*map(_new_event, indexes))
+        self.done = (ctypes.c_void_p * n)(*map(_new_event, indexes))
+        self.join = _new_event(indexes[0])
 
 
 def _launch_members(xs, plan: RingPlan, lay: _Layout, operator: Operator,
-                    spin_s, stall_member, path):
-    """One launch a member, member r on its tensor's card and on a stream
-    of its own. Each stream waits for the work queued on its card's
-    current stream (which made the input); each card's current stream
-    then waits on every launch, so what follows on any card sees every
-    member's output. Returns (outputs, error words, plan)."""
-    lp = _plan_members(xs, plan, lay, operator, path)
-    n, ndir = plan.n, plan.ndir
-    indexes = [t.device.index for t in xs]
-    lib = _library()
+                    path):
+    """Every member's launches of one list call, in one native call:
+    member r's on its tensor's card, on a stream of its own, after every
+    card's inputs (each card's ready event, recorded on its current
+    stream); each card's current stream then waits on every launch, so
+    what follows on any card sees every member's output and PyTorch's
+    allocator reuses no input early. Returns (outputs, plan)."""
+    n, x0 = plan.n, xs[0]
+    if n > MAX_MEMBERS:
+        raise Mp4jError(f"ring kernel: a list of {n} members; the member "
+                        f"launch takes at most {MAX_MEMBERS}")
+    indexes = tuple(t.device.index for t in xs)
+    lib = _member_library()
     base = tuple(lay.base) + (0,) * (2 - len(lay.base))
     vbase = tuple(lay.vbase) + (0,) * (2 - len(lay.vbase))
-    codes = (_DTYPE_CODES[xs[0].dtype], operator.kernel_code, ndir,
-             _MODE_CODES[plan.mode], n, lp.cols)
-    shape = (lay.w, lay.stride, base[0], base[1], vbase[0], vbase[1],
-             lp.col_w)
+    ptrs = ctypes.c_void_p * n
     with _member_lock:
-        _enable_peers(sorted(set(indexes)))
-        ring = _member_ring(indexes, lp)
-        ring.epoch += 1
-        epoch = ring.epoch * _EPOCH
-        outs, errs, xs_ok = [], [], []
+        cards = _cards.get(indexes)
+        if cards is None:
+            cards = _cards[indexes] = _Cards(indexes)
+        mp = member_plan(n, plan.mode, plan.ndir, lay.w, lay.in_row,
+                         x0.dtype, cards.sms, cards.per_card, path)
+        ins, outs = [], []
         for t in xs:
-            with torch.cuda.device(t.device):
-                if t.data_ptr() % _VECTOR_BYTES:
-                    t = t.clone(memory_format=torch.contiguous_format)
-                xs_ok.append(t)
-                # on the card's current stream: the launch waits for them
-                outs.append(torch.empty(lay.out_row, dtype=t.dtype,
-                                        device=t.device))
-                errs.append(torch.zeros(4, dtype=torch.int64,
-                                        device=t.device))
-        ready = {}
-        for i in sorted(set(indexes)):
-            ready[i] = torch.cuda.Event()
-            ready[i].record(torch.cuda.current_stream(i))
-        done, seen = [], {}
-        for m, t in enumerate(xs_ok):
-            i = indexes[m]
-            k = seen[i] = seen.get(i, -1) + 1
-            stream = _member_stream(i, k)
-            stream.wait_event(ready[i])
-            table = ring.tables[m]
-            with torch.cuda.device(i):
-                rc = lib.mp4j_ring_member_launch(
-                    *codes, *shape, t.data_ptr(), outs[m].data_ptr(),
-                    table.data_ptr(), table.data_ptr() + 8 * n,
-                    errs[m].data_ptr(), epoch, m, int(spin_s * 1e9),
-                    stall_member, stream.cuda_stream)
-            if rc:
-                # the members already launched spin to their bound
-                # before this call can raise
-                for j in sorted(set(indexes)):
-                    for e in done:
-                        torch.cuda.current_stream(j).wait_event(e)
-                raise Mp4jError(
-                    f"ring kernel launch (member path, member {m}) failed: "
-                    f"{lib.mp4j_error_string(rc).decode()}")
-            event = torch.cuda.Event()
-            event.record(stream)
-            done.append(event)
-        for i in sorted(set(indexes)):
-            current = torch.cuda.current_stream(i)
-            for event in done:
-                current.wait_event(event)
-    return outs, errs, lp
+            if t.data_ptr() % _VECTOR_BYTES:
+                t = t.clone(memory_format=torch.contiguous_format)
+            ins.append(t)
+            # on the card's current stream, before its ready event
+            outs.append(torch.empty(lay.out_row, dtype=t.dtype,
+                                    device=t.device))
+        currents = (ctypes.c_void_p * len(cards.cards))(
+            *[torch.cuda.current_stream(i).cuda_stream for i in cards.cards])
+        failed = ctypes.c_int(-1)
+        rc = lib.mp4j_ring_members_launch(
+            _DTYPE_CODES[x0.dtype], operator.kernel_code,
+            _MODE_CODES[plan.mode], plan.ndir, n, mp.rounds,
+            (ctypes.c_int * 2)(*mp.tasks), (ctypes.c_int * 2)(*mp.cols),
+            lay.w, lay.stride, *base, *vbase,
+            member_order(n, plan.mode, plan.ndir), cards.devices,
+            ptrs(*[t.data_ptr() for t in ins]),
+            ptrs(*[t.data_ptr() for t in outs]), cards.streams,
+            len(cards.cards), cards.card_ids, currents, cards.ready,
+            cards.done1, cards.done, cards.join, ctypes.byref(failed))
+    if rc:
+        raise Mp4jError(
+            f"ring kernel launch (member path, member {failed.value}) "
+            f"failed: {lib.mp4j_error_string(rc).decode()}")
+    return outs, mp
 
 
 def ring_kernel(xp, plan, lay, operator, spin_s=SPIN_SECONDS,
                 stall_member=-1, path=None):
     """One launch of the unidirectional kernel (row 2 of the TPU table),
-    or, for a list of member tensors, one launch a member (each counted).
-    ``spin_s`` bounds every wait; ``stall_member`` (a test hook) names a
-    member that does no work; ``path`` forces "cluster" or "global"
-    (tests and measurements). Counts ``launches`` and the path's
-    ``cluster_launches`` / ``global_launches``; ``last_plan`` is the
-    :class:`LaunchPlan` of the latest launch."""
+    or, for a list of member tensors, the launches of every member (each
+    counted). ``spin_s`` bounds every wait; ``stall_member`` (a test hook)
+    names a member that does no work; ``path`` forces "cluster" or
+    "global" (tests and measurements; on a list, "one_shot" or
+    "two_round" forces an allreduce's form). Counts ``launches`` and the
+    path's ``cluster_launches`` / ``global_launches`` /
+    ``member_launches``; ``last_plan`` is the :class:`LaunchPlan` (or
+    :class:`MemberPlan`) of the latest call."""
     return _counted(ring_kernel, xp, plan, lay, operator, spin_s,
                     stall_member, path)
 
@@ -801,12 +921,14 @@ def _chunk_granule(c: int, x, bidirectional: bool, what: str) -> None:
 
 def _run(xp, plan, lay, operator, plain, kw):
     if isinstance(xp, _List):
+        if (kw.get("spin_s", SPIN_SECONDS) != SPIN_SECONDS
+                or kw.get("stall_member", -1) != -1):
+            raise Mp4jError(
+                "ring kernel: spin_s and stall_member bound and stall the "
+                "packed launch's waits; a member list's launches never "
+                "wait on each other, so a list call takes neither")
         if plain or xp.device.type == "cpu":
-            # the plain version of a list: the packed plain version on the
-            # stacked members, each row back on its member's device
-            out = _plain(torch.stack([t.to(xp.device) for t in xp.xs]),
-                         plan, lay, operator)
-            return [out[r].to(t.device) for r, t in enumerate(xp.xs)]
+            return _members_plain(xp.xs, plan, lay, operator)
         xp = [t.contiguous() for t in xp.xs]
     elif plain or xp.device.type == "cpu":
         return _plain(xp, plan, lay, operator)
@@ -894,7 +1016,8 @@ def ring_allreduce_kernel(x, operator: Operator = Operators.SUM,
                           force_kernel: bool = False, **launch):
     """Allreduce of members ``x`` [n, L] (any L): every row becomes the
     element-wise reduction. ``launch``: ``spin_s`` and the test hooks
-    ``stall_member`` and ``path`` (see :func:`ring_kernel`). A CUDA input
+    ``stall_member`` and ``path`` (see :func:`ring_kernel`; a list takes
+    only ``path``). A CUDA input
     whose data does not start on 16 bytes is copied first. Each entry
     point also takes a list of n ``[L]`` member tensors, member r's on
     its own device, and returns a list the same way (one launch a
