@@ -66,6 +66,15 @@ the launches (no flag, no spin); an allreduce is one launch a member
 below a size threshold and two above it (fold the owned chunk, then
 copy the others from their owners).
 
+Slice 15, the packed ring's global path redesigned (``ring_kernel.cu``,
+n > 8 members, or a cluster size the card refuses): one plain launch
+that folds each chunk once, straight from the members' rows, in the
+ring's fold order, and writes it to every row that receives it (an
+allgather copies each member's part to every row); no flag, slot, spin
+or cooperative launch. Driven at the reference's own meshes: 16 members
+(BASELINE.json's north star, a v5e-16 pod) and 64 (configs[4]'s
+v5e-64), through ``GpuCommCluster(16)`` and the ring kernels.
+
 Phases:
 
 1. build the kernels from the sources in this checkout (one ``nvcc``
@@ -106,20 +115,30 @@ Phases:
 5. both ring kernels against their plain versions, BITWISE (NaN as NaN):
    both directions x three modes x {SUM, PROD, MAX, MIN} x {f32, f64,
    i64, i32, i16, i8, bf16} x n in {1 (force_kernel), 2, 3, 5, 8} on the
-   cluster path and n = 9 on the global path, odd allreduce lengths
-   (padding), NaN under MAX/MIN; then 200 launches of each kernel at
-   n = 8 (cluster path) on a multi-column chunk, each checked; the
-   largest difference from the plain version (0 where bitwise) is what
-   the kernels line reports;
+   cluster path and n in {9, 16, 64} on the global path, odd allreduce
+   lengths (padding), NaN under MAX/MIN; then 200 launches of each
+   kernel at n = 8 (cluster path) on a multi-column chunk, each checked;
+   the largest difference from the plain version (0 where bitwise) is
+   what the kernels line reports;
 6. the collective slice: every launch count set to 0, the three
-   configurations above driven once, the counts read (all through the
-   cluster path); each result must equal its plain version bitwise
+   configurations above driven once (through the cluster path), then
+   configs[0] through ``GpuCommCluster(16)`` (``algo="rdma"``) and the
+   histogram payload over 16 members (through the global path), the
+   counts read; each result must equal its plain version bitwise
    (configs[0] also under ``algo="ring"``); per call, the kernel's path,
-   its ms and ms per ring step, plain ms, the one-card ATen yardstick's
-   ms, the global path's ms on the same call, and the bound. Every time
-   is the device time of the call's kernels (``torch.profiler``, mean of
-   5 calls), so the host's launch gap counts on no side; the older
-   measure (CUDA events around each launch) is printed beside the
+   its ms (and ms per ring step on the cluster path), plain ms, the
+   one-card ATen yardstick's ms, the global path's ms on the same call,
+   and the bound. Then the global path at the reference's meshes: the
+   histogram payload over 16 members (bidirectional), reduce-scatter of
+   16 x 128M f64 (configs[1]'s 16 GiB), allgather of 16 x 8M f64 and
+   allreduce of 64 x 1M f32, each held bitwise against its plain version
+   and timed with its plain, library and bound columns; the 16-member
+   reduce-scatter and allgather and the 64-member allreduce also at 1, 2
+   and 4 blocks an SM (the global plan's two per-SM constants), as are
+   configs[1]'s two calls forced onto the global path. Every
+   time is the device time of the call's kernels (``torch.profiler``,
+   mean of 5 calls), so the host's launch gap counts on no side; the
+   older measure (CUDA events around each launch) is printed beside the
    kernel's;
 7. the FFM, map-plane and linear phases of slice 6 (no kernel of their
    own);
@@ -330,13 +349,18 @@ F32_OPS_PER_S = 67e12              # f32 outside the tensor cores
 F64_OPS_PER_S = 34e12              # f64 outside the tensor cores (data sheet)
 RING_DTYPES = (torch.float32, torch.float64, torch.int64, torch.int32,
                torch.int16, torch.int8, torch.bfloat16)
-RING_MEMBERS = (1, 2, 3, 5, 8, 9)  # 9: above the cluster limit
+RING_MEMBERS = (1, 2, 3, 5, 8, 9, 16, 64)   # 9 up: the global path
 RING_REPEATS = 200
 TIMING_REPS = 5
 PROFILE_ATTEMPTS = 3               # CUPTI now and then hands back nothing
 PROFILE_WARM_LAUNCHES = 256        # CUPTI loses the first launches' kernels
 CONFIG0_LEN = 1 << 20              # BASELINE.json configs[0]: 1M f32, 4 ranks
 CONFIG1_LEN = 256 << 20            # configs[1]: 256M f64, 8 ranks
+POD16 = 16                         # BASELINE.json's north star: v5e-16
+POD64 = 64                         # configs[4]: v5e-64
+CONFIG1_POD16_LEN = 128 << 20      # configs[1]'s 16 GiB over 16 members
+ALLGATHER_POD16_LEN = 8 << 20      # f64 shards a member
+GLOBAL_PER_SM = (1, 2, 4)          # blocks an SM tried for the global plan
 HIST_PAYLOAD = 2 * 16 * F * B      # g and h planes of 16 nodes
 KERNEL_REL_TOL = 1e-5              # vs an f64 sum, relative to its max
 HIST_KERNELS = ("absmax_kernel", "scan_kernel", "scatter_kernel",
@@ -1065,29 +1089,49 @@ def device_ms(fn, reps=TIMING_REPS, match=None, copies=False):
     holds ``match``, default all; copies and fills excluded unless
     ``copies``), from
     ``torch.profiler`` over ``reps`` calls after one warm-up: the host's
-    launch latency between calls counts on no side. A profile with no
-    device time is taken again, PROFILE_ATTEMPTS times at most."""
+    launch latency between calls counts on no side. CUPTI now and then
+    loses the kernels of a profile's first launches (or of a few further
+    on), so each profile first launches PROFILE_WARM_LAUNCHES marker
+    kernels (ATen's ``spin_kernel``, left out of the sum). With ``match``
+    every call launches one matched kernel: the mean is over the kernels
+    seen, and a profile that saw fewer than ``reps`` is taken again
+    (without ``match``, one with no device time is), PROFILE_ATTEMPTS
+    times at most; the attempt that saw the most is kept."""
     fn()
     torch.cuda.synchronize()
+    best = (0, 0.0)                        # (kernels seen, device us)
     for _ in range(PROFILE_ATTEMPTS):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_WARM_LAUNCHES):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = 0.0
+        seen, total = 0, 0.0
         for e in prof.key_averages():
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = e.self_cuda_time_total
             moves = "Memcpy" in e.key or "Memset" in e.key
-            if us and (copies or not moves) \
+            if us and (copies or not moves) and "spin_kernel" not in e.key \
                     and (match is None or match in e.key):
+                seen += e.count
                 total += us
-        if total > 0:
+        if (seen, total) > best:
+            best = (seen, total)
+        if total > 0 and (match is None or seen >= reps):
             break
+    seen, total = best
     check(total > 0, "the profiler saw no device time")
-    return total / reps / 1e3
+    if match is None:
+        return total / reps / 1e3
+    if seen < reps:
+        print(f"device_ms: the profiler kept {seen} of {reps} calls' "
+              f"{match!r} kernels in the best of {PROFILE_ATTEMPTS} "
+              "attempts; the mean is over those", flush=True)
+    return total / seen / 1e3
 
 
 class LaunchTimer:
@@ -1184,36 +1228,65 @@ def phase_ring_checks(dev):
     return cases + 2 * RING_REPEATS
 
 
-def chain_steps(counter, mode, n):
-    """Dependent ring steps of the latest launch: segments of its
-    longest column times the exchanges of one segment."""
-    lp = counter.last_plan
-    longest = max(len(lp.segments(c)) for c in range(lp.cols))
-    return lp, longest * rk.RingPlan(n, mode).steps
-
-
 def ring_row(name, mode, n, length, dt, kernel, plain, library, timer,
-             counter, on_global):
-    """One timed call: kernel (its path, ms per ring step, the older
-    event measure), plain, library and global-path ms, and the bound."""
+             counter, on_global=None):
+    """One timed call: kernel (its path, the older event measure; on the
+    cluster path its dependent ring steps -- segments of its longest
+    column times the exchanges of one segment -- and ms a step), plain,
+    library and (where ``on_global`` forces it on a call that takes the
+    cluster path) global-path ms, and the bound."""
     ms = device_ms(kernel, match="ring_")
-    lp, steps = chain_steps(counter, mode, n)
+    lp = counter.last_plan
     row = dict(call=name, mode=mode, n=n, length=length, dtype=str(dt),
-               path=lp.path, cols=lp.cols, slot_bytes=lp.slot_bytes,
-               steps=steps, ms=ms, ms_per_step=ms / steps,
-               event_ms=timer.kernel_ms(kernel),
-               global_ms=device_ms(on_global, match="ring_"),
-               plain_ms=device_ms(plain),
-               library_ms=device_ms(library),
+               path=lp.path, cols=lp.cols, ms=ms,
+               event_ms=timer.kernel_ms(kernel))
+    if lp.path == "cluster":
+        longest = max(len(lp.segments(c)) for c in range(lp.cols))
+        row.update(slot_bytes=lp.slot_bytes,
+                   steps=longest * rk.RingPlan(n, mode).steps)
+        row["ms_per_step"] = ms / row["steps"]
+        shape = (f"{row['steps']} ring steps, "
+                 f"{row['ms_per_step'] * 1e3:.3f} us a step")
+    else:
+        row["jobs"] = lp.jobs
+        shape = f"{lp.jobs} jobs x {lp.cols} columns, one pass"
+    if on_global is not None:
+        row["global_ms"] = device_ms(on_global, match="ring_")
+    row.update(plain_ms=device_ms(plain), library_ms=device_ms(library),
                bound_ms=ring_bound_ms(mode, n, length, dt))
     torch.cuda.empty_cache()
     print(f"{name}: {row['path']} path, kernel {row['ms']:.4f} ms "
-          f"({row['steps']} ring steps, {row['ms_per_step'] * 1e3:.3f} us "
-          f"a step; CUDA events around the launch: {row['event_ms']:.4f} "
-          f"ms), global path {row['global_ms']:.4f} ms, plain "
-          f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
-          f"bound {row['bound_ms']:.4f} ms (bytes)", flush=True)
+          f"({shape}; CUDA events around the launch: "
+          f"{row['event_ms']:.4f} ms)"
+          + (f", global path {row['global_ms']:.4f} ms"
+             if on_global is not None else "")
+          + f", plain {row['plain_ms']:.4f} ms, library "
+          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          "(bytes)", flush=True)
     return row
+
+
+def global_per_sm(kernel, counter, mode):
+    """Device ms of one global-path call with the plan's blocks an SM for
+    ``mode`` (``GLOBAL_FOLD_BLOCKS_PER_SM`` or, for an allgather,
+    ``GLOBAL_COPY_BLOCKS_PER_SM``) set to each of GLOBAL_PER_SM, restored
+    after: the measurement behind the constant."""
+    knob = ("GLOBAL_COPY_BLOCKS_PER_SM" if mode == "allgather"
+            else "GLOBAL_FOLD_BLOCKS_PER_SM")
+    real = getattr(rk, knob)
+    times = {}
+    try:
+        for v in GLOBAL_PER_SM:
+            setattr(rk, knob, v)
+            times[v] = device_ms(kernel, match="ring_")
+            check(counter.last_plan.path == "global",
+                  f"{knob} sweep left the global path")
+    finally:
+        setattr(rk, knob, real)
+    print(f"{knob} (now {real}): {mode} ms by blocks an SM "
+          + ", ".join(f"{v}: {ms:.4f}" for v, ms in times.items()),
+          flush=True)
+    return times
 
 
 def replicated_sum(x):
@@ -1233,6 +1306,10 @@ def run_ring(dev):
     host = [rng.standard_normal(CONFIG0_LEN).astype(np.float32)
             for _ in range(4)]
     hist = torch.randn((4, HIST_PAYLOAD), generator=gen, device=dev)
+    host16 = [rng.standard_normal(CONFIG0_LEN).astype(np.float32)
+              for _ in range(POD16)]
+    hist16 = torch.randn((POD16, HIST_PAYLOAD), generator=gen, device=dev)
+    cluster16 = GpuCommCluster(POD16)
     t0 = time.perf_counter()
     big = torch.randn((8, CONFIG1_LEN), generator=gen, device=dev,
                       dtype=torch.float64)
@@ -1250,16 +1327,23 @@ def run_ring(dev):
     hist_out = rk.ring_allreduce_kernel(hist, bidirectional=True)
     scattered = rk.ring_reduce_scatter_kernel(big)
     gathered = rk.ring_allgather_kernel(scattered)
+    arrs16 = [a.copy() for a in host16]
+    cluster16.allreduce_array(arrs16, Operands.FLOAT, Operators.SUM,
+                              algo="rdma")
+    hist16_out = rk.ring_allreduce_kernel(hist16, bidirectional=True)
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
     counts = read_counts()
     print(f"collective slice driven in {host_s:.3f} s (host clock), "
           f"launches {counts}", flush=True)
-    check(counts["ring_kernel"] == 3 and counts["ring_kernel_bidir"] == 1
+    check(counts["ring_kernel"] == 4 and counts["ring_kernel_bidir"] == 2
           and counts["hist_kernel"] == 0, f"launch counts {counts}")
     check(counts["ring_kernel.cluster"] == 3
           and counts["ring_kernel_bidir.cluster"] == 1,
-          f"the main path left the cluster kernel: {counts}")
+          f"the 4- and 8-member calls left the cluster kernel: {counts}")
+    check(counts["ring_kernel.global"] == 1
+          and counts["ring_kernel_bidir.global"] == 1,
+          f"the {POD16}-member calls left the global kernel: {counts}")
 
     # ---- configs[0]: the host API against the plain version and "ring"
     stacked = to_tensor(np.stack(host), dev)
@@ -1306,6 +1390,9 @@ def run_ring(dev):
         lambda: rk.ring_reduce_scatter_reference(big),
         lambda: big.sum(0).view(8, -1), timer, rk.ring_kernel,
         lambda: rk.ring_reduce_scatter_kernel(big, path="global")))
+    rows["ring_kernel"][-1]["global_ms_by_blocks_per_sm"] = global_per_sm(
+        lambda: rk.ring_reduce_scatter_kernel(big, path="global"),
+        rk.ring_kernel, "reduce_scatter")
     del big
     torch.cuda.empty_cache()
     held("ring_kernel", gathered, rk.ring_allgather_reference(scattered),
@@ -1320,6 +1407,15 @@ def run_ring(dev):
         lambda: scattered.reshape(-1).expand(8, -1).contiguous(), timer,
         rk.ring_kernel,
         lambda: rk.ring_allgather_kernel(scattered, path="global")))
+    rows["ring_kernel"][-1]["global_ms_by_blocks_per_sm"] = global_per_sm(
+        lambda: rk.ring_allgather_kernel(scattered, path="global"),
+        rk.ring_kernel, "allgather")
+    del scattered
+    torch.cuda.empty_cache()
+
+    # ---- the global path at the reference's 16- and 64-member meshes ----
+    global_rows = run_global_calls(dev, gen, timer, host16, arrs16, hist16,
+                                   hist16_out)
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     print(f"peak device memory of the ring phases {peak:.1f} GiB", flush=True)
 
@@ -1327,20 +1423,110 @@ def run_ring(dev):
     files = {"cluster": "ytk_mp4j_tpu_torch/ops/csrc/ring_cluster.cu",
              "global": "ytk_mp4j_tpu_torch/ops/csrc/ring_kernel.cu"}
     entries = []
-    for name, rs in rows.items():
-        total = {k: sum(r[k] for r in rs)
-                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-        paths = sorted({r["path"] for r in rs})
-        check(len(paths) == 1, f"{name}: timed calls on paths {paths}")
-        entries.append({
-            "name": name, "route": "cuda", "source": files[paths[0]],
-            "replaces": "ytk_mp4j_tpu/ops/ring_kernel.py" + sources[name],
-            "path": paths[0],
-            "launches": counts[name], "max_abs_err": RING_ERR[name],
-            "ms": total["ms"], "plain_ms": total["plain_ms"],
-            "bound_ms": total["bound_ms"], "bound_by": "bytes",
-            "library_ms": total["library_ms"]})
-    return entries, {"calls": rows, "host_s": host_s, "peak_gib": peak}
+    for path, by_name in (("cluster", rows), ("global", global_rows)):
+        for name, rs in by_name.items():
+            total = {k: sum(r[k] for r in rs)
+                     for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            paths = sorted({r["path"] for r in rs})
+            check(paths == [path], f"{name}: timed calls on paths {paths}, "
+                  f"want {path}")
+            entries.append({
+                "name": name if path == "cluster" else f"{name}.{path}",
+                "route": "cuda", "source": files[path],
+                "replaces": "ytk_mp4j_tpu/ops/ring_kernel.py" + sources[name],
+                "path": path, "launches": counts[f"{name}.{path}"],
+                "max_abs_err": RING_ERR[name],
+                "ms": total["ms"], "plain_ms": total["plain_ms"],
+                "bound_ms": total["bound_ms"], "bound_by": "bytes",
+                "library_ms": total["library_ms"]})
+    return entries, {"calls": rows, "global_calls": global_rows,
+                     "host_s": host_s, "peak_gib": peak}
+
+
+def run_global_calls(dev, gen, timer, host16, arrs16, hist16, hist16_out):
+    """Slice 15: the main path's 16-member calls held against their plain
+    versions (configs[0] through ``GpuCommCluster(16)`` also against
+    ``algo="ring"``), then the global path timed at the reference's
+    meshes, each call held bitwise against its plain version first; the
+    16-member reduce-scatter and allgather and the 64-member allreduce
+    also at each of GLOBAL_PER_SM blocks an SM."""
+    stacked = to_tensor(np.stack(host16), dev)
+    held("ring_kernel", torch.from_numpy(np.stack(arrs16)),
+         rk.ring_allreduce_reference(stacked).cpu(),
+         f"configs[0] over {POD16} rdma")
+    ring = [a.copy() for a in host16]
+    GpuCommCluster(POD16).allreduce_array(ring, Operands.FLOAT,
+                                          Operators.SUM, algo="ring")
+    for r in range(POD16):
+        check(np.array_equal(arrs16[r], ring[r]),
+              f"configs[0] over {POD16}: rdma != ring")
+    print(f"configs[0] over {POD16} members (global path): rdma == plain "
+          "== ring, bitwise", flush=True)
+    rows = {"ring_kernel": [], "ring_kernel_bidir": []}
+    rows["ring_kernel"].append(ring_row(
+        f"configs[0] allreduce {POD16} x 1M f32", "allreduce", POD16,
+        CONFIG0_LEN, torch.float32, lambda: rk.ring_allreduce_kernel(stacked),
+        lambda: rk.ring_allreduce_reference(stacked),
+        replicated_sum(stacked), timer, rk.ring_kernel))
+    del stacked
+    held("ring_kernel_bidir", hist16_out,
+         rk.ring_allreduce_reference(hist16, bidirectional=True),
+         f"histogram payload over {POD16}")
+    rows["ring_kernel_bidir"].append(ring_row(
+        f"histogram payload allreduce {POD16} x 2x16x28x256 f32 bidir",
+        "allreduce", POD16, HIST_PAYLOAD, torch.float32,
+        lambda: rk.ring_allreduce_kernel(hist16, bidirectional=True),
+        lambda: rk.ring_allreduce_reference(hist16, bidirectional=True),
+        replicated_sum(hist16), timer, rk.ring_kernel_bidir))
+
+    x = torch.randn((POD16, CONFIG1_POD16_LEN), generator=gen, device=dev,
+                    dtype=torch.float64)
+    held("ring_kernel", rk.ring_reduce_scatter_kernel(x),
+         rk.ring_reduce_scatter_reference(x),
+         f"reduce-scatter {POD16} x 128M f64")
+    torch.cuda.empty_cache()
+    rows["ring_kernel"].append(ring_row(
+        f"reduce-scatter {POD16} x 128M f64", "reduce_scatter", POD16,
+        CONFIG1_POD16_LEN, torch.float64,
+        lambda: rk.ring_reduce_scatter_kernel(x),
+        lambda: rk.ring_reduce_scatter_reference(x),
+        lambda: x.sum(0).view(POD16, -1), timer, rk.ring_kernel))
+    rows["ring_kernel"][-1]["ms_by_blocks_per_sm"] = global_per_sm(
+        lambda: rk.ring_reduce_scatter_kernel(x), rk.ring_kernel,
+        "reduce_scatter")
+    del x
+    torch.cuda.empty_cache()
+
+    x = torch.randn((POD16, ALLGATHER_POD16_LEN), generator=gen,
+                    device=dev, dtype=torch.float64)
+    held("ring_kernel", rk.ring_allgather_kernel(x),
+         rk.ring_allgather_reference(x), f"allgather {POD16} x 8M f64")
+    torch.cuda.empty_cache()
+    rows["ring_kernel"].append(ring_row(
+        f"allgather {POD16} x 8M f64", "allgather", POD16,
+        ALLGATHER_POD16_LEN, torch.float64,
+        lambda: rk.ring_allgather_kernel(x),
+        lambda: rk.ring_allgather_reference(x),
+        lambda: x.reshape(-1).expand(POD16, -1).contiguous(), timer,
+        rk.ring_kernel))
+    rows["ring_kernel"][-1]["ms_by_blocks_per_sm"] = global_per_sm(
+        lambda: rk.ring_allgather_kernel(x), rk.ring_kernel, "allgather")
+    del x
+    torch.cuda.empty_cache()
+
+    x = torch.randn((POD64, CONFIG0_LEN), generator=gen, device=dev)
+    held("ring_kernel", rk.ring_allreduce_kernel(x),
+         rk.ring_allreduce_reference(x), f"allreduce {POD64} x 1M f32")
+    rows["ring_kernel"].append(ring_row(
+        f"allreduce {POD64} x 1M f32", "allreduce", POD64, CONFIG0_LEN,
+        torch.float32, lambda: rk.ring_allreduce_kernel(x),
+        lambda: rk.ring_allreduce_reference(x), replicated_sum(x), timer,
+        rk.ring_kernel))
+    rows["ring_kernel"][-1]["ms_by_blocks_per_sm"] = global_per_sm(
+        lambda: rk.ring_allreduce_kernel(x), rk.ring_kernel, "allreduce")
+    del x
+    torch.cuda.empty_cache()
+    return rows
 
 
 # ----------------------------------------------------------------------
@@ -3134,7 +3320,7 @@ def run_examples_and_traces():
         for kernel in EXAMPLE_KERNELS.get(name[:2], ()):
             check(counts[kernel] >= 1, f"{name} launched no {kernel}")
         launches = {k: counts[k] for k in COUNTERS}
-        recs[name] = {"s": took, "launches": launches}
+        recs[name] = {"s": took, "launches": counts}
         log.append(f"==== {name} ({took:.3f} s, launches {launches})\n"
                    + out)
         print(f"example {name}: {took:.3f} s, launches {launches}",

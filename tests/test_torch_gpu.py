@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card: the histogram kernel and the two
 ring kernels on both their paths (thread-block clusters for n <= 8
-members, device-memory slots above), against their plain versions, run
-to run, at the edges of their contracts (for the rings: co-residency
-refused, a stuck ring raising at the spin bound, unaligned inputs), and
+members; above, one launch that folds each chunk straight from the rows),
+against their plain versions, run to run, at the edges of their
+contracts (for the rings: 300 members on the global path, a stuck
+cluster ring raising at the spin bound, the global path refusing the
+stall hook, unaligned inputs), and
 through the trainer (one member and a mesh of members, ``train_raw`` and
 the binner's transform) and the collective driver; and the paths that
 have no kernel of their own -- the map collectives, the FM/FFM trainer on
@@ -340,7 +342,7 @@ def _path_counts(counter):
 
 
 @pytest.mark.parametrize("bidir", [False, True])
-@pytest.mark.parametrize("n", [1, 2, 3, 5, 8, 9])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 8, 9, 16, 64])
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64, torch.int64,
                                 torch.int32, torch.int16, torch.int8,
                                 torch.bfloat16], ids=str)
@@ -424,19 +426,32 @@ def test_ring_kernel_multiblock_repeats(cuda, bidir):
     assert counter.launches == before + 30
 
 
-def test_ring_kernel_refuses_a_grid_that_cannot_be_resident(cuda):
-    """The global path (n > 8): one block per member at least; n =
-    capacity members fit (and equal the plain version), n = capacity + 1
-    are refused before any launch."""
-    cap = rk.capacity(torch.float32, Operators.SUM, 1, cuda)
-    x = _ring_data(cuda, (cap + 1, 64), torch.float32, 3)
-    before = rk.ring_kernel.launches
-    with pytest.raises(Mp4jError, match="co-resident"):
-        rk.ring_allreduce_kernel(x)
-    assert rk.ring_kernel.launches == before
-    assert _same(rk.ring_allreduce_kernel(x[:cap]),
-                 rk.ring_allreduce_reference(x[:cap]))
-    assert rk.ring_kernel.launches == before + 1
+@pytest.mark.parametrize("bidir", [False, True])
+def test_ring_kernel_global_path_takes_300_members(cuda, bidir):
+    """The global path has no co-residency limit and a table wider than a
+    byte: 300 members (the old cooperative launch refused any n x blocks
+    over the card's occupancy) run every mode, each call twice with no
+    synchronize between, bitwise the plain version, one global launch a
+    call."""
+    n = 300
+    counter = rk.ring_kernel_bidir if bidir else rk.ring_kernel
+    c = 2 * rk.granule(torch.float32, cuda) * 3
+    x = _ring_data(cuda, (n, 4001), torch.float32, 3)
+    x[0, 7] = float("nan")
+    y = _ring_data(cuda, (n, n * c), torch.float32, 4)
+    z = _ring_data(cuda, (n, c), torch.float32, 5)
+    calls = [(lambda: rk.ring_allreduce_kernel(x, Operators.MAX, bidir),
+              rk.ring_allreduce_reference(x, Operators.MAX, bidir)),
+             (lambda: rk.ring_reduce_scatter_kernel(y, Operators.SUM, bidir),
+              rk.ring_reduce_scatter_reference(y, Operators.SUM, bidir)),
+             (lambda: rk.ring_allgather_kernel(z, bidir),
+              rk.ring_allgather_reference(z, bidir))]
+    before = _path_counts(counter)
+    for call, want in calls:
+        first, again = call(), call()
+        assert _same(first, want) and _same(again, want)
+    assert _path_counts(counter) == (before[0], before[1] + 6)
+    assert counter.last_plan.path == "global"
 
 
 def test_ring_kernel_keeps_the_callers_current_device(cuda):
@@ -445,10 +460,11 @@ def test_ring_kernel_keeps_the_callers_current_device(cuda):
     current = torch.cuda.current_device()
     x = _ring_data(dev, (4, 1001), torch.float32, 4)
     for bidir in (False, True):
-        rk.capacity(x.dtype, Operators.SUM, 1 + bidir, dev)
-        assert _same(rk.ring_allreduce_kernel(x, bidirectional=bidir),
-                     rk.ring_allreduce_reference(x, bidirectional=bidir))
-        assert torch.cuda.current_device() == current
+        for path in rk.PATHS:
+            assert _same(rk.ring_allreduce_kernel(x, bidirectional=bidir,
+                                                  path=path),
+                         rk.ring_allreduce_reference(x, bidirectional=bidir))
+            assert torch.cuda.current_device() == current
 
 
 def test_ring_kernel_spin_bound_raises_instead_of_hanging(cuda):
@@ -466,15 +482,23 @@ def test_ring_kernel_spin_bound_raises_instead_of_hanging(cuda):
 
 
 @pytest.mark.parametrize("bidir", [False, True])
-def test_ring_kernel_spin_bound_raises_on_the_global_path(cuda, bidir):
-    """The same stall on the global path, and the same clean recovery."""
-    x = _ring_data(cuda, (4, 100_000), torch.float32, 2)
-    with pytest.raises(Mp4jError, match="spin bound"):
-        rk.ring_allreduce_kernel(x, bidirectional=bidir, spin_s=0.5,
-                                 stall_member=1, path="global")
-    assert _same(rk.ring_allreduce_kernel(x, bidirectional=bidir,
-                                          path="global"),
-                 rk.ring_allreduce_reference(x, bidirectional=bidir))
+def test_ring_kernel_global_path_refuses_stall_member(cuda, bidir):
+    """The global path's blocks never wait on each other: a stall hook
+    there is refused before any launch (forced at n = 4, and n = 9 by
+    rule); the defaults passed as such, and a spin bound, are no
+    refusal."""
+    counter = rk.ring_kernel_bidir if bidir else rk.ring_kernel
+    for n, path in ((4, "global"), (9, None)):
+        x = _ring_data(cuda, (n, 100_000), torch.float32, 2)
+        before = counter.launches
+        with pytest.raises(Mp4jError, match="stall_member"):
+            rk.ring_allreduce_kernel(x, bidirectional=bidir, stall_member=1,
+                                     path=path)
+        assert counter.launches == before
+        assert _same(rk.ring_allreduce_kernel(
+            x, bidirectional=bidir, spin_s=0.5, stall_member=-1, path=path),
+            rk.ring_allreduce_reference(x, bidirectional=bidir))
+        assert counter.last_plan.path == "global"
 
 
 def test_gpu_comm_cluster_on_the_card(cuda):

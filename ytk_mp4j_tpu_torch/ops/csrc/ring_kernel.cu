@@ -1,69 +1,54 @@
-// Ring allreduce / reduce-scatter / allgather for Hopper (sm_90a): n ring
-// members on one card in one launch (the packed form's global path, for
-// n > 8 members; ring_cluster.cu takes n <= 8, ring_member.cu the list
-// form, one launch a member).
+// Ring allreduce / reduce-scatter / allgather of n members packed as the
+// rows of one tensor on one card, in one launch, for Hopper (sm_90a): the
+// packed form's global path (n > 8 members, or a cluster size the card
+// refuses; ring_cluster.cu takes n <= 8, ring_member.cu the list form).
 //
 // Replaces the Pallas TPU kernels ytk_mp4j_tpu/ops/ring_kernel.py:179
 // (_ring_kernel, called through _pallas_ring:244) and :276
-// (_ring_kernel_bidir, through _pallas_ring_bidir:382). One template
-// serves both: NDIR = 1 is the unidirectional ring, NDIR = 2 rings two
-// halves of the payload in opposite directions. Same contract, step order
-// and fold order as the TPU kernels; the schedule is the one that
-// ops/ring_kernel.py describes in Python (RingPlan), and every formula
-// below is one of its methods:
+// (_ring_kernel_bidir, through _pallas_ring_bidir:382), for both direction
+// counts: a direction d is a part of the layout the wrapper passes (base,
+// vbase, stride; ops/ring_kernel.py _Layout), not a template parameter.
 //
-//   direction d has sign s_d (-1: send right, +1: send left); member me
-//   sends to me - s_d and takes credits from it, receives from me + s_d.
-//   reduce modes (sh = s_d for reduce-scatter, 0 for allreduce):
-//     acc = x[chunk(me + sh)];  n-1 steps: acc = op(got, x[chunk(me +
-//     s_d (s+1) + sh)]); reduce-scatter stores acc; allreduce stores it
-//     at chunk(me - s_d), then n-1 forwarding steps store chunk(me + s_d s)
-//   allgather: out[chunk(me)] = x; n-1 steps store chunk(me + s_d (s+1)).
+// What it computes is the TPU kernels' result, bit for bit: for every
+// chunk K of direction d, the fold acc = op(acc, x_m[chunk K]) over the
+// members m in exactly the order in which the ring's schedule folds that
+// chunk (RingPlan.start / merge in ops/ring_kernel.py). That order is a
+// rotation: row (K + order[d][j]) mod n is the j-th of chunk K, and the
+// wrapper builds order[][] from RingPlan (fold_rotation) and passes it as a
+// device array. What it drops is the TPU's transport: a ring of
+// neighbours, receive slots, semaphores and 2(n-1) dependent steps. All n
+// rows lie in this card's memory, so each chunk is folded ONCE, straight
+// from the rows, and written to every row that receives it.
 //
-// Members. Member me is the row blockIdx.y; column
-// blockIdx.x of blocks across the n members is an independent ring over
-// one sub-range of every chunk, walked in segments of kSeg elements (the
-// global step counter g runs on across segments). No member ever needs a
-// grid-wide sync. Every member of a launch spins on its neighbours, so
-// all n * cols blocks must be resident at once: the launch is
-// cooperative, and the wrapper refuses a grid over the occupancy capacity
-// before it launches.
+// One plain launch on the caller's stream, grid (cols, jobs), a job one
+// (direction, chunk) pair, a column one contiguous stretch of the job:
+//   ring_fold  (allreduce, reduce-scatter) job (d, K): fold chunk K over
+//              the n rows in the ring's order; a reduce-scatter stores it
+//              into row K's output at vbase[d], an allreduce into chunk K
+//              of every row (one fold a chunk, no second round);
+//   ring_copy  (allgather) job (d, q): row q's part, loaded once and
+//              stored at chunk (d, q) of every row.
+// No block waits on another: no flag, no slot, no spin, no cooperative
+// launch, and nothing needs to be co-resident.
 //
-// Protocol per direction (ring_kernel.py's PROTOCOL; the TPU kernel's
-// _direction:128 without its DMA semaphores -- a store here is the copy):
-//   begin(g):  slot = g % 2; from g >= 2 wait credit[me][slot] >= g - 1
-//              (the receiver consumed step g - 2); write the value into
-//              the receiver's slot; __syncthreads; thread 0 release-stores
-//              recv[dst][slot] = g + 1.
-//   finish(g): thread 0 acquire-spins recv[me][slot] >= g + 1;
-//              __syncthreads; read the slot; __syncthreads; thread 0
-//              release-stores credit[up][slot] = g + 1.
-//   exit:      wait the last credit of each used slot.
-// Flags hold step numbers g + 1 and only grow within a launch; the
-// wrapper zeroes them on the launch's stream before every launch, so
-// nothing an earlier (or failed) launch left can satisfy a wait.
-// Every spin is bounded by spin_ns of %globaltimer; hitting it (or seeing
-// another block of the launch hit it) sets the launch's error word and
-// returns, and the wrapper raises.
-//
-// Every flag access is at device scope. The slots are moved by weak .cg
-// accesses (L2, never a stale L1 line); what orders them is the flag
-// protocol: the sender's threads store into the receiver's slot, bar.sync
-// orders those stores before thread 0's fence (__threadfence) and its
-// release-store of the receiver's flag; the receiver's thread 0
-// acquire-loads the flag, and bar.sync orders that before its threads'
-// slot loads.
+// Loads and stores are 16 bytes a thread: the packed layout puts every
+// chunk and every row on a 16-byte boundary (ops/ring_kernel.py granule),
+// and the entry point refuses a layout that does not. A fold issues the
+// loads of up to kBatch rows, U vectors each, before it folds any
+// of them, so that they are in flight together; a copy loads kUnroll
+// vectors before it stores. Measured on an H100 (PERF.md): two
+// vectors a thread and four blocks an SM (ops/ring_kernel.py
+// GLOBAL_FOLD_BLOCKS_PER_SM) took the reduce-scatter of 16 x 128M f64
+// from 7.53 to 6.42 ms; 1- and 2-byte types keep one vector (their
+// 16-lane int8 folds already take 176 registers: two would spill).
 //
 // Operators match the reference's jnp ops on the operand type, rounding
 // at every step: MAX/MIN propagate NaN (fmaxf/fminf do not), narrow
-// integers wrap like numpy, bf16 rounds to bf16 after every op.
+// integers wrap like numpy, bf16 rounds to bf16 after every operation.
 //
-// What bounds it: bytes. Each step reads one slot and one input chunk and
-// writes one slot; the wrapper's bound counts the inputs read once and the
-// outputs written once at 3.35 TB/s. This first version moves scalars
-// (16-byte vector loads, TMA and fewer flag round trips come later).
+// What bounds it: bytes. Each input byte is read once and each output
+// byte written once -- the bound's own bytes, in all three modes.
 
-#include <cuda/atomic>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -73,86 +58,26 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPerThread = 8;
-constexpr int kSeg = kThreads * kPerThread;   // elements of a slot
+constexpr int kBatch = 8;          // rows of loads in flight before a fold
+constexpr int kUnroll = 4;         // vector loads in flight before a copy
+constexpr int kMaxMembers = 2048;  // ops/ring_kernel.py GLOBAL_MAX_MEMBERS:
+                                   // a block's row offsets, in shared memory
 
-constexpr int kAllreduce = 0, kReduceScatter = 1, kAllgather = 2;
+constexpr int kReduceScatter = 1, kAllgather = 2;  // _MODE_CODES
 constexpr int kSum = 0, kProd = 1, kMax = 2, kMin = 3;
 
 struct RingParams {
-  const void* x;                // [n, in_row]
-  void* out;                    // [n, out_row]
-  void* slots;                  // [ndir][n][cols][2][kSeg]
-  unsigned long long* flags;    // [2 (recv, credit)][ndir][n][cols][2]
-  long long* err;               // [4]: code, member, step, what
+  const void* x;          // [n, in_row]
+  void* out;              // [n, out_row]
+  const int* order;       // [ndir][n]: chunk K's j-th row is K + order[d][j]
   long long in_row, out_row;
-  long long w;                  // elements of one direction's chunk
-  long long stride;             // chunk i + 1 starts stride after chunk i
-  long long base[2];            // direction d's chunk 0 in the chunk layout
-  long long vbase[2];           // direction d's part of a reduce-scatter
-                                // output / allgather input row
-  long long col_w;              // elements of a chunk one column covers
-  long long spin_ns;
-  int n, mode, cols, stall_member;
+  long long w;            // elements of one direction's chunk
+  long long stride;       // chunk i + 1 starts stride after chunk i
+  long long base[2];      // direction d's chunk 0 in the chunk layout
+  long long vbase[2];     // direction d's part of a reduce-scatter output
+                          // row / an allgather input row
+  int n, mode, itemsize;
 };
-
-// ---- slot loads and stores through L2 (.cg): never a stale L1 line ----
-__device__ __forceinline__ unsigned long long ld_cg(const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.global.cg.u64 %0, [%1];" : "=l"(v) : "l"(p));
-  return v;
-}
-__device__ __forceinline__ unsigned int ld_cg(const unsigned int* p) {
-  unsigned int v;
-  asm volatile("ld.global.cg.u32 %0, [%1];" : "=r"(v) : "l"(p));
-  return v;
-}
-__device__ __forceinline__ unsigned short ld_cg(const unsigned short* p) {
-  unsigned short v;
-  asm volatile("ld.global.cg.u16 %0, [%1];" : "=h"(v) : "l"(p));
-  return v;
-}
-__device__ __forceinline__ unsigned char ld_cg(const unsigned char* p) {
-  unsigned short v;
-  asm volatile("ld.global.cg.u8 %0, [%1];" : "=h"(v) : "l"(p));
-  return (unsigned char)v;
-}
-__device__ __forceinline__ void st_cg(unsigned long long* p, unsigned long long v) {
-  asm volatile("st.global.cg.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
-}
-__device__ __forceinline__ void st_cg(unsigned int* p, unsigned int v) {
-  asm volatile("st.global.cg.u32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
-}
-__device__ __forceinline__ void st_cg(unsigned short* p, unsigned short v) {
-  asm volatile("st.global.cg.u16 [%0], %1;" ::"l"(p), "h"(v) : "memory");
-}
-__device__ __forceinline__ void st_cg(unsigned char* p, unsigned char v) {
-  unsigned short w = v;
-  asm volatile("st.global.cg.u8 [%0], %1;" ::"l"(p), "h"(w) : "memory");
-}
-
-template <int S> struct BitsOf;
-template <> struct BitsOf<1> { using type = unsigned char; };
-template <> struct BitsOf<2> { using type = unsigned short; };
-template <> struct BitsOf<4> { using type = unsigned int; };
-template <> struct BitsOf<8> { using type = unsigned long long; };
-
-template <typename T>
-__device__ __forceinline__ T slot_load(const T* p) {
-  using U = typename BitsOf<sizeof(T)>::type;
-  U u = ld_cg(reinterpret_cast<const U*>(p));
-  T v;
-  memcpy(&v, &u, sizeof(T));
-  return v;
-}
-
-template <typename T>
-__device__ __forceinline__ void slot_store(T* p, T v) {
-  using U = typename BitsOf<sizeof(T)>::type;
-  U u;
-  memcpy(&u, &v, sizeof(T));
-  st_cg(reinterpret_cast<U*>(p), u);
-}
 
 // ---- operators on the operand type ----
 template <typename T>
@@ -175,6 +100,10 @@ __device__ __forceinline__ T apply_float(T a, T b) {
   if (OP == kMax) return nan_max(a, b);
   return nan_min(a, b);
 }
+
+template <int S> struct BitsOf;
+template <> struct BitsOf<4> { using type = unsigned int; };
+template <> struct BitsOf<8> { using type = unsigned long long; };
 
 // two's-complement wrap: the arithmetic runs unsigned (no overflow UB)
 template <int OP, typename T>
@@ -218,302 +147,212 @@ template <int OP> struct Apply<OP, __nv_bfloat16> {
   }
 };
 
-// ---- flags ----
-__device__ __forceinline__ unsigned long long now_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-__device__ __forceinline__ int mod(long long a, int n) {
-  long long r = a % n;
-  return (int)(r < 0 ? r + n : r);
-}
-
-struct Flags {
-  unsigned long long* base;               // every member's flags
-  int ndir, n, cols;
-  __device__ unsigned long long* at(int kind, int d, int m, int col,
-                                    int slot) const {
-    return base + ((((long long)kind * ndir + d) * n + m) * cols + col) * 2 +
-           slot;
-  }
+// 16 bytes of T
+template <typename T>
+struct alignas(16) Vec {
+  static constexpr int kLen = 16 / (int)sizeof(T);
+  T v[kLen];
 };
 
-constexpr int kRecv = 0, kCredit = 1;
-constexpr cuda::thread_scope kScope = cuda::thread_scope_device;
 
-__device__ __forceinline__ void release(unsigned long long* f,
-                                        unsigned long long v) {
-  cuda::atomic_ref<unsigned long long, kScope> a(*f);
-  a.store(v, cuda::memory_order_release);
+template <typename T>
+__device__ __forceinline__ Vec<T> load16(const T* p) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  Vec<T> r;
+  memcpy(&r, &u, 16);
+  return r;
 }
 
-// Thread 0 spins until *f >= want (bounded); every thread gets the
-// verdict. On a timeout, or when another block already failed, records
-// the error (first writer wins) and returns false.
-__device__ bool wait_geq(unsigned long long* f, unsigned long long want,
-                         const RingParams& p, int me, long long g, int what) {
-  __shared__ int ok;
-  if (threadIdx.x == 0) {
-    cuda::atomic_ref<unsigned long long, kScope> a(*f);
-    cuda::atomic_ref<long long, kScope> err(p.err[0]);
-    int good = 1;
-    if (a.load(cuda::memory_order_acquire) < want) {
-      const unsigned long long t0 = now_ns();
-      unsigned int polls = 0;
-      while (a.load(cuda::memory_order_acquire) < want) {
-        if ((++polls & 255u) == 0) {
-          if (err.load(cuda::memory_order_relaxed) != 0) {
-            good = 0;
-            break;
-          }
-          if ((long long)(now_ns() - t0) > p.spin_ns) {
-            long long zero = 0;
-            if (err.compare_exchange_strong(zero, 1,
-                                            cuda::memory_order_relaxed)) {
-              p.err[1] = me;
-              p.err[2] = g;
-              p.err[3] = what;
-            }
-            good = 0;
-            break;
-          }
-        }
-        __nanosleep(32);
-      }
-    }
-    ok = good;
-  }
-  __syncthreads();
-  const int r = ok;
-  __syncthreads();
-  return r != 0;
+template <typename T>
+__device__ __forceinline__ void store16(T* p, const Vec<T>& v) {
+  uint4 u;
+  memcpy(&u, &v, 16);
+  *reinterpret_cast<uint4*>(p) = u;
 }
 
-template <typename T, int OP, int NDIR>
-struct Ring {
-  const RingParams& p;
-  Flags fl;
-  T* slots;
-  int me, col;
-  long long g;                   // global step
+// [lo, hi) of the 16-byte vectors of a job's `count` that this block's
+// column covers (ops/ring_kernel.py GlobalPlan.columns)
+__device__ __forceinline__ void column(long long count, long long& lo,
+                                       long long& hi) {
+  const long long per = (count + gridDim.x - 1) / gridDim.x;
+  lo = (long long)blockIdx.x * per;
+  hi = lo + per < count ? lo + per : count;
+}
 
-  __device__ static int sign(int d) { return d == 0 ? -1 : 1; }
-
-  __device__ T* slot(int d, int m, int s) const {
-    return slots +
-           ((((long long)d * p.n + m) * p.cols + col) * 2 + s) * kSeg;
-  }
-
-  __device__ bool wait(int kind, int d, int m, int s, long long v,
-                       int what) const {
-    return wait_geq(fl.at(kind, d, m, col, s), (unsigned long long)v, p, me,
-                    g, what);
-  }
-
-  // send v right/left in every direction, then receive; v becomes what
-  // arrived (all begins before any finish, as the bidirectional TPU
-  // kernel's exchange2)
-  __device__ bool exchange(T (&v)[NDIR][kPerThread], int len) {
-    const int s = (int)(g & 1);
-#pragma unroll
-    for (int d = 0; d < NDIR; ++d) {
-      const int dst = mod(me - sign(d), p.n);
-      if (g >= 2 && !wait(kCredit, d, me, s, g - 1, 1)) {
-        return false;
-      }
-      T* dp = slot(d, dst, s);
-#pragma unroll
-      for (int k = 0; k < kPerThread; ++k) {
-        const int i = threadIdx.x + k * kThreads;
-        if (i < len) slot_store(dp + i, v[d][k]);
-      }
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        __threadfence();
-        release(fl.at(kRecv, d, dst, col, s), g + 1);
-      }
-    }
-#pragma unroll
-    for (int d = 0; d < NDIR; ++d) {
-      if (!wait(kRecv, d, me, s, g + 1, 0)) {
-        return false;
-      }
-      const T* sp = slot(d, me, s);
-#pragma unroll
-      for (int k = 0; k < kPerThread; ++k) {
-        const int i = threadIdx.x + k * kThreads;
-        if (i < len) v[d][k] = slot_load(sp + i);
-      }
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        release(fl.at(kCredit, d, mod(me + sign(d), p.n), col, s), g + 1);
-      }
-    }
-    ++g;
-    return true;
-  }
-
-  __device__ long long chunk(int d, long long i) const {
-    return p.base[d] + (long long)mod(i, p.n) * p.stride;
-  }
-
-  __device__ void load(T (&v)[kPerThread], const T* src, int len) const {
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      const int i = threadIdx.x + k * kThreads;
-      if (i < len) v[k] = src[i];
-    }
-  }
-
-  __device__ void store(T* dst, const T (&v)[kPerThread], int len) const {
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      const int i = threadIdx.x + k * kThreads;
-      if (i < len) dst[i] = v[k];
-    }
-  }
-
-  __device__ void merge(T (&v)[kPerThread], const T* src, int len) const {
-#pragma unroll
-    for (int k = 0; k < kPerThread; ++k) {
-      const int i = threadIdx.x + k * kThreads;
-      if (i < len) v[k] = Apply<OP, T>::run(v[k], src[i]);
-    }
-  }
-
-  // one segment [seg0, seg0 + len) of every chunk, all directions
-  __device__ bool segment(long long seg0, int len) {
-    const T* x = (const T*)p.x + (long long)me * p.in_row;
-    T* out = (T*)p.out + (long long)me * p.out_row;
-    const int n = p.n;
-    T v[NDIR][kPerThread];
-    if (p.mode == kAllgather) {
-#pragma unroll
-      for (int d = 0; d < NDIR; ++d) {
-        load(v[d], x + p.vbase[d] + seg0, len);
-        store(out + chunk(d, me) + seg0, v[d], len);
-      }
-      for (int s = 0; s < n - 1; ++s) {
-        if (!exchange(v, len)) return false;
-#pragma unroll
-        for (int d = 0; d < NDIR; ++d) {
-          store(out + chunk(d, me + sign(d) * (s + 1)) + seg0, v[d], len);
-        }
-      }
-      return true;
-    }
-    const bool rs = p.mode == kReduceScatter;
-#pragma unroll
-    for (int d = 0; d < NDIR; ++d) {
-      const int sh = rs ? sign(d) : 0;
-      load(v[d], x + chunk(d, me + sh) + seg0, len);
-    }
-    for (int s = 0; s < n - 1; ++s) {
-      if (!exchange(v, len)) return false;
-#pragma unroll
-      for (int d = 0; d < NDIR; ++d) {
-        const int sh = rs ? sign(d) : 0;
-        merge(v[d], x + chunk(d, me + sign(d) * (s + 1) + sh) + seg0, len);
-      }
-    }
-    if (rs) {
-#pragma unroll
-      for (int d = 0; d < NDIR; ++d) {
-        store(out + p.vbase[d] + seg0, v[d], len);
-      }
-      return true;
-    }
-#pragma unroll
-    for (int d = 0; d < NDIR; ++d) {
-      store(out + chunk(d, me - sign(d)) + seg0, v[d], len);
-    }
-    for (int s = 0; s < n - 1; ++s) {
-      if (!exchange(v, len)) return false;
-#pragma unroll
-      for (int d = 0; d < NDIR; ++d) {
-        store(out + chunk(d, me + sign(d) * s) + seg0, v[d], len);
-      }
-    }
-    return true;
-  }
-
-  // the last credit of each used slot: the receiver consumed everything
-  __device__ void drain() {
-    for (int s = 0; s < 2 && s < g; ++s) {
-      const long long last = ((g - 1) & 1) == s ? g - 1 : g - 2;
-#pragma unroll
-      for (int d = 0; d < NDIR; ++d) {
-        if (!wait(kCredit, d, me, s, last + 1, 2)) {
-          return;
-        }
-      }
-    }
-  }
-};
-
-template <typename T, int OP, int NDIR>
+// job (d, K): chunk K of direction d folded over the rows in the ring's
+// order; stored into row K's output (reduce-scatter) or into chunk K of
+// every row (allreduce)
+template <typename T, int OP>
 __global__ void __launch_bounds__(kThreads)
-    ring_kernel(const __grid_constant__ RingParams p) {
-  const int me = (int)blockIdx.y;
-  if (me == p.stall_member) return;   // test hook: a member that never runs
-  Ring<T, OP, NDIR> r{p, Flags{p.flags, NDIR, p.n, p.cols}, (T*)p.slots, me,
-                      (int)blockIdx.x, 0};
-  const long long lo = (long long)blockIdx.x * p.col_w;
-  const long long hi = lo + p.col_w < p.w ? lo + p.col_w : p.w;
-  for (long long seg0 = lo; seg0 < hi; seg0 += kSeg) {
-    const int len = (int)(hi - seg0 < kSeg ? hi - seg0 : kSeg);
-    if (!r.segment(seg0, len)) return;
+    ring_fold(const __grid_constant__ RingParams p) {
+  constexpr int V = Vec<T>::kLen;
+  constexpr int U = sizeof(T) >= 4 ? 2 : 1;   // vectors a thread, side by
+                                             // side (see the header)
+  const int n = p.n;
+  const int d = (int)blockIdx.y / n;
+  const int K = (int)blockIdx.y % n;
+  const long long off = p.base[d] + (long long)K * p.stride;
+  const T* x = (const T*)p.x;
+  T* out = (T*)p.out;
+  extern __shared__ long long src[];   // the j-th row's chunk K, in x
+  for (int j = threadIdx.x; j < n; j += kThreads) {
+    int r = K + p.order[d * n + j];
+    if (r >= n) r -= n;
+    src[j] = (long long)r * p.in_row + off;
   }
-  r.drain();
+  __syncthreads();
+  const bool rs = p.mode == kReduceScatter;
+  T* dst = out + (rs ? (long long)K * p.out_row + p.vbase[d] : off);
+  long long lo, hi;
+  column(p.w / V, lo, hi);
+  // vector v0 + u * kThreads of the column, u < U
+  for (long long v0 = lo + threadIdx.x; v0 < hi;
+       v0 += (long long)kThreads * U) {
+    Vec<T> acc[U];
+    for (int j0 = 0; j0 < n; j0 += kBatch) {
+      Vec<T> got[kBatch][U];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const long long v = v0 + (long long)u * kThreads;
+          if (j0 + b < n && v < hi) {
+            got[b][u] = load16(x + src[j0 + b] + v * V);
+          }
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        if (j0 + b >= n) break;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (j0 + b == 0) {
+            acc[u] = got[0][u];
+            continue;
+          }
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            acc[u].v[i] = Apply<OP, T>::run(acc[u].v[i], got[b][u].v[i]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long e = (v0 + (long long)u * kThreads) * V;
+      if (e >= hi * V) break;
+      if (rs) {
+        store16(dst + e, acc[u]);
+        continue;
+      }
+      for (int r = 0; r < n; ++r) {
+        store16(dst + (long long)r * p.out_row + e, acc[u]);
+      }
+    }
+  }
+}
+
+// job (d, q): row q's part of direction d, stored at chunk q of every row
+__global__ void __launch_bounds__(kThreads)
+    ring_copy(const __grid_constant__ RingParams p) {
+  const int n = p.n;
+  const int d = (int)blockIdx.y / n;
+  const int q = (int)blockIdx.y % n;
+  const uint4* from = reinterpret_cast<const uint4*>(
+      (const unsigned char*)p.x +
+      ((long long)q * p.in_row + p.vbase[d]) * p.itemsize);
+  unsigned char* to = (unsigned char*)p.out +
+                      (p.base[d] + (long long)q * p.stride) * p.itemsize;
+  const long long row = p.out_row * p.itemsize;
+  long long lo, hi;
+  column(p.w * p.itemsize / 16, lo, hi);
+  for (long long v0 = lo + threadIdx.x; v0 < hi;
+       v0 += (long long)kThreads * kUnroll) {
+    uint4 got[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const long long v = v0 + (long long)u * kThreads;
+      if (v < hi) got[u] = __ldg(from + v);
+    }
+    for (int r = 0; r < n; ++r) {
+      uint4* t = reinterpret_cast<uint4*>(to + (long long)r * row);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long v = v0 + (long long)u * kThreads;
+        if (v < hi) t[v] = got[u];
+      }
+    }
+  }
 }
 
 using KernelFn = void (*)(RingParams);
 
 template <typename T>
-KernelFn pick(int op, int ndir) {
-  if (ndir == 1) {
-    switch (op) {
-      case kSum: return ring_kernel<T, kSum, 1>;
-      case kProd: return ring_kernel<T, kProd, 1>;
-      case kMax: return ring_kernel<T, kMax, 1>;
-      case kMin: return ring_kernel<T, kMin, 1>;
-    }
-  } else if (ndir == 2) {
-    switch (op) {
-      case kSum: return ring_kernel<T, kSum, 2>;
-      case kProd: return ring_kernel<T, kProd, 2>;
-      case kMax: return ring_kernel<T, kMax, 2>;
-      case kMin: return ring_kernel<T, kMin, 2>;
-    }
+KernelFn pick(int op) {
+  switch (op) {
+    case kSum: return ring_fold<T, kSum>;
+    case kProd: return ring_fold<T, kProd>;
+    case kMax: return ring_fold<T, kMax>;
+    case kMin: return ring_fold<T, kMin>;
   }
   return nullptr;
 }
 
 // dtype codes: must match ops/ring_kernel.py _DTYPE_CODES
-KernelFn kernel_for(int dtype, int op, int ndir) {
+KernelFn kernel_for(int dtype, int op, int mode) {
+  if (mode == kAllgather) return ring_copy;
   switch (dtype) {
-    case 0: return pick<float>(op, ndir);
-    case 1: return pick<double>(op, ndir);
-    case 2: return pick<int32_t>(op, ndir);
-    case 3: return pick<int64_t>(op, ndir);
-    case 4: return pick<int16_t>(op, ndir);
-    case 5: return pick<int8_t>(op, ndir);
-    case 6: return pick<__nv_bfloat16>(op, ndir);
+    case 0: return pick<float>(op);
+    case 1: return pick<double>(op);
+    case 2: return pick<int32_t>(op);
+    case 3: return pick<int64_t>(op);
+    case 4: return pick<int16_t>(op);
+    case 5: return pick<int8_t>(op);
+    case 6: return pick<__nv_bfloat16>(op);
   }
   return nullptr;
 }
 
-void fill_params(RingParams& p, int n, int mode, int cols, long long w,
-                 long long stride, long long base0, long long base1,
-                 long long vbase0, long long vbase1, long long col_w,
-                 long long in_row, long long out_row, const void* x,
-                 void* out, void* err, long long spin_ns, int stall_member) {
+int item_size(int dtype) {
+  static const int sizes[] = {4, 8, 4, 8, 2, 1, 2};
+  return dtype >= 0 && dtype < 7 ? sizes[dtype] : 0;
+}
+
+bool on16(long long elements, int itemsize) {
+  return elements >= 0 && elements * itemsize % 16 == 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// One launch of grid (cols, ndir * n) on `stream`, on the caller's current
+// device (the wrapper selects it; this never changes it). order holds
+// ndir * n ints on the device (unused by an allgather). Refuses a layout
+// whose chunks or rows are not on 16 bytes; returns the CUDA error of the
+// launch.
+int mp4j_ring_launch(int dtype, int op, int ndir, int mode, int n, int cols,
+                     long long w, long long stride, long long base0,
+                     long long base1, long long vbase0, long long vbase1,
+                     long long in_row, long long out_row, const void* x,
+                     void* out, const void* order, void* stream) {
+  const int item = item_size(dtype);
+  KernelFn k = kernel_for(dtype, op, mode);
+  if (!k || item == 0 || n < 1 || n > kMaxMembers || ndir < 1 || ndir > 2 ||
+      cols < 1 || (mode != kAllgather && !order) ||
+      (uintptr_t)x % 16 || (uintptr_t)out % 16) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long at[] = {w, stride, base0, base1, vbase0, vbase1, in_row,
+                          out_row};
+  for (long long e : at) {
+    if (!on16(e, item)) return (int)cudaErrorInvalidValue;
+  }
+  RingParams p;
   memset(&p, 0, sizeof(p));
   p.x = x;
   p.out = out;
-  p.err = (long long*)err;
+  p.order = (const int*)order;
   p.in_row = in_row;
   p.out_row = out_row;
   p.w = w;
@@ -522,64 +361,24 @@ void fill_params(RingParams& p, int n, int mode, int cols, long long w,
   p.base[1] = base1;
   p.vbase[0] = vbase0;
   p.vbase[1] = vbase1;
-  p.col_w = col_w;
-  p.spin_ns = spin_ns;
   p.n = n;
   p.mode = mode;
-  p.cols = cols;
-  p.stall_member = stall_member;
-}
-
-}  // namespace
-
-extern "C" {
-
-// Both entry points work on the caller's current device (the wrapper
-// selects it) and never change it.
-
-// Blocks of the kernel that can be resident at once on the current device.
-int mp4j_ring_capacity(int dtype, int op, int ndir, int* blocks) {
-  KernelFn k = kernel_for(dtype, op, ndir);
-  if (!k) return (int)cudaErrorInvalidValue;
-  int device = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e != cudaSuccess) return (int)e;
-  int sms = 0, per_sm = 0;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k, kThreads, 0);
-  if (e != cudaSuccess) return (int)e;
-  *blocks = per_sm * sms;
-  return 0;
-}
-
-int mp4j_ring_seg() { return kSeg; }
-
-// One cooperative launch of grid (cols, n) on `stream`; returns the CUDA
-// error of the launch. flags (2 * ndir * n * cols * 2 uint64) and err
-// (4 int64) must be zero on the stream; slots hold ndir * n * cols * 2 *
-// kSeg elements.
-int mp4j_ring_launch(int dtype, int op, int ndir, int mode, int n, int cols,
-                     long long w, long long stride, long long base0,
-                     long long base1, long long vbase0, long long vbase1,
-                     long long col_w, long long in_row, long long out_row,
-                     const void* x, void* out, void* slots, void* flags,
-                     void* err, long long spin_ns, int stall_member,
-                     void* stream) {
-  KernelFn k = kernel_for(dtype, op, ndir);
-  if (!k) return (int)cudaErrorInvalidValue;
-  RingParams p;
-  fill_params(p, n, mode, cols, w, stride, base0, base1, vbase0, vbase1,
-              col_w, in_row, out_row, x, out, err, spin_ns, stall_member);
-  p.slots = slots;
-  p.flags = (unsigned long long*)flags;
+  p.itemsize = item;
+  const size_t smem = mode == kAllgather ? 0 : (size_t)n * sizeof(long long);
   void* args[] = {&p};
-  cudaError_t e = cudaLaunchCooperativeKernel((const void*)k, dim3(cols, n),
-                                  dim3(kThreads), args, 0,
-                                  (cudaStream_t)stream);
-  if (e != cudaSuccess) return (int)e;
+  cudaError_t e = cudaLaunchKernel((const void*)k, dim3(cols, ndir * n),
+                                   dim3(kThreads), args, smem,
+                                   (cudaStream_t)stream);
+  if (e != cudaSuccess) {
+    cudaGetLastError();        // leave no launch error for the next caller
+    return (int)e;
+  }
   return (int)cudaGetLastError();
 }
+
+int mp4j_ring_max_members() { return kMaxMembers; }
+
+int mp4j_ring_threads() { return kThreads; }
 
 const char* mp4j_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -6,16 +6,18 @@ one launch runs all of them, on one of two paths that
 :func:`launch_plan` picks from n and the card, never from a failure:
 
 - **cluster** (n <= 8, ``ops/csrc/ring_cluster.cu``): the members of a
-  column are the blocks of one thread-block cluster; receive slots live
-  in the receiver's shared memory, sends are bulk asynchronous copies
-  into it, credits are remote mbarrier arrives, so device memory carries
-  only the input and the output;
+  column are the blocks of one thread-block cluster and follow the
+  reference's slot and credit protocol (``_direction:128``): receive
+  slots live in the receiver's shared memory, sends are bulk
+  asynchronous copies into it, credits are remote mbarrier arrives, so
+  device memory carries only the input and the output;
 - **global** (larger n, or a cluster size the card refuses;
-  ``ops/csrc/ring_kernel.cu``): each member is a row of blocks writing
-  into its neighbour's receive slots in device memory, in one cooperative
-  launch.
-
-Both follow the reference's slot and credit protocol (``_direction:128``).
+  ``ops/csrc/ring_kernel.cu``): no ring of neighbours at all. All n rows
+  lie in the card's memory, so each chunk is folded once, straight from
+  the rows, over the members in exactly the order the ring's schedule
+  folds it (:func:`fold_rotation`), and written to every row that
+  receives it (:class:`GlobalPlan`); an allgather copies each member's
+  part to every row. One plain launch, no block waits on another.
 
 Members may also come as a list of n tensors, member r's on its own
 device (``device.make_mesh(n, devices=...)``, the reference's one member
@@ -55,33 +57,31 @@ n = 1 (zero steps).
 Each entry has a plain PyTorch version with the same contract, step
 schedule and fold order (:func:`ring_allreduce_reference` and its
 siblings); all follow :class:`RingPlan`, the schedule in Python that
-the CUDA sources mirror, and :func:`protocol`, the slot/credit sequence
-(:data:`PROTOCOL` for the global kernel, :data:`CLUSTER_PROTOCOL` for the
-cluster kernel; the tests run both under the reference's
-skew-adversarial scheduler). On a CPU tensor the entries compute the
-plain version; on a CUDA tensor they launch a kernel or raise, and
-nothing retries on another kernel. Launches are counted on
-``ring_kernel.launches`` (one direction) and ``ring_kernel_bidir.launches``
-(two), and per path on their ``cluster_launches`` / ``global_launches`` /
-``member_launches`` (every launch of a member of a list).
+the CUDA sources mirror, and the cluster kernel follows
+:data:`CLUSTER_PROTOCOL`, the slot/credit sequence of :func:`protocol`
+(the tests run it under the reference's skew-adversarial scheduler). On
+a CPU tensor the entries compute the plain version; on a CUDA tensor
+they launch a kernel or raise, and nothing retries on another kernel.
+Launches are counted on ``ring_kernel.launches`` (one direction) and
+``ring_kernel_bidir.launches`` (two), and per path on their
+``cluster_launches`` / ``global_launches`` / ``member_launches`` (every
+launch of a member of a list).
 
 Chunk granule (:func:`granule`), the one place it is defined: 1 element
 on the CPU, as the reference's interpret mode, so the CPU version chunks
 exactly as the reference's interpreted kernel; 16 bytes on CUDA, for
-vector accesses and bulk copies (every column and segment boundary is a
-multiple of it). Reduce-scatter and allgather chunks must be multiples of
-it (twice it when bidirectional); allreduce pads to it.
+vector accesses and bulk copies (every chunk, column and segment
+boundary is a multiple of it). Reduce-scatter and allgather chunks must
+be multiples of it (twice it when bidirectional); allreduce pads to it.
 
 Divergences from the reference, intended:
 
 - a custom operator raises :class:`Mp4jError` naming ``algo="ring"``:
   the kernel cannot run a Python function;
-- on the global path, a member that cannot be co-resident with the
-  others is refused: n x blocks per member over the card's occupancy
-  raises before any launch (a cluster's blocks are co-resident by
-  construction); on both packed paths every wait is bounded, and a stuck
-  ring raises instead of hanging. A list has no wait to bound: its call
-  refuses ``spin_s`` and ``stall_member``.
+- on the cluster path every wait is bounded (``spin_s``), and a stuck
+  ring raises instead of hanging; the global path and a list have no
+  wait to bound, so ``stall_member`` (the cluster path's test hook) is
+  refused on both, and a list also refuses ``spin_s``.
 """
 
 from __future__ import annotations
@@ -179,8 +179,9 @@ class RingPlan:
 
 
 def protocol(slots: int, ahead: int = 0) -> dict:
-    """The per-direction protocol at global step g with ``slots`` receive
-    slots, as ops on flags that only grow within a launch: ("wait_*",
+    """The cluster kernel's per-direction protocol at global step g with
+    ``slots`` receive slots, as ops on flags that only grow within a
+    launch: ("wait_*",
     slot, v) waits for flag >= v, "send" writes the neighbour's slot then
     stores its recv flag = v, "consume" reads our slot, "signal_credit"
     stores the upstream's credit = v. Every direction's begin runs before
@@ -189,7 +190,7 @@ def protocol(slots: int, ahead: int = 0) -> dict:
     A sender may reuse slot k once the receiver consumed the previous send
     into k. ``ahead``: begin(g) waits that credit for the slot of step
     g + ahead (the cluster kernel folds step g into the buffer step g + 1
-    sends, so it waits one step ahead; the global kernel waits at g)."""
+    sends, so it waits one step ahead)."""
 
     def begin(g: int):
         h = g + ahead
@@ -213,8 +214,6 @@ def protocol(slots: int, ahead: int = 0) -> dict:
             "slots": slots}
 
 
-# the global-memory kernel's protocol (ops/csrc/ring_kernel.cu)
-PROTOCOL = protocol(2)
 CLUSTER_SLOTS = 2           # ring_cluster.cu kSlots
 # the cluster kernel's (ops/csrc/ring_cluster.cu): mbarrier phases take the
 # place of the step-number flags, one phase per use of a slot
@@ -282,21 +281,25 @@ CLUSTER_LIMIT = 8           # portable cluster size: ring_cluster.cu kMaxCluster
 CLUSTER_SEG_BYTES = 12288   # a slot over all directions: three 128-thread
                             # blocks share an SM (ring_cluster.cu takes up
                             # to 18 KiB, kMaxSegBytes)
-GLOBAL_SEG = 2048           # elements of a slot: ring_kernel.cu kSeg
 PATHS = ("cluster", "global")
+GLOBAL_THREADS = 256        # ring_kernel.cu kThreads
+GLOBAL_MAX_MEMBERS = 2048   # ring_kernel.cu kMaxMembers: a block's row
+                            # offsets in shared memory
+# blocks an SM of the global kernel, by what it does (PERF.md:
+# measured at 1, 2 and 4 on an H100; folds fastest at 4, the copy of
+# configs[1]'s allgather at 1)
+GLOBAL_FOLD_BLOCKS_PER_SM = 4
+GLOBAL_COPY_BLOCKS_PER_SM = 1
 
 
 @dataclass(frozen=True)
 class LaunchPlan:
-    """How one launch covers each direction's chunk ``[0, w)``: ``cols``
+    """How one launch of the cluster kernel (``ops/csrc/ring_cluster.cu``,
+    ``path`` "cluster") covers each direction's chunk ``[0, w)``: ``cols``
     columns of ``col_w`` elements (the last ones may be short or empty),
-    each walked in segments of ``seg`` elements, one slot each.
-
-    ``path`` "cluster": one thread-block cluster of n blocks per column,
-    slots in shared memory (``ops/csrc/ring_cluster.cu``); "global": one
-    block per member and column, slots in device memory
-    (``ops/csrc/ring_kernel.cu``). Both kernels walk exactly
-    :meth:`segments`."""
+    one thread-block cluster of n blocks each, walked in segments of
+    ``seg`` elements, one slot in shared memory each. The kernel walks
+    exactly :meth:`segments`."""
 
     path: str
     n: int
@@ -323,30 +326,75 @@ class LaunchPlan:
         return [(s, min(self.seg, hi - s)) for s in range(lo, hi, self.seg)]
 
 
+@dataclass(frozen=True)
+class GlobalPlan:
+    """How one launch of the global kernel (``ops/csrc/ring_kernel.cu``)
+    covers a call: ``jobs`` = ndir x n jobs (a reducing mode's job folds
+    one chunk of one direction; an allgather's copies one member's part of
+    one direction), each cut into ``cols`` columns of ``col_w`` elements
+    (the last ones may be short or empty). The kernel's ``column`` cuts
+    exactly :meth:`columns`, in 16-byte vectors."""
+
+    path: str
+    n: int
+    ndir: int
+    mode: str
+    w: int
+    itemsize: int
+    jobs: int
+    cols: int
+    col_w: int
+
+    def columns(self):
+        """``[lo, hi)`` of every column of a job."""
+        return [(min(c * self.col_w, self.w), min((c + 1) * self.col_w, self.w))
+                for c in range(self.cols)]
+
+
+def global_plan(n: int, mode: str, ndir: int, w: int, dtype: torch.dtype,
+                sms: int) -> GlobalPlan:
+    """The global kernel's grid for n members, chunks of ``w`` elements
+    (a multiple of 16 bytes) and a card of ``sms`` SMs, sized by bytes as
+    :func:`member_plan` sizes a member's: a column takes at least one
+    16-byte vector a thread, and the launch at most
+    ``GLOBAL_FOLD_BLOCKS_PER_SM`` (an allgather's copy:
+    ``GLOBAL_COPY_BLOCKS_PER_SM``) ``* sms`` blocks, whatever n is."""
+    item = dtype.itemsize
+    vectors = w * item // _VECTOR_BYTES
+    per_sm = (GLOBAL_COPY_BLOCKS_PER_SM if mode == "allgather"
+              else GLOBAL_FOLD_BLOCKS_PER_SM)
+    jobs = ndir * n
+    cols = max(1, min(-(-max(1, per_sm * sms) // jobs),
+                      -(-vectors // GLOBAL_THREADS)))
+    per = -(-vectors // cols)                # vectors a column, as the kernel
+    return GlobalPlan("global", n, ndir, mode, w, item, jobs, cols,
+                      per * _VECTOR_BYTES // item)
+
+
 def launch_plan(n: int, w: int, dtype: torch.dtype, ndir: int, device, *,
-                clusters: int = 0, capacity: int = 0) -> LaunchPlan:
+                clusters: int = 0, mode: str = "allreduce",
+                sms: int = 0):
     """The plan for n members and chunks of ``w`` elements. ``clusters``:
     clusters of n blocks the card holds at once (0 where it refuses that
-    size); ``capacity``: co-resident blocks of the global kernel. The
-    cluster path takes n <= CLUSTER_LIMIT whenever the card holds such a
-    cluster; the global path takes the rest. Every boundary is a multiple
-    of the granule, so 16-byte aligned on CUDA."""
+    size); ``sms``: the card's SMs. The cluster path
+    (:class:`LaunchPlan`) takes n <= CLUSTER_LIMIT whenever the card holds
+    such a cluster; the global path (:class:`GlobalPlan`) takes the rest.
+    Every boundary is a multiple of the granule, so 16-byte aligned on
+    CUDA."""
+    if not (1 <= n <= CLUSTER_LIMIT and clusters > 0):
+        return global_plan(n, mode, ndir, w, dtype, sms)
     item = torch.empty((), dtype=dtype).element_size()
     g = granule(dtype, device)
 
     def up(v):
         return -(-v // g) * g
 
-    if 1 <= n <= CLUSTER_LIMIT and clusters > 0:
-        cols = max(1, min(clusters, -(-w // g)))
-        col_w = up(-(-w // cols))
-        per_col = -(-col_w // (CLUSTER_SEG_BYTES // ndir // item))
-        seg = max(g, up(-(-col_w // per_col)))     # equal segments
-        return LaunchPlan("cluster", n, ndir, w, item, cols, col_w, seg,
-                          CLUSTER_SLOTS)
-    cols = max(1, min(capacity // n, -(-w // GLOBAL_SEG)))
-    return LaunchPlan("global", n, ndir, w, item, cols, up(-(-w // cols)),
-                      GLOBAL_SEG, PROTOCOL["slots"])
+    cols = max(1, min(clusters, -(-w // g)))
+    col_w = up(-(-w // cols))
+    per_col = -(-col_w // (CLUSTER_SEG_BYTES // ndir // item))
+    seg = max(g, up(-(-col_w // per_col)))     # equal segments
+    return LaunchPlan("cluster", n, ndir, w, item, cols, col_w, seg,
+                      CLUSTER_SLOTS)
 
 
 # ----------------------------------------------------------------------
@@ -356,18 +404,21 @@ def launch_plan(n: int, w: int, dtype: torch.dtype, ndir: int, device, *,
 def _library() -> ctypes.CDLL:
     lib = _build.load("ring_kernel")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.mp4j_ring_capacity.argtypes = [i, i, i, ctypes.POINTER(i)]
-    lib.mp4j_ring_capacity.restype = i
-    lib.mp4j_ring_seg.argtypes = []
-    lib.mp4j_ring_seg.restype = i
     lib.mp4j_ring_launch.argtypes = [i, i, i, i, i, i, ll, ll, ll, ll, ll, ll,
-                                     ll, ll, ll, p, p, p, p, p, ll, i, p]
+                                     ll, ll, p, p, p, p]
     lib.mp4j_ring_launch.restype = i
+    lib.mp4j_ring_max_members.argtypes = []
+    lib.mp4j_ring_max_members.restype = i
+    lib.mp4j_ring_threads.argtypes = []
+    lib.mp4j_ring_threads.restype = i
     lib.mp4j_error_string.argtypes = [i]
     lib.mp4j_error_string.restype = ctypes.c_char_p
-    if lib.mp4j_ring_seg() != GLOBAL_SEG:
-        raise Mp4jError(f"ring_kernel.cu slots hold {lib.mp4j_ring_seg()} "
-                        f"elements, the launch plan assumes {GLOBAL_SEG}")
+    if (lib.mp4j_ring_max_members(), lib.mp4j_ring_threads()) != (
+            GLOBAL_MAX_MEMBERS, GLOBAL_THREADS):
+        raise Mp4jError(
+            f"ring_kernel.cu takes {lib.mp4j_ring_max_members()} members "
+            f"in blocks of {lib.mp4j_ring_threads()} threads, the plan "
+            f"assumes {GLOBAL_MAX_MEMBERS} and {GLOBAL_THREADS}")
     return lib
 
 
@@ -416,30 +467,17 @@ def _device_index(device) -> int:
 
 
 @functools.cache
-def _query(kind: str, dtype_code: int, op_code: int, ndir: int, n: int,
-           index: int, slot_bytes: int = 0) -> int:
+def _query_clusters(dtype_code: int, op_code: int, ndir: int, n: int,
+                    index: int, slot_bytes: int) -> int:
     value = ctypes.c_int(0)
+    lib = _cluster_library()
     with torch.cuda.device(index):
-        if kind == "clusters":
-            lib = _cluster_library()
-            rc = lib.mp4j_ring_cluster_max_clusters(
-                dtype_code, op_code, ndir, n, slot_bytes, ctypes.byref(value))
-        else:
-            lib = _library()
-            rc = lib.mp4j_ring_capacity(dtype_code, op_code, ndir,
-                                        ctypes.byref(value))
+        rc = lib.mp4j_ring_cluster_max_clusters(
+            dtype_code, op_code, ndir, n, slot_bytes, ctypes.byref(value))
     if rc:
-        raise Mp4jError(f"ring kernel occupancy query ({kind}) failed: "
+        raise Mp4jError(f"ring kernel occupancy query (clusters) failed: "
                         f"{lib.mp4j_error_string(rc).decode()}")
     return value.value
-
-
-def capacity(dtype: torch.dtype, operator: Operator, ndir: int,
-             device) -> int:
-    """Blocks of the global-memory kernel that fit on the card at once
-    (queried once per dtype, operator, directions and card)."""
-    return _query("capacity", _DTYPE_CODES[dtype], operator.kernel_code,
-                  ndir, 0, _device_index(device))
 
 
 def max_clusters(dtype: torch.dtype, operator: Operator, ndir: int, n: int,
@@ -449,12 +487,13 @@ def max_clusters(dtype: torch.dtype, operator: Operator, ndir: int, n: int,
     operator, directions, n and card)."""
     if not 1 <= n <= CLUSTER_LIMIT:
         return 0
-    return _query("clusters", _DTYPE_CODES[dtype], operator.kernel_code,
-                  ndir, n, _device_index(device), CLUSTER_SEG_BYTES // ndir)
+    return _query_clusters(_DTYPE_CODES[dtype], operator.kernel_code, ndir,
+                           n, _device_index(device),
+                           CLUSTER_SEG_BYTES // ndir)
 
 
 def _plan_launch(xp, plan: RingPlan, lay: _Layout, operator: Operator,
-                 path) -> LaunchPlan:
+                 path):
     n, ndir, dev = plan.n, plan.ndir, xp.device
     if path not in (None,) + PATHS:
         raise Mp4jError(f"ring kernel path must be one of {PATHS}, "
@@ -465,54 +504,63 @@ def _plan_launch(xp, plan: RingPlan, lay: _Layout, operator: Operator,
         if path == "cluster" and not clusters:
             raise Mp4jError(f"ring kernel: the card takes no cluster of {n} "
                             "blocks for this kernel")
-    cap = 0 if clusters else capacity(xp.dtype, operator, ndir, dev)
-    lp = launch_plan(n, lay.w, xp.dtype, ndir, dev, clusters=clusters,
-                     capacity=cap)
-    if lp.path == "global" and n * lp.cols > cap:
-        raise Mp4jError(
-            f"ring kernel: {n} members x {lp.cols} blocks each need "
-            f"{n * lp.cols} co-resident blocks, the card holds {cap}; every "
-            "member spins on its neighbours, so a grid that does not fit "
-            "would hang")
-    return lp
+    if not clusters and n > GLOBAL_MAX_MEMBERS:
+        raise Mp4jError(f"ring kernel: {n} members; the global path takes "
+                        f"at most {GLOBAL_MAX_MEMBERS}")
+    return launch_plan(n, lay.w, xp.dtype, ndir, dev, clusters=clusters,
+                       mode=plan.mode, sms=_sm_count(_device_index(dev)))
+
+
+@functools.cache
+def _order_tensor(n: int, mode: str, ndir: int, index: int) -> torch.Tensor:
+    """:func:`fold_rotation` as int32 on card ``index``, made once; its
+    copy is complete before any stream can read it."""
+    t = torch.tensor(fold_rotation(n, mode, ndir), dtype=torch.int32).to(
+        torch.device("cuda", index))
+    torch.cuda.current_stream(index).synchronize()
+    return t
 
 
 def _launch(xp, plan: RingPlan, lay: _Layout, operator: Operator, spin_s,
             stall_member, path):
     """One launch on xp's card, on the path :func:`launch_plan` picks
-    (``path`` forces one, for tests and measurements). Bulk copies need
-    16-byte-aligned addresses: an input whose data does not start on 16
-    bytes (a view at an odd storage offset) is copied first."""
+    (``path`` forces one, for tests and measurements). Returns (output,
+    the cluster path's error word or None, plan). Vector and bulk copies
+    need 16-byte-aligned addresses: an input whose data does not start on
+    16 bytes (a view at an odd storage offset) is copied first."""
     lp = _plan_launch(xp, plan, lay, operator, path)
+    if lp.path == "global" and stall_member != -1:
+        raise Mp4jError(
+            "ring kernel: stall_member stalls a member of the cluster "
+            "path's ring; the global path's blocks never wait on each "
+            "other, so a call on it takes no stall_member")
     dev = xp.device
     n, ndir = plan.n, plan.ndir
     if xp.data_ptr() % _VECTOR_BYTES:
         xp = xp.clone(memory_format=torch.contiguous_format)
-    err = torch.zeros(4, dtype=torch.int64, device=dev)
     out = torch.empty((n, lay.out_row), dtype=xp.dtype, device=dev)
     base = tuple(lay.base) + (0,) * (2 - len(lay.base))
     vbase = tuple(lay.vbase) + (0,) * (2 - len(lay.vbase))
-    shape = (lay.w, lay.stride, base[0], base[1], vbase[0], vbase[1],
-             lp.col_w, lay.in_row, lay.out_row)
+    layout = (lay.w, lay.stride, base[0], base[1], vbase[0], vbase[1])
     codes = (_DTYPE_CODES[xp.dtype], operator.kernel_code, ndir,
              _MODE_CODES[plan.mode], n, lp.cols)
+    err = None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if lp.path == "cluster":
             lib = _cluster_library()
+            err = torch.zeros(4, dtype=torch.int64, device=dev)
             rc = lib.mp4j_ring_cluster_launch(
-                *codes, lp.seg, *shape, xp.data_ptr(), out.data_ptr(),
-                err.data_ptr(), int(spin_s * 1e9), stall_member, stream)
+                *codes, lp.seg, *layout, lp.col_w, lay.in_row, lay.out_row,
+                xp.data_ptr(), out.data_ptr(), err.data_ptr(),
+                int(spin_s * 1e9), stall_member, stream)
         else:
             lib = _library()
-            flags = torch.zeros(2 * ndir * n * lp.cols * 2,
-                                dtype=torch.int64, device=dev)
-            slots = torch.empty(ndir * n * lp.cols * 2 * GLOBAL_SEG,
-                                dtype=xp.dtype, device=dev)
+            order = (None if plan.mode == "allgather" else _order_tensor(
+                n, plan.mode, ndir, _device_index(dev)).data_ptr())
             rc = lib.mp4j_ring_launch(
-                *codes, *shape, xp.data_ptr(), out.data_ptr(),
-                slots.data_ptr(), flags.data_ptr(), err.data_ptr(),
-                int(spin_s * 1e9), stall_member, stream)
+                *codes, *layout, lay.in_row, lay.out_row, xp.data_ptr(),
+                out.data_ptr(), order, stream)
     if rc:
         raise Mp4jError(f"ring kernel launch ({lp.path} path) failed: "
                         f"{lib.mp4j_error_string(rc).decode()}")
@@ -584,21 +632,27 @@ def fold_order(n: int, mode: str, ndir: int) -> tuple:
     plan = RingPlan(n, mode, ndir)
     order = []
     for d in range(ndir):
-        held = [(plan.start(me, d), (me,)) for me in range(n)]
+        # each member's (chunk, members folded so far); a step hands every
+        # list on to exactly one member, which appends itself
+        held = [(plan.start(me, d), [me]) for me in range(n)]
         for s in range(n - 1):
             held = [(plan.merge(me, d, s),
-                     held[RingPlan.upstream(me, d, n)][1] + (me,))
+                     held[RingPlan.upstream(me, d, n)][1])
                     for me in range(n)]
+            for me, (_, members) in enumerate(held):
+                members.append(me)
         by_chunk = dict(held)
-        order.append(tuple(by_chunk[k] for k in range(n)))
+        order.append(tuple(tuple(by_chunk[k]) for k in range(n)))
     return tuple(order)
 
 
 @functools.cache
-def member_order(n: int, mode: str, ndir: int) -> bytes:
-    """The order table of ``ring_member.cu``: ``[ndir][n]`` offsets, chunk
-    K's j-th member ``(K + order[d][j]) % n``. The ring folds every chunk
-    in a rotation of one order; a schedule that did not would raise."""
+def fold_rotation(n: int, mode: str, ndir: int) -> tuple:
+    """The order table of the kernels that fold straight from the members
+    (``ring_kernel.cu``, ``ring_member.cu``): ``[ndir][n]`` offsets,
+    flattened, chunk K's j-th member ``(K + order[d][j]) % n``. The ring
+    folds every chunk in a rotation of one order; a schedule that did not
+    would raise."""
     table = []
     for d, chunks in enumerate(fold_order(n, mode, ndir)):
         row = list(chunks[0])
@@ -607,7 +661,14 @@ def member_order(n: int, mode: str, ndir: int) -> bytes:
                 raise Mp4jError(f"ring fold order of chunk {k}, direction "
                                 f"{d} is no rotation of chunk 0's")
         table += row
-    return bytes(table)
+    return tuple(table)
+
+
+@functools.cache
+def member_order(n: int, mode: str, ndir: int) -> bytes:
+    """:func:`fold_rotation` as ``ring_member.cu`` takes it: one byte an
+    offset (a list has at most :data:`MAX_MEMBERS` members)."""
+    return bytes(fold_rotation(n, mode, ndir))
 
 
 def allreduce_rounds(n: int, row: int, dtype: torch.dtype) -> int:
@@ -682,6 +743,34 @@ def member_plan(n: int, mode: str, ndir: int, w: int, row: int,
                                -(-vectors // MEMBER_THREADS))))
     return MemberPlan("member", n, ndir, mode, w, item, tasks, jobs,
                       tuple(cols))
+
+
+def _global_plain(xp, plan: RingPlan, lay: _Layout, operator: Operator):
+    """The plain version of ``ring_kernel.cu`` on a packed ``[n, L]``
+    tensor: chunk K of direction d folded once over the rows in the
+    ring's order (:func:`fold_rotation`, every chunk at once), then
+    stored into every row that receives it; an allgather copies each
+    member's part into every row. The tests hold it bitwise against
+    :func:`_plain` (the ring schedule, step by step) and the reference."""
+    n = plan.n
+    out = torch.empty((n, lay.out_row), dtype=xp.dtype, device=xp.device)
+    k = torch.arange(n, device=xp.device)
+    rotation = fold_rotation(n, plan.mode, plan.ndir)
+    for d in range(plan.ndir):
+        if plan.mode == "allgather":         # [row, chunk, w] <- [q, w]
+            _chunks(out, n, lay, d)[:] = xp[:, lay.vbase[d]:lay.vbase[d]
+                                            + lay.w]
+            continue
+        src = _chunks(xp, n, lay, d)
+        acc = None
+        for o in rotation[d * n:(d + 1) * n]:
+            v = src[(k + o) % n, k]          # [chunk, w]: row K + o's chunk K
+            acc = v if acc is None else operator.torch_fn(acc, v)
+        if plan.mode == "reduce_scatter":
+            out[:, lay.vbase[d]:lay.vbase[d] + lay.w] = acc
+        else:
+            _chunks(out, n, lay, d)[:] = acc
+    return out
 
 
 def _members_plain(xs, plan: RingPlan, lay: _Layout, operator: Operator):
@@ -834,13 +923,15 @@ def ring_kernel(xp, plan, lay, operator, spin_s=SPIN_SECONDS,
                 stall_member=-1, path=None):
     """One launch of the unidirectional kernel (row 2 of the TPU table),
     or, for a list of member tensors, the launches of every member (each
-    counted). ``spin_s`` bounds every wait; ``stall_member`` (a test hook)
-    names a member that does no work; ``path`` forces "cluster" or
-    "global" (tests and measurements; on a list, "one_shot" or
-    "two_round" forces an allreduce's form). Counts ``launches`` and the
-    path's ``cluster_launches`` / ``global_launches`` /
-    ``member_launches``; ``last_plan`` is the :class:`LaunchPlan` (or
-    :class:`MemberPlan`) of the latest call."""
+    counted). ``spin_s`` bounds every wait of the cluster path (the
+    global path and a list have none); ``stall_member`` (a test hook of
+    the cluster path, refused on the others) names a member that does no
+    work; ``path`` forces "cluster" or "global" (tests and measurements;
+    on a list, "one_shot" or "two_round" forces an allreduce's form).
+    Counts ``launches`` and the path's ``cluster_launches`` /
+    ``global_launches`` / ``member_launches``; ``last_plan`` is the
+    :class:`LaunchPlan`, :class:`GlobalPlan` or :class:`MemberPlan` of the
+    latest call."""
     return _counted(ring_kernel, xp, plan, lay, operator, spin_s,
                     stall_member, path)
 
