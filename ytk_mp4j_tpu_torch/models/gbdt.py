@@ -71,6 +71,7 @@ Intended divergences from the reference:
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 
 import numpy as np
@@ -86,6 +87,7 @@ from ytk_mp4j_tpu_torch.models._base import (DataParallelTrainer,
                                              save_npz, stage_softmax_labels)
 from ytk_mp4j_tpu_torch.comm.distributed import all_reduce_
 from ytk_mp4j_tpu_torch.models.binning import QuantileBinner
+from ytk_mp4j_tpu_torch.obs import spans
 from ytk_mp4j_tpu_torch.operators import Operators
 from ytk_mp4j_tpu_torch.ops import collectives as coll
 from ytk_mp4j_tpu_torch.ops import hist_kernel
@@ -339,38 +341,63 @@ _fold_across = fold_across
 # ----------------------------------------------------------------------
 # one boosting round (tree build)
 # ----------------------------------------------------------------------
+# Each round is a ``gbdt::round`` span (``obs.spans.span``) whose id is
+# its number in this process (:data:`rounds_built`); each level of a tree
+# a ``gbdt::level``. Every launch of a round falls inside exactly one of
+# the phase spans ``gbdt::gradients`` (g/h and the round's set-up
+# tensors), ``gbdt::histograms`` (a level's left-child ids and histogram
+# call, and the job's scale), ``gbdt::fold`` (a level's fold),
+# ``gbdt::splits`` (sibling subtraction, best splits, freeze, the tree's
+# tables), ``gbdt::route``, ``gbdt::leaf_sums`` (the leaf sums and their
+# fold) and ``gbdt::margins`` (leaf values and the margins' update).
+_round_ids = itertools.count(1)
+rounds_built = 0      # rounds begun in this process: the latest's id
+
+
+def _next_round() -> int:
+    global rounds_built
+    rounds_built = r = next(_round_ids)
+    return r
+
+
+def _phase(name: str, tags: dict, **args):
+    """The span ``gbdt::<name>`` of one phase, with the tree's ``tags``
+    (a softmax tree's class)."""
+    return spans.span("gbdt::" + name, "gbdt", **tags, **args)
+
+
 def _build_tree(bins, g, h, cfg: GBDTConfig, feat_mask=None,
-                n_members: int = 1, group=None):
+                n_members: int = 1, group=None, tags=None):
     """Grow one tree from per-sample gradients/hessians over ``n_members``
     members, member m holding rows ``[m * per, (m + 1) * per)`` (N =
     n_members * per). Each level makes one histogram call for every
     member, member m's node k as id ``m * n_nodes + k``, and folds the
     members in rank order (:func:`_fold`); the leaf sums likewise. With a
     process ``group`` these are this rank's members, and the folds cross
-    the ranks. Returns (delta [N] -- the learning-rate-scaled leaf value
-    each sample receives -- and the tree)."""
+    the ranks. ``tags``: args of the tree's spans. Returns (delta [N] --
+    the learning-rate-scaled leaf value each sample receives -- and the
+    tree)."""
     N = bins.shape[0]
     dev = bins.device
     F, B = cfg.n_features, cfg.n_bins
     n = n_members
+    tags = tags or {}
     if N % n:
         raise Mp4jError(f"{N} rows do not split into {n} equal shards")
-    # member of every row; None for one member, whose ids need no offset
-    member = (torch.arange(N, dtype=torch.int32, device=dev) // (N // n)
-              if n > 1 else None)
+    n_internal = 2 ** cfg.depth - 1
+    with _phase("gradients", tags):
+        # member of every row; None for one member, whose ids need no
+        # offset
+        member = (torch.arange(N, dtype=torch.int32, device=dev) // (N // n)
+                  if n > 1 else None)
+        node_ids = torch.zeros(N, dtype=torch.int32, device=dev)
+        tree_feat = torch.zeros(n_internal, dtype=torch.int32, device=dev)
+        tree_bin = torch.zeros(n_internal, dtype=torch.int32, device=dev)
+        tree_dir = torch.zeros(n_internal, dtype=torch.int32, device=dev)
 
     def member_ids(local, k):
         """Member-local node ids in [0, k) -> ids in [0, n * k)."""
         return local if member is None else local + member * k
-
-    # over processes the kernel's fixed-point scale is the job's, so that
-    # each member's partial is the one a single call over every row gives
-    # (the plain version on the CPU has no scale)
-    absmax = None
-    if (group is not None and cfg.hist_mode == "pallas"
-            and dev.type == "cuda"):
-        absmax = all_reduce_(hist_kernel.absmax_bits(g, h), Operators.MAX,
-                             group)
 
     def fold2(a, b):
         """Fold the g and h planes of partials; across processes both ride
@@ -380,143 +407,175 @@ def _build_tree(bins, g, h, cfg: GBDTConfig, feat_mask=None,
         both = _fold_across(torch.stack([a, b], dim=1), n, group)
         return both[:, 0].contiguous(), both[:, 1].contiguous()
 
-    def reduced_histograms(ids, k):
-        return fold2(*build_histograms(bins, g, h, ids, n * k, cfg, absmax))
-
-    node_ids = torch.zeros(N, dtype=torch.int32, device=dev)
-    n_internal = 2 ** cfg.depth - 1
-    tree_feat = torch.zeros(n_internal, dtype=torch.int32, device=dev)
-    tree_bin = torch.zeros(n_internal, dtype=torch.int32, device=dev)
-    tree_dir = torch.zeros(n_internal, dtype=torch.int32, device=dev)
     cat_mask = cfg._cat_mask()
-
+    absmax = None
     level_start = 0
     prev_hg = prev_hh = None
     for d in range(cfg.depth):
         n_nodes = 2 ** d
-        if d == 0:
-            hg, hh = reduced_histograms(member_ids(node_ids, 1), 1)
-        else:
-            # sibling subtraction, hist(parent) = hist(left) +
-            # hist(right): build only the LEFT children -- samples in
-            # right nodes map to an out-of-range sentinel id and
-            # contribute nothing -- and derive the right siblings from the
-            # previous level. A derived right child inherits error relative
-            # to its parent's magnitude; the hessian clamp keeps that
-            # noise from producing negative hessian sums. The sentinel is
-            # n * n_half: any smaller id is some member's left child.
-            n_half = n_nodes // 2
-            left_ids = torch.where(node_ids % 2 == 0,
-                                   member_ids(node_ids // 2, n_half),
-                                   n * n_half)
-            hl_g, hl_h = reduced_histograms(left_ids, n_half)
-            hg = torch.stack([hl_g, prev_hg - hl_g],
-                             dim=1).reshape(n_nodes, F, B)
-            hh = torch.stack([hl_h, torch.clamp(prev_hh - hl_h, min=0.0)],
-                             dim=1).reshape(n_nodes, F, B)
-        prev_hg, prev_hh = hg, hh
-        feat, bin_, gain, dir_ = best_splits(
-            hg, hh, cfg.reg_lambda, feat_mask, cfg.min_child_hessian,
-            cat_mask, cfg.missing_bin)
-        # freeze any node whose best gain does not clear the threshold:
-        # bin B-1 routes every sample left, keeping the node whole. The
-        # ~(gain > thr) form also freezes gain == 0, gain == -inf and NaN.
-        freeze = ~(gain > cfg.min_split_gain)
-        bin_ = torch.where(freeze, cfg.n_bins - 1, bin_)
-        dir_ = torch.where(freeze, 0, dir_)   # frozen: missing stays left
-        tree_feat[level_start:level_start + n_nodes] = feat
-        tree_bin[level_start:level_start + n_nodes] = bin_
-        tree_dir[level_start:level_start + n_nodes] = dir_
-        node_ids = _route_samples(bins, node_ids, feat, bin_, dir_, cat_mask,
-                                  cfg.missing_bin, cfg.n_bins)
-        level_start += n_nodes
-
-    n_leaves = 2 ** cfg.depth
-    leaf_g, leaf_h = (
-        s.float() for s in fold2(*_segment_sum2(
-            g, h, member_ids(node_ids, n_leaves), n * n_leaves)))
-    leaf_val = -leaf_g / (leaf_h + cfg.reg_lambda)
-    delta = cfg.learning_rate * leaf_val[node_ids.long()]
-    return delta, (tree_feat, tree_bin, tree_dir, leaf_val)
-
-
-def _build_tree_members(bins, g, h, cfg: GBDTConfig, feat_mask=None):
-    """:func:`_build_tree` over a member list: ``bins``, ``g``, ``h`` are
-    lists, member m's rows on its own device. Returns (delta, a list of
-    each member's [per] deltas, and the tree, member 0's, on its
-    device). ``feat_mask``: a list, one per member, or None."""
-    n = len(bins)
-    F, B = cfg.n_features, cfg.n_bins
-    members = range(n)
-    # the mesh's fixed-point scale: each member's partial is then the
-    # packed call's slice of it (the plain version on the CPU has no scale)
-    absmax = [None] * n
-    if cfg.hist_mode == "pallas" and bins[0].device.type == "cuda":
-        absmax = coll.allreduce([hist_kernel.absmax_bits(g[m], h[m])
-                                 for m in members], Operators.MAX)
-
-    def reduced_histograms(ids, k):
-        parts = [build_histograms(bins[m], g[m], h[m], ids[m], k, cfg,
-                                  absmax[m]) for m in members]
-        # the list form of _fold: the same adds in rank order, each
-        # member's copy of the sums on its own device
-        return (coll.allreduce([p[0] for p in parts]),
-                coll.allreduce([p[1] for p in parts]))
-
-    node_ids = [torch.zeros(b.shape[0], dtype=torch.int32, device=b.device)
-                for b in bins]
-    n_internal = 2 ** cfg.depth - 1
-    dev0 = bins[0].device
-    tree_feat = torch.zeros(n_internal, dtype=torch.int32, device=dev0)
-    tree_bin = torch.zeros(n_internal, dtype=torch.int32, device=dev0)
-    tree_dir = torch.zeros(n_internal, dtype=torch.int32, device=dev0)
-    cat_mask = cfg._cat_mask()
-    fmask = feat_mask if feat_mask is not None else [None] * n
-
-    level_start = 0
-    prev_hg = prev_hh = None
-    for d in range(cfg.depth):
-        n_nodes = 2 ** d
-        if d == 0:
-            hg, hh = reduced_histograms(node_ids, 1)
-        else:
-            # sibling subtraction as in _build_tree; each member's right
-            # children go to the sentinel id n_half, outside its call
-            n_half = n_nodes // 2
-            hl_g, hl_h = reduced_histograms(
-                [torch.where(ids % 2 == 0, ids // 2, n_half)
-                 for ids in node_ids], n_half)
-            hg = [torch.stack([hl_g[m], prev_hg[m] - hl_g[m]],
-                              dim=1).reshape(n_nodes, F, B) for m in members]
-            hh = [torch.stack([hl_h[m],
-                               torch.clamp(prev_hh[m] - hl_h[m], min=0.0)],
-                              dim=1).reshape(n_nodes, F, B) for m in members]
-        prev_hg, prev_hh = hg, hh
-        for m in members:
-            feat, bin_, gain, dir_ = best_splits(
-                hg[m], hh[m], cfg.reg_lambda, fmask[m],
-                cfg.min_child_hessian, cat_mask, cfg.missing_bin)
-            freeze = ~(gain > cfg.min_split_gain)
-            bin_ = torch.where(freeze, cfg.n_bins - 1, bin_)
-            dir_ = torch.where(freeze, 0, dir_)
-            if m == 0:
+        with _phase("level", tags, level=d, nodes=n_nodes):
+            with _phase("histograms", tags):
+                if d == 0:
+                    # over processes the kernel's fixed-point scale is the
+                    # job's, so that each member's partial is the one a
+                    # single call over every row gives (the plain version
+                    # on the CPU has no scale)
+                    if (group is not None and cfg.hist_mode == "pallas"
+                            and dev.type == "cuda"):
+                        absmax = all_reduce_(hist_kernel.absmax_bits(g, h),
+                                             Operators.MAX, group)
+                    k, ids = 1, member_ids(node_ids, 1)
+                else:
+                    # sibling subtraction, hist(parent) = hist(left) +
+                    # hist(right): build only the LEFT children -- samples
+                    # in right nodes map to an out-of-range sentinel id
+                    # and contribute nothing -- and derive the right
+                    # siblings from the previous level. A derived right
+                    # child inherits error relative to its parent's
+                    # magnitude; the hessian clamp keeps that noise from
+                    # producing negative hessian sums. The sentinel is
+                    # n * k: any smaller id is some member's left child.
+                    k = n_nodes // 2
+                    ids = torch.where(node_ids % 2 == 0,
+                                      member_ids(node_ids // 2, k), n * k)
+                parts = build_histograms(bins, g, h, ids, n * k, cfg, absmax)
+            with _phase("fold", tags):
+                hl_g, hl_h = fold2(*parts)
+            with _phase("splits", tags):
+                if d == 0:
+                    hg, hh = hl_g, hl_h
+                else:
+                    hg = torch.stack([hl_g, prev_hg - hl_g],
+                                     dim=1).reshape(n_nodes, F, B)
+                    hh = torch.stack(
+                        [hl_h, torch.clamp(prev_hh - hl_h, min=0.0)],
+                        dim=1).reshape(n_nodes, F, B)
+                prev_hg, prev_hh = hg, hh
+                feat, bin_, gain, dir_ = best_splits(
+                    hg, hh, cfg.reg_lambda, feat_mask, cfg.min_child_hessian,
+                    cat_mask, cfg.missing_bin)
+                # freeze any node whose best gain does not clear the
+                # threshold: bin B-1 routes every sample left, keeping the
+                # node whole. The ~(gain > thr) form also freezes gain ==
+                # 0, gain == -inf and NaN.
+                freeze = ~(gain > cfg.min_split_gain)
+                bin_ = torch.where(freeze, cfg.n_bins - 1, bin_)
+                dir_ = torch.where(freeze, 0, dir_)  # frozen: missing left
                 tree_feat[level_start:level_start + n_nodes] = feat
                 tree_bin[level_start:level_start + n_nodes] = bin_
                 tree_dir[level_start:level_start + n_nodes] = dir_
-            node_ids[m] = _route_samples(bins[m], node_ids[m], feat, bin_,
-                                         dir_, cat_mask, cfg.missing_bin,
-                                         cfg.n_bins)
+            with _phase("route", tags):
+                node_ids = _route_samples(bins, node_ids, feat, bin_, dir_,
+                                          cat_mask, cfg.missing_bin,
+                                          cfg.n_bins)
         level_start += n_nodes
 
     n_leaves = 2 ** cfg.depth
-    sums = [_segment_sum2(g[m], h[m], node_ids[m], n_leaves)
-            for m in members]
-    leaf_g = coll.allreduce([s[0] for s in sums])
-    leaf_h = coll.allreduce([s[1] for s in sums])
-    leaf_val = [-leaf_g[m].float() / (leaf_h[m].float() + cfg.reg_lambda)
+    with _phase("leaf_sums", tags):
+        leaf_g, leaf_h = fold2(*_segment_sum2(
+            g, h, member_ids(node_ids, n_leaves), n * n_leaves))
+    with _phase("margins", tags):
+        leaf_val = -leaf_g.float() / (leaf_h.float() + cfg.reg_lambda)
+        delta = cfg.learning_rate * leaf_val[node_ids.long()]
+    return delta, (tree_feat, tree_bin, tree_dir, leaf_val)
+
+
+def _build_tree_members(bins, g, h, cfg: GBDTConfig, feat_mask=None,
+                        tags=None):
+    """:func:`_build_tree` over a member list: ``bins``, ``g``, ``h`` are
+    lists, member m's rows on its own device. Returns (delta, a list of
+    each member's [per] deltas, and the tree, member 0's, on its
+    device). ``feat_mask``: a list, one per member, or None. The spans
+    are :func:`_build_tree`'s."""
+    n = len(bins)
+    F, B = cfg.n_features, cfg.n_bins
+    members = range(n)
+    tags = tags or {}
+    n_internal = 2 ** cfg.depth - 1
+    dev0 = bins[0].device
+    with _phase("gradients", tags):
+        node_ids = [torch.zeros(b.shape[0], dtype=torch.int32,
+                                device=b.device) for b in bins]
+        tree_feat = torch.zeros(n_internal, dtype=torch.int32, device=dev0)
+        tree_bin = torch.zeros(n_internal, dtype=torch.int32, device=dev0)
+        tree_dir = torch.zeros(n_internal, dtype=torch.int32, device=dev0)
+    cat_mask = cfg._cat_mask()
+    fmask = feat_mask if feat_mask is not None else [None] * n
+
+    absmax = [None] * n
+    level_start = 0
+    prev_hg = prev_hh = None
+    for d in range(cfg.depth):
+        n_nodes = 2 ** d
+        with _phase("level", tags, level=d, nodes=n_nodes):
+            with _phase("histograms", tags):
+                if d == 0:
+                    # the mesh's fixed-point scale: each member's partial
+                    # is then the packed call's slice of it (the plain
+                    # version on the CPU has no scale)
+                    if (cfg.hist_mode == "pallas"
+                            and bins[0].device.type == "cuda"):
+                        absmax = coll.allreduce(
+                            [hist_kernel.absmax_bits(g[m], h[m])
+                             for m in members], Operators.MAX)
+                    k, ids = 1, node_ids
+                else:
+                    # sibling subtraction as in _build_tree; each member's
+                    # right children go to the sentinel id k, outside its
+                    # call
+                    k = n_nodes // 2
+                    ids = [torch.where(i % 2 == 0, i // 2, k)
+                           for i in node_ids]
+                parts = [build_histograms(bins[m], g[m], h[m], ids[m], k,
+                                          cfg, absmax[m]) for m in members]
+            with _phase("fold", tags):
+                # the list form of _fold: the same adds in rank order, each
+                # member's copy of the sums on its own device
+                hl_g = coll.allreduce([p[0] for p in parts])
+                hl_h = coll.allreduce([p[1] for p in parts])
+            with _phase("splits", tags):
+                if d == 0:
+                    hg, hh = hl_g, hl_h
+                else:
+                    hg = [torch.stack([hl_g[m], prev_hg[m] - hl_g[m]],
+                                      dim=1).reshape(n_nodes, F, B)
+                          for m in members]
+                    hh = [torch.stack(
+                        [hl_h[m], torch.clamp(prev_hh[m] - hl_h[m], min=0.0)],
+                        dim=1).reshape(n_nodes, F, B) for m in members]
+                prev_hg, prev_hh = hg, hh
+                splits = []
+                for m in members:
+                    feat, bin_, gain, dir_ = best_splits(
+                        hg[m], hh[m], cfg.reg_lambda, fmask[m],
+                        cfg.min_child_hessian, cat_mask, cfg.missing_bin)
+                    freeze = ~(gain > cfg.min_split_gain)
+                    bin_ = torch.where(freeze, cfg.n_bins - 1, bin_)
+                    dir_ = torch.where(freeze, 0, dir_)
+                    splits.append((feat, bin_, dir_))
+                feat, bin_, dir_ = splits[0]
+                tree_feat[level_start:level_start + n_nodes] = feat
+                tree_bin[level_start:level_start + n_nodes] = bin_
+                tree_dir[level_start:level_start + n_nodes] = dir_
+            with _phase("route", tags):
+                for m in members:
+                    node_ids[m] = _route_samples(
+                        bins[m], node_ids[m], *splits[m], cat_mask,
+                        cfg.missing_bin, cfg.n_bins)
+        level_start += n_nodes
+
+    n_leaves = 2 ** cfg.depth
+    with _phase("leaf_sums", tags):
+        sums = [_segment_sum2(g[m], h[m], node_ids[m], n_leaves)
                 for m in members]
-    delta = [cfg.learning_rate * leaf_val[m][node_ids[m].long()]
-             for m in members]
+        leaf_g = coll.allreduce([s[0] for s in sums])
+        leaf_h = coll.allreduce([s[1] for s in sums])
+    with _phase("margins", tags):
+        leaf_val = [-leaf_g[m].float() / (leaf_h[m].float()
+                                          + cfg.reg_lambda)
+                    for m in members]
+        delta = [cfg.learning_rate * leaf_val[m][node_ids[m].long()]
+                 for m in members]
     return delta, (tree_feat, tree_bin, tree_dir, leaf_val[0])
 
 
@@ -616,34 +675,49 @@ def train_tree_members(bins, y, preds, cfg: GBDTConfig, weights,
     those of :func:`train_tree_shard` on the stacked members."""
     n = len(bins)
     per = bins[0].shape[0]
-    sample_scale, feat_mask = _sampling_masks_members(generators, cfg, per)
-    if sample_scale is not None:
-        weights = [weights[m] * sample_scale[m] for m in range(n)]
-    if cfg.loss == "softmax":
-        p = [torch.softmax(pr, dim=1) for pr in preds]
-        trees, deltas = [], []
-        for c in range(cfg.n_classes):
+    r = _next_round()
+    with spans.span("gbdt::round", "gbdt", id=r, round=r, members=n,
+                    rows=n * per):
+        with _phase("gradients", {}):
+            sample_scale, feat_mask = _sampling_masks_members(generators,
+                                                              cfg, per)
+            if sample_scale is not None:
+                weights = [weights[m] * sample_scale[m] for m in range(n)]
+        if cfg.loss == "softmax":
+            with _phase("gradients", {}):
+                p = [torch.softmax(pr, dim=1) for pr in preds]
+            trees, deltas = [], []
+            for c in range(cfg.n_classes):
+                tags = {"class": c}
+                with _phase("gradients", tags):
+                    g, h = [], []
+                    for m in range(n):
+                        onehot_y = (y[m].to(torch.int32) == c).to(
+                            torch.float32)
+                        g.append((p[m][:, c] - onehot_y) * weights[m])
+                        h.append(p[m][:, c] * (1.0 - p[m][:, c])
+                                 * weights[m])
+                delta, tree = _build_tree_members(bins, g, h, cfg, feat_mask,
+                                                  tags)
+                deltas.append(delta)
+                trees.append(tree)
+            with _phase("margins", {}):
+                return ([preds[m] + torch.stack([dl[m] for dl in deltas],
+                                                dim=1)
+                         for m in range(n)], tuple(trees))
+        with _phase("gradients", {}):
             g, h = [], []
             for m in range(n):
-                onehot_y = (y[m].to(torch.int32) == c).to(torch.float32)
-                g.append((p[m][:, c] - onehot_y) * weights[m])
-                h.append(p[m][:, c] * (1.0 - p[m][:, c]) * weights[m])
-            delta, tree = _build_tree_members(bins, g, h, cfg, feat_mask)
-            deltas.append(delta)
-            trees.append(tree)
-        return ([preds[m] + torch.stack([dl[m] for dl in deltas], dim=1)
-                 for m in range(n)], tuple(trees))
-    g, h = [], []
-    for m in range(n):
-        if cfg.loss == "logistic":
-            pm = torch.sigmoid(preds[m])
-            gm, hm = pm - y[m], pm * (1.0 - pm)
-        else:
-            gm, hm = preds[m] - y[m], torch.ones_like(preds[m])
-        g.append(gm * weights[m])
-        h.append(hm * weights[m])
-    delta, tree = _build_tree_members(bins, g, h, cfg, feat_mask)
-    return [preds[m] + delta[m] for m in range(n)], tree
+                if cfg.loss == "logistic":
+                    pm = torch.sigmoid(preds[m])
+                    gm, hm = pm - y[m], pm * (1.0 - pm)
+                else:
+                    gm, hm = preds[m] - y[m], torch.ones_like(preds[m])
+                g.append(gm * weights[m])
+                h.append(hm * weights[m])
+        delta, tree = _build_tree_members(bins, g, h, cfg, feat_mask)
+        with _phase("margins", {}):
+            return [preds[m] + delta[m] for m in range(n)], tree
 
 
 def train_tree_shard(bins, y, preds, cfg: GBDTConfig, weights=None,
@@ -667,45 +741,61 @@ def train_tree_shard(bins, y, preds, cfg: GBDTConfig, weights=None,
     is grown; tree = (feat, bin, dir, leaf) in level-order heap layout.
     "softmax": preds are margins [N, C], y is integer class labels [N];
     one tree is grown PER CLASS against the diagonal softmax g/h
-    (g_c = p_c - 1[y=c], h_c = p_c (1 - p_c)); tree = a C-tuple.
-    """
-    if masks is None:
-        masks = _sampling_masks(generators, cfg, bins.shape[0], bins.device,
-                                lead)
-    sample_scale, feat_mask = masks
-    if sample_scale is not None:
-        weights = (sample_scale if weights is None
-                   else weights * sample_scale)
+    (g_c = p_c - 1[y=c], h_c = p_c (1 - p_c)); tree = a C-tuple, and the
+    spans of class c's tree carry ``class=c``.
 
-    if cfg.loss == "softmax":
-        p = torch.softmax(preds, dim=1)            # [N, C]
-        trees = []
-        deltas = []
-        for c in range(cfg.n_classes):
-            onehot_y = (y.to(torch.int32) == c).to(torch.float32)
-            g = p[:, c] - onehot_y
-            h = p[:, c] * (1.0 - p[:, c])
+    The round is one ``gbdt::round`` span, its id the round's number
+    (:data:`rounds_built`), each of its launches inside one phase span
+    (the names above :func:`_next_round`).
+    """
+    r = _next_round()
+    with spans.span("gbdt::round", "gbdt", id=r, round=r,
+                    members=n_members, rows=bins.shape[0]):
+        with _phase("gradients", {}):
+            if masks is None:
+                masks = _sampling_masks(generators, cfg, bins.shape[0],
+                                        bins.device, lead)
+            sample_scale, feat_mask = masks
+            if sample_scale is not None:
+                weights = (sample_scale if weights is None
+                           else weights * sample_scale)
+
+        if cfg.loss == "softmax":
+            with _phase("gradients", {}):
+                p = torch.softmax(preds, dim=1)            # [N, C]
+            trees = []
+            deltas = []
+            for c in range(cfg.n_classes):
+                tags = {"class": c}
+                with _phase("gradients", tags):
+                    onehot_y = (y.to(torch.int32) == c).to(torch.float32)
+                    g = p[:, c] - onehot_y
+                    h = p[:, c] * (1.0 - p[:, c])
+                    if weights is not None:
+                        g = g * weights
+                        h = h * weights
+                delta, tree = _build_tree(bins, g, h, cfg, feat_mask,
+                                          n_members, group, tags)
+                deltas.append(delta)
+                trees.append(tree)
+            with _phase("margins", {}):
+                return preds + torch.stack(deltas, dim=1), tuple(trees)
+
+        with _phase("gradients", {}):
+            if cfg.loss == "logistic":
+                p = torch.sigmoid(preds)
+                g = p - y
+                h = p * (1.0 - p)
+            else:  # squared error: g = pred - y, h = 1
+                g = preds - y
+                h = torch.ones_like(preds)
             if weights is not None:
                 g = g * weights
                 h = h * weights
-            delta, tree = _build_tree(bins, g, h, cfg, feat_mask, n_members,
-                                      group)
-            deltas.append(delta)
-            trees.append(tree)
-        return preds + torch.stack(deltas, dim=1), tuple(trees)
-
-    if cfg.loss == "logistic":
-        p = torch.sigmoid(preds)
-        g = p - y
-        h = p * (1.0 - p)
-    else:  # squared error: g = pred - y, h = 1
-        g = preds - y
-        h = torch.ones_like(preds)
-    if weights is not None:
-        g = g * weights
-        h = h * weights
-    delta, tree = _build_tree(bins, g, h, cfg, feat_mask, n_members, group)
-    return preds + delta, tree
+        delta, tree = _build_tree(bins, g, h, cfg, feat_mask, n_members,
+                                  group)
+        with _phase("margins", {}):
+            return preds + delta, tree
 
 
 def predict_tree(bins, tree, cfg: GBDTConfig):

@@ -1,7 +1,9 @@
 """Bounded span ring + Chrome-trace export.
 
 A copy of ``ytk_mp4j_tpu/obs/spans.py``, with its imports re-rooted at the
-port; it imports nothing of the JAX package.
+port; it imports nothing of the JAX package. The port adds :func:`span`,
+the spans of its own hot path (the GBDT round's phases, the ring kernels'
+entry points), which also land in a running ``torch.profiler``'s trace.
 
 Every phase event the always-on :class:`~ytk_mp4j_tpu_torch.utils.stats.
 CommStats` books (wire/reduce/serialize, at chunk granularity) and
@@ -23,12 +25,15 @@ combines them into a single timeline (ranks keep distinct pids).
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import json
 import os
 import threading
 import time
 from typing import Any
+
+import torch.autograd.profiler as _profiler
 
 from ytk_mp4j_tpu_torch.utils import tuning
 
@@ -50,6 +55,8 @@ _tids: dict[int, int] = {}        # thread ident -> small stable tid
 # the ring. Appends bump it under _lock so (ring, count) stay
 # consistent for the cursor math.
 _count = 0
+_local = threading.local()        # this thread's open spans (span())
+_root_ids = itertools.count(1)    # ids of root spans given none
 
 
 def enabled() -> bool:
@@ -180,6 +187,67 @@ def collective(name: str, t0: float, dur: float, pid: int | None,
         return
     _append((name, "collective", t0, dur, pid or 0, _tid(),
              {"seq": seq}))
+
+
+class _Span:
+    """One open :func:`span`: its args, start and profiler range."""
+
+    __slots__ = ("name", "cat", "args", "t0", "range")
+
+    def __init__(self, name: str, cat: str, args: dict[str, Any]):
+        self.name, self.cat, self.args = name, cat, args
+
+    def __enter__(self):
+        stack = _local.__dict__.setdefault("stack", [])
+        if stack:
+            self.args["id"] = stack[-1].args["id"]
+            self.args["parent"] = stack[-1].name
+        elif "id" not in self.args:
+            self.args["id"] = next(_root_ids)
+        stack.append(self)
+        self.range = None
+        if _profiler._is_profiler_enabled:
+            self.range = _profiler.record_function(self.name)
+            self.range.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        dur = time.perf_counter() - self.t0
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        _local.stack.pop()
+        if _enabled:
+            _append((self.name, self.cat, self.t0, dur, 0, _tid(),
+                     self.args))
+
+
+_OFF = contextlib.nullcontext()   # the span of a call while nothing records
+
+
+def span(name: str, cat: str, **args: Any):
+    """A context manager around one phase of the program's own work.
+
+    While the ring records, the phase is appended to it as one complete
+    span whose args hold ``args``, ``id`` (the root span's: the one
+    given as ``id=``, else a fresh number; every span opened inside
+    another takes its parent's) and ``parent`` (the enclosing span's
+    name, on this thread). While a ``torch.profiler`` records, the phase
+    is also a ``record_function`` range, on the clock of the device
+    events, so every kernel launched inside it is linked to it. With
+    neither, the call costs the two checks."""
+    if not (_enabled or _profiler._is_profiler_enabled):
+        return _OFF
+    return _Span(name, cat, args)
+
+
+def annotate(**args: Any) -> None:
+    """Add ``args`` to this thread's innermost open :func:`span` (what
+    the phase learns only as it runs); nothing while the ring is off."""
+    if _enabled:
+        stack = _local.__dict__.get("stack")
+        if stack:
+            stack[-1].args.update(args)
 
 
 def snapshot() -> list[tuple]:

@@ -95,6 +95,7 @@ from dataclasses import dataclass
 import torch
 
 from ytk_mp4j_tpu_torch.exceptions import Mp4jError
+from ytk_mp4j_tpu_torch.obs import spans
 from ytk_mp4j_tpu_torch.operators import Operator, Operators
 from ytk_mp4j_tpu_torch.ops import _build
 
@@ -568,7 +569,8 @@ def _launch(xp, plan: RingPlan, lay: _Layout, operator: Operator, spin_s,
 
 
 def _raise_if_stuck(err, spin_s):
-    code, member, step, what = err.tolist()      # waits for the kernel
+    with spans.span("ring::wait", "ring"):
+        code, member, step, what = err.tolist()  # waits for the kernel
     if code:
         raise Mp4jError(
             f"ring kernel: member {member} waited on {_WAITS[what]} at step "
@@ -588,6 +590,7 @@ def _counted(counter, xp, plan, lay, operator, spin_s, stall_member, path):
     setattr(counter, f"{lp.path}_launches",
             getattr(counter, f"{lp.path}_launches") + launched)
     counter.last_plan = lp
+    spans.annotate(path=lp.path)
     if err is not None:
         _raise_if_stuck(err, spin_s)
     return out
@@ -1011,6 +1014,12 @@ def _chunk_granule(c: int, x, bidirectional: bool, what: str) -> None:
 
 
 def _run(xp, plan, lay, operator, plain, kw):
+    if not plain:   # a kernel entry point's call, on its ring::<mode> span
+        spans.annotate(members=plan.n, bytes=lay.in_row * xp.dtype.itemsize,
+                       dtype=str(xp.dtype).removeprefix("torch."),
+                       ndir=plan.ndir)
+        if xp.device.type == "cpu":
+            spans.annotate(path="plain")
     if isinstance(xp, _List):
         if (kw.get("spin_s", SPIN_SECONDS) != SPIN_SECONDS
                 or kw.get("stall_member", -1) != -1):
@@ -1112,8 +1121,16 @@ def ring_allreduce_kernel(x, operator: Operator = Operators.SUM,
     whose data does not start on 16 bytes is copied first. Each entry
     point also takes a list of n ``[L]`` member tensors, member r's on
     its own device, and returns a list the same way (one launch a
-    member on CUDA; see the module docstring)."""
-    return _allreduce(x, operator, bidirectional, force_kernel, False, launch)
+    member on CUDA; see the module docstring). Each entry point's call is
+    one span ``ring::<mode>`` (``obs.spans.span``) whose args give the
+    ``path`` it took (``cluster``, ``global``, ``member``, or ``plain`` on
+    a CPU tensor), ``members``, ``bytes`` (a member's input as the kernel
+    reads it, an allreduce's padded to whole chunks), ``dtype`` and
+    ``ndir``; on the cluster path the host's wait for the kernel's error
+    word is its child ``ring::wait``."""
+    with spans.span("ring::allreduce", "ring"):
+        return _allreduce(x, operator, bidirectional, force_kernel, False,
+                          launch)
 
 
 def ring_reduce_scatter_kernel(x, operator: Operator = Operators.SUM,
@@ -1122,15 +1139,17 @@ def ring_reduce_scatter_kernel(x, operator: Operator = Operators.SUM,
     """Members ``x`` [n, L], L divisible by n, chunks L/n multiples of the
     granule: member r's row of the [n, L/n] result is chunk r of the
     reduction."""
-    return _reduce_scatter(x, operator, bidirectional, force_kernel, False,
-                           launch)
+    with spans.span("ring::reduce_scatter", "ring"):
+        return _reduce_scatter(x, operator, bidirectional, force_kernel,
+                               False, launch)
 
 
 def ring_allgather_kernel(x, bidirectional: bool = False,
                           force_kernel: bool = False, **launch):
     """Members' shards ``x`` [n, c] (c a multiple of the granule): every
     row of the [n, n*c] result holds member q's shard at block q."""
-    return _allgather(x, bidirectional, force_kernel, False, launch)
+    with spans.span("ring::allgather", "ring"):
+        return _allgather(x, bidirectional, force_kernel, False, launch)
 
 
 def ring_allreduce_reference(x, operator: Operator = Operators.SUM,
