@@ -93,19 +93,24 @@ Phases:
    level, the kernel against its plain version on the inputs the tree
    gave it, and kernel, plain and ``torch.bincount`` times beside the
    bound (bytes of every node id and of the in-range rows' bins, g and
-   h). The
+   h); the leaf-sum kernel (``ops/csrc/leaf_sums.cu``) on the tree's
+   own leaf ids: bitwise its order of adds (``fixed_order_sums``), near
+   the plain ``index_add`` version, and kernel, plain and
+   ``torch.bincount`` ms beside its bound (each row's id, g and h). The
    profiled tree reports the members' folds and the leaf sums apart
    (``torch.profiler`` ranges around ``gbdt._fold`` and
    ``gbdt._segment_sum2``, CPU and CUDA activity);
 4. the data-parallel slice on the same data: 1 warm-up tree, 3 timed
-   trees between the counts (18 histogram launches: one a level), trees/s
+   trees between the counts (18 histogram launches: one a level; 3
+   leaf-sum launches: one a tree over every member), trees/s
    and GB/s, ``predict`` == the margins, trees/s in 10 pairs of 3 trees
    against one member (order alternating), the profiled tree's split beside
    the one-member tree's, kernel tree == plain tree on 200,000 rows, the
    (2, 2) mesh's tree and margins bitwise equal to the flat mesh's (the
    same code path: run-to-run repeatability), and per level the kernel
    against its plain version and the kernel's, plain and bincount ms at
-   4 x n_nodes nodes beside the bound;
+   4 x n_nodes nodes beside the bound, and the leaf-sum kernel's row over
+   4 members;
    ``train_raw`` over 4 members on 11M x 28 raw f32 features (the bins
    plus uniform noise): the fit (host, 1M-row sample) and the transform
    (card) timed apart, the card's transform of the first 1M rows bitwise
@@ -332,6 +337,7 @@ from ytk_mp4j_tpu_torch.operands import to_tensor
 from ytk_mp4j_tpu_torch.ops import _build
 from ytk_mp4j_tpu_torch.ops import collectives as coll
 from ytk_mp4j_tpu_torch.ops import hist_kernel as hk
+from ytk_mp4j_tpu_torch.ops import leaf_sums as ls
 from ytk_mp4j_tpu_torch.ops import ring_kernel as rk
 from ytk_mp4j_tpu_torch.ops import sparse as sparse_ops
 from ytk_mp4j_tpu_torch.utils import trace as collective_trace
@@ -689,10 +695,69 @@ def recording_histograms():
 
 
 def record_levels(trainer, dbins, dy):
-    """Train one tree while keeping each histogram call's inputs."""
-    with recording_histograms() as calls:
-        trainer.train(dbins, dy, n_trees=1)
-    return calls
+    """Train one tree while keeping each histogram call's inputs and its
+    leaf-sum call's. Returns (histogram calls, the leaf-sum call)."""
+    real = gbdt._segment_sum2
+    leaf = []
+
+    def recorder(*args):
+        leaf.append(args)
+        return real(*args)
+
+    gbdt._segment_sum2 = recorder
+    try:
+        with recording_histograms() as calls:
+            trainer.train(dbins, dy, n_trees=1)
+    finally:
+        gbdt._segment_sum2 = real
+    check(len(leaf) == 1, f"{len(leaf)} leaf-sum calls in a tree")
+    return calls, leaf[0]
+
+
+def leaf_row(call, launches):
+    """The leaf-sum kernel on the inputs the main path gave it: bitwise
+    its order of adds (``fixed_order_sums``, replayed on the card), within
+    1e-12 of each leaf's sum of |v| of the plain version, and kernel,
+    plain and ``torch.bincount`` ms beside the bound (each row's id, g and
+    h read once). ``launches``: the timed trees' leaf-sum launches."""
+    g, h, ids, n_members, n_leaves = call
+    n = g.shape[0]
+    got = ls.leaf_sums(g, h, ids, n_leaves, n_members)
+    model = ls.fixed_order_sums(g, h, ids, n_leaves, n_members)
+    plain = ls.leaf_sums_reference(g, h, ids, n_leaves, n_members)
+    err = 0.0
+    for k, v in enumerate((g, h)):
+        check(torch.equal(got[k], model[k]),
+              f"leaf sums {'gh'[k]}: kernel != its order of adds")
+        scale = ls.leaf_sums_reference(v.abs(), v.abs(), ids, n_leaves,
+                                       n_members)[0]
+        err = max(err, ((got[k] - plain[k]).abs()
+                        / scale.clamp_min(1e-300)).max().item())
+    check(err <= 1e-12, f"leaf sums vs plain: {err:.3e} of sum |v|")
+    del model, plain
+    kern = timed_ms(lambda: ls.leaf_sums(g, h, ids, n_leaves, n_members),
+                    20)
+    plain_ms = timed_ms(lambda: ls.leaf_sums_reference(
+        g, h, ids, n_leaves, n_members), 5)
+    n_cells = n_members * n_leaves
+    cells = (ids.long() + torch.arange(n, device=g.device)
+             // (n // n_members) * n_leaves)
+    idx = torch.cat([cells, cells + n_cells])
+    w = torch.cat([g.double(), h.double()])
+    lib = timed_ms(lambda: torch.bincount(idx, weights=w,
+                                          minlength=2 * n_cells), 5)
+    del cells, idx, w
+    bound = n * 12 / HBM_BYTES_PER_S * 1e3
+    row = dict(members=n_members, n_leaves=n_leaves, rows=n,
+               max_rel_err=err, ms=kern, plain_ms=plain_ms, library_ms=lib,
+               bound_ms=bound, launches=launches)
+    print(f"leaf sums ({n_members} member(s), {n_leaves} leaves, {n} rows): "
+          f"bitwise its order of adds, {err:.3e} of sum |v| from plain; "
+          f"kernel {kern:.4f} ms, plain {plain_ms:.4f} ms, bincount "
+          f"{lib:.4f} ms, bound {bound:.4f} ms (bytes; {bound / kern:.0%} "
+          f"of it); {launches} launches in {TIMED_TREES} trees",
+          flush=True)
+    return row
 
 
 def level_errors(call):
@@ -776,12 +841,15 @@ def timed_trees(trainer, dbins, dy, what):
     trees, margins, tree_s, host_s = train_timed(trainer, dbins, dy)
     counts = read_counts()
     launches = counts["hist_kernel"]
+    leaf_launches = counts["leaf_sums"]
     gbs = scanned_bytes(n, F, DEPTH) / tree_s / 1e9
     print(f"{what}: {TIMED_TREES} trees, {1 / tree_s:.3f} trees/s, "
           f"{gbs:.3f} GB/s scanned (host clock {host_s:.3f} s), "
           f"launches {counts}", flush=True)
     check(launches == DEPTH * TIMED_TREES,
           f"{launches} kernel launches, want {DEPTH * TIMED_TREES}")
+    check(leaf_launches == TIMED_TREES,
+          f"{leaf_launches} leaf-sum launches, want {TIMED_TREES}")
     check(margins.shape == (n,) and bool(torch.isfinite(margins).all()),
           "margins not finite [N]")
     mse0 = float(dy.double().pow(2).mean())
@@ -792,7 +860,8 @@ def timed_trees(trainer, dbins, dy, what):
     print(f"predict == training margins; mse {mse0:.5f} -> {mse:.5f}",
           flush=True)
     return trees, margins, {"trees_per_s": 1 / tree_s, "gb_per_s": gbs,
-                            "host_s": host_s, "launches": launches}
+                            "host_s": host_s, "launches": launches,
+                            "leaf_sums_launches": leaf_launches}
 
 
 def in_turns(one, many, dbins, dy, names=None):
@@ -851,7 +920,7 @@ def run_gbdt(dev, dbins, dy):
 
     cfg = GBDTConfig(n_features=F, n_bins=B, depth=DEPTH, loss="squared")
     trainer = GBDTTrainer(cfg)
-    calls = record_levels(trainer, dbins, dy)        # warm-up tree
+    calls, leaf_call = record_levels(trainer, dbins, dy)   # warm-up tree
     check(len(calls) == DEPTH, f"{len(calls)} histogram calls in a tree")
     trees, margins, rec = timed_trees(trainer, dbins, dy, "slice")
     save_reference("one_member", trees, margins)
@@ -859,6 +928,7 @@ def run_gbdt(dev, dbins, dy):
     kernel_tree_equals_plain(dbins, dy)
 
     rows, level_err = phase_levels(calls)
+    rec["leaf_sums"] = leaf_row(leaf_call, rec["leaf_sums_launches"])
     mean = {k: sum(r[k] for r in rows) / len(rows)
             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
     line = {
@@ -887,7 +957,7 @@ def run_data_parallel(dbins, dy, one_member):
     mesh = make_mesh(MEMBERS)
     cfg = GBDTConfig(n_features=F, n_bins=B, depth=DEPTH, loss="squared")
     trainer = GBDTTrainer(cfg, mesh=mesh)
-    calls = record_levels(trainer, dbins, dy)        # warm-up tree
+    calls, leaf_call = record_levels(trainer, dbins, dy)   # warm-up tree
     want_nodes = [MEMBERS * max(1, 2 ** (d - 1)) for d in range(DEPTH)]
     check([c[4] for c in calls] == want_nodes,
           f"histogram calls at {[c[4] for c in calls]} nodes, want "
@@ -907,8 +977,8 @@ def run_data_parallel(dbins, dy, one_member):
 
     # the trainer reads only a mesh's member count, so the (2, 2) mesh
     # runs the flat mesh's code in the same rank order: this shows that a
-    # tree repeats run to run (the kernel's sums repeat bitwise; the leaf
-    # sums' atomic adds land in another order, in float64, each run)
+    # tree repeats run to run (the histogram kernel's sums and the leaf-sum
+    # kernel's repeat bitwise)
     th, mh = GBDTTrainer(cfg, mesh=make_hier_mesh(2, MEMBERS // 2)).train(
         dbins, dy, n_trees=1)
     tf, mf = GBDTTrainer(cfg, mesh=mesh).train(dbins, dy, n_trees=1)
@@ -920,6 +990,7 @@ def run_data_parallel(dbins, dy, one_member):
           flush=True)
 
     rows, level_err = phase_levels(calls)
+    rec["leaf_sums"] = leaf_row(leaf_call, rec["leaf_sums_launches"])
     return dict(rec, members=MEMBERS, levels=rows, max_abs_err=level_err,
                 tree_profile=profile)
 
@@ -1011,7 +1082,8 @@ def run_entry():
 # ----------------------------------------------------------------------
 # slice 2: the ring kernels
 # ----------------------------------------------------------------------
-COUNTERS = {"hist_kernel": hk.histograms, "ring_kernel": rk.ring_kernel,
+COUNTERS = {"hist_kernel": hk.histograms, "leaf_sums": ls.leaf_sums,
+            "ring_kernel": rk.ring_kernel,
             "ring_kernel_bidir": rk.ring_kernel_bidir}
 
 
@@ -1894,7 +1966,7 @@ def rank_worker(job):
     mesh = global_mesh()
     cfg = GBDTConfig(n_features=F, n_bins=B, depth=DEPTH, loss="squared")
     trainer = GBDTTrainer(cfg, mesh=mesh)
-    calls = record_levels(trainer, dbins, dy)            # warm-up tree
+    calls, _ = record_levels(trainer, dbins, dy)         # warm-up tree
     # every level's call of this rank (its rows, the job's seed) against
     # the plain version; the cells the call gives unseeded that differ
     lv_errs, rec["unseeded_cells_differing"] = [], []
@@ -1918,7 +1990,9 @@ def rank_worker(job):
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     trees, margins, tree_s, host_s = train_timed(trainer, dbins, dy)
-    rec["launches"] = read_counts()["hist_kernel"]
+    counts = read_counts()
+    rec["launches"] = counts["hist_kernel"]
+    rec["leaf_sums_launches"] = counts["leaf_sums"]
     rec["trees_per_s"] = 1 / tree_s
     rec["host_s"] = host_s
     with open(job["ref"], "rb") as f:
@@ -3698,7 +3772,8 @@ def run_device_list(ring_record, slice6):
     two_way = MEMBERS * rk.allreduce_rounds(MEMBERS, HIST_PAYLOAD,
                                             torch.float32)
     want = {"hist_kernel": DEPTH * TIMED_TREES * MEMBERS,
-            "ring_kernel": one_way, "ring_kernel.member": one_way,
+            "leaf_sums": TIMED_TREES * MEMBERS, "ring_kernel": one_way,
+            "ring_kernel.member": one_way,
             "ring_kernel_bidir": two_way,
             "ring_kernel_bidir.member": two_way}
     for k, v in want.items():
@@ -3971,7 +4046,8 @@ def run_list_dryrun(devs):
     s = time.perf_counter() - t0
     counts = read_counts()
     ring = n * rk.allreduce_rounds(n, 16, torch.float32)  # 16-float arrays
-    want = {"hist_kernel": n * sum(DRYRUN_DEPTHS), "ring_kernel": ring,
+    want = {"hist_kernel": n * sum(DRYRUN_DEPTHS),
+            "leaf_sums": n * len(DRYRUN_DEPTHS), "ring_kernel": ring,
             "ring_kernel.member": ring, "ring_kernel_bidir": 0}
     for k, v in want.items():
         check(counts[k] == v, f"dryrun over {devs}: {k} launched "
@@ -4237,7 +4313,20 @@ def main():
     torch.cuda.empty_cache()
     entry_record = run_entry()
     ring_entries, ring_record = run_ring(dev)
-    kernels = [hist_entry] + ring_entries
+    leaf = dp_record["leaf_sums"]
+    leaf_entry = {
+        "name": "leaf_sums", "route": "cuda",
+        "source": "ytk_mp4j_tpu_torch/ops/csrc/leaf_sums.cu",
+        "replaces": "none (ytk_mp4j_tpu/models/gbdt.py:332 is an MXU "
+                    "product)",
+        "launches": leaf["launches"], "max_rel_err": max(
+            leaf["max_rel_err"], gbdt_record["leaf_sums"]["max_rel_err"]),
+        "ms": leaf["ms"], "plain_ms": leaf["plain_ms"],
+        "bound_ms": leaf["bound_ms"], "bound_by": "bytes",
+        "library_ms": leaf["library_ms"],
+        "one_member": gbdt_record["leaf_sums"],
+    }
+    kernels = [hist_entry, leaf_entry] + ring_entries
     ffm_rec, ffm_params = run_ffm_criteo(dev)
     slice6 = {"ffm_criteo": ffm_rec, "ffm_config4": run_ffm_config4(dev),
               "maps": run_maps(dev)}
@@ -4266,6 +4355,13 @@ def main():
         "nccl_world1": [r["launches"] for r in slice7["nccl_world1"]["ranks"]],
         f"gloo{PROCESSES}": [r["launches"] for r in slice7["gloo"]["ranks"]],
         f"socket{SOCKET_RANKS}": slice9["gbdt_launches"]}
+    leaf_entry["process_path_launches"] = {
+        "nccl_world1": [r["leaf_sums_launches"]
+                        for r in slice7["nccl_world1"]["ranks"]],
+        f"gloo{PROCESSES}": [r["leaf_sums_launches"]
+                             for r in slice7["gloo"]["ranks"]]}
+    leaf_entry["device_list_launches"] = slice12["counts"]["leaf_sums"]
+    leaf_entry["dryrun_list_launches"] = dry["leaf_sums"]
     hist_entry["serve_path_launches"] = slice10["serve"]["launches"][
         "hist_kernel"]
     for e in ring_entries:

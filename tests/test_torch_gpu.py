@@ -1,5 +1,7 @@
-"""The port's CUDA kernels on the card: the histogram kernel and the two
-ring kernels on both their paths (thread-block clusters for n <= 8
+"""The port's CUDA kernels on the card: the histogram kernel, the leaf-sum
+kernel (against f64 sums and, bitwise, its order of adds replayed on the
+CPU; run to run; packed against one call a member) and the two ring
+kernels on both their paths (thread-block clusters for n <= 8
 members; above, one launch that folds each chunk straight from the rows),
 against their plain versions, run to run, at the edges of their
 contracts (for the rings: 300 members on the global path, a stuck
@@ -45,6 +47,7 @@ from ytk_mp4j_tpu_torch.device import make_hier_mesh, make_mesh
 from ytk_mp4j_tpu_torch.exceptions import Mp4jError
 from ytk_mp4j_tpu_torch.models.binning import QuantileBinner
 from ytk_mp4j_tpu_torch.ops import hist_kernel as hk
+from ytk_mp4j_tpu_torch.ops import leaf_sums as ls
 from ytk_mp4j_tpu_torch.ops import ring_kernel as rk
 
 pytestmark = pytest.mark.gpu
@@ -265,8 +268,8 @@ def test_data_parallel_trainer_through_kernel(cuda, members):
 def test_hierarchical_mesh_equals_flat_on_the_card(cuda):
     """The trainer reads only a mesh's member count, so this is a check
     of run-to-run repeatability on the card: the same fold order, the
-    kernel's repeatable sums, the same per-member streams, and leaf sums whose
-    atomic adds land in float64, give the (2, 2) mesh's trees and margins
+    kernel's repeatable sums, the same per-member streams, and the leaf-sum
+    kernel's fixed order of adds give the (2, 2) mesh's trees and margins
     bitwise equal to the flat mesh's, with stochastic boosting on."""
     bins, y = _gbdt_data(100_000)
     cfg = GBDTConfig(n_features=28, n_bins=256, depth=6, n_trees=2,
@@ -989,3 +992,131 @@ def test_gbdt_over_a_device_list_equals_packed(cuda, sampled):
     assert torch.equal(lm, pm)
     for a, b in zip(lt, pt):
         assert all(torch.equal(a[k], b[k]) for k in range(4))
+
+
+# ---- the leaf-sum kernel (ops/csrc/leaf_sums.cu) ------------------------
+def _leaf_inputs(dev, N, n_leaves, seed=0, id_lo=0, id_hi=None):
+    rng = np.random.default_rng(seed)
+    arrays = (rng.standard_normal(N).astype(np.float32),
+              rng.random(N).astype(np.float32),
+              rng.integers(id_lo, n_leaves if id_hi is None else id_hi,
+                           N).astype(np.int32))
+    return tuple(torch.from_numpy(a).to(dev) for a in arrays)
+
+
+def _f64_leaf_sums(v, ids, n_leaves, n_members):
+    """An f64 sum of each (member, leaf)'s rows, and of their |v|."""
+    got = ls.leaf_sums_reference(v, v.abs(), ids, n_leaves, n_members)
+    return got[0].cpu(), got[1].cpu()
+
+
+# a copy a thread up to 64 leaves; a copy a warp at 256 (two a block)
+# and 4096 (one); two passes over each tile at 8192
+@pytest.mark.parametrize("n_members,n_leaves,N", [
+    (1, 64, 1_000_000), (4, 64, 2_000_000), (4, 1, 400_000),
+    (3, 256, 300_000), (2, 4096, 200_000), (1, 8192, 300_000)])
+def test_leaf_sums_kernel_matches_f64_sums_and_its_model(cuda, n_members,
+                                                         n_leaves, N):
+    """The kernel against an f64 sum of the same rows at rtol 1e-12 (of
+    each leaf's sum of |v|), and bitwise against fixed_order_sums, its
+    adds replayed in PyTorch on the CPU; ids -1 and n_leaves among the
+    rows."""
+    g, h, ids = _leaf_inputs(cuda, N, n_leaves, id_lo=-1,
+                             id_hi=n_leaves + 1)
+    before = ls.leaf_sums.launches
+    got = ls.leaf_sums(g, h, ids, n_leaves, n_members)
+    torch.cuda.synchronize()
+    assert ls.leaf_sums.launches == before + 1
+    model = ls.fixed_order_sums(g.cpu(), h.cpu(), ids.cpu(), n_leaves,
+                                n_members)
+    for k, v in enumerate((g, h)):
+        assert got[k].dtype == torch.float64
+        assert got[k].shape == (n_members * n_leaves,)
+        assert torch.equal(got[k].cpu(), model[k])
+        want, scale = _f64_leaf_sums(v, ids, n_leaves, n_members)
+        assert ((got[k].cpu() - want).abs() <= 1e-12 * scale).all()
+
+
+def test_leaf_sums_two_launches_bitwise_equal_at_full_size(cuda):
+    """11M rows over 4 members, 64 leaves: the same bits every launch."""
+    g, h, ids = _leaf_inputs(cuda, 11_000_000, 64)
+    a = ls.leaf_sums(g, h, ids, 64, 4)
+    for _ in range(3):
+        b = ls.leaf_sums(g, h, ids, 64, 4)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("n_leaves", [64, 256])
+def test_leaf_sums_packed_slices_equal_one_call_a_member(cuda, n_leaves):
+    """Each member's slice of a packed call is bitwise a call over its
+    rows alone, as the list form and a process make it."""
+    per = 1_000_003
+    g, h, ids = _leaf_inputs(cuda, 4 * per, n_leaves)
+    packed = ls.leaf_sums(g, h, ids, n_leaves, 4)
+    for m in range(4):
+        rows = slice(m * per, (m + 1) * per)
+        alone = ls.leaf_sums(g[rows], h[rows], ids[rows], n_leaves)
+        cells = slice(m * n_leaves, (m + 1) * n_leaves)
+        assert torch.equal(packed[0][cells], alone[0])
+        assert torch.equal(packed[1][cells], alone[1])
+
+
+@pytest.mark.parametrize("n_leaves", [64, 256])
+def test_leaf_sums_every_row_in_one_leaf(cuda, n_leaves):
+    """Contention's worst case for atomics, and a copy a warp's (every
+    lane of a warp in one leaf, 32 rounds): every row in leaf 5."""
+    N = 4_000_000
+    g, h, _ = _leaf_inputs(cuda, N, n_leaves)
+    ids = torch.full((N,), 5, dtype=torch.int32, device=cuda)
+    got = ls.leaf_sums(g, h, ids, n_leaves, 4)
+    model = ls.fixed_order_sums(g.cpu(), h.cpu(), ids.cpu(), n_leaves, 4)
+    for k, v in enumerate((g, h)):
+        want, scale = _f64_leaf_sums(v, ids, n_leaves, 4)
+        assert ((got[k].cpu() - want).abs() <= 1e-12 * scale).all()
+        assert torch.equal(got[k].cpu(), model[k])
+        others = torch.arange(n_leaves) != 5
+        assert not got[k].view(4, n_leaves)[:, others].any()
+
+
+@pytest.mark.parametrize("per", [1, 16_383, 16_385, 50_001])
+def test_leaf_sums_rows_not_a_multiple_of_a_tile(cuda, per):
+    g, h, ids = _leaf_inputs(cuda, 3 * per, 64, seed=per)
+    got = ls.leaf_sums(g, h, ids, 64, 3)
+    model = ls.fixed_order_sums(g.cpu(), h.cpu(), ids.cpu(), 64, 3)
+    assert torch.equal(got[0].cpu(), model[0])
+    assert torch.equal(got[1].cpu(), model[1])
+
+
+def test_leaf_sums_empty_input(cuda):
+    before = ls.leaf_sums.launches
+    e = torch.zeros(0, device=cuda)
+    sg, sh = ls.leaf_sums(e, e, torch.zeros(0, dtype=torch.int32,
+                                            device=cuda), 64, 4)
+    assert ls.leaf_sums.launches == before
+    assert sg.shape == sh.shape == (256,) and not sg.any() and not sh.any()
+
+
+def test_leaf_sums_non_finite_g_reaches_only_its_leaf(cuda):
+    g, h, ids = _leaf_inputs(cuda, 100_000, 64)
+    g[17], ids[17] = float("nan"), 9
+    g[60_000], ids[60_000] = float("-inf"), 2
+    sg, sh = ls.leaf_sums(g, h, ids, 64, 2)
+    sg = sg.cpu()
+    bad = torch.zeros(128, dtype=torch.bool)
+    bad[9] = bad[64 + 2] = True
+    assert sg[9].isnan() and sg[64 + 2] == float("-inf")
+    assert torch.isfinite(sg[~bad]).all() and torch.isfinite(sh).all()
+
+
+def test_leaf_sums_one_launch_a_tree_in_the_packed_trainer(cuda):
+    """The packed trainer makes one leaf-sum call a tree (every member in
+    it), and its leaves follow from those sums."""
+    bins, y = _gbdt_data(100_000)
+    cfg = GBDTConfig(n_features=28, n_bins=256, depth=6, n_trees=3)
+    before = ls.leaf_sums.launches
+    GBDTTrainer(cfg, mesh=make_mesh(4)).train(bins, y)
+    assert ls.leaf_sums.launches == before + 3
+    before = ls.leaf_sums.launches
+    GBDTTrainer(cfg, mesh=make_mesh(4, devices=_cards(4))).train(
+        bins, y, n_trees=2)
+    assert ls.leaf_sums.launches == before + 2 * 4

@@ -8,7 +8,9 @@ which reaches the hand-written CUDA kernel behind
 ``ops.hist_kernel.histograms``), the members' histograms are allreduced,
 the best split per node is chosen on the sums (:func:`best_splits`) and
 every row is routed to its child node (:func:`_route_samples`). After
-the last level the leaf sums are allreduced the same way.
+the last level the leaf sums (:func:`_segment_sum2`, the hand-written
+CUDA kernel behind ``ops.leaf_sums.leaf_sums``) are allreduced the same
+way.
 
 The members (``device.make_mesh`` / ``make_hier_mesh``) share one
 device: member m holds rows ``[m * per, (m + 1) * per)`` of one tensor.
@@ -90,7 +92,7 @@ from ytk_mp4j_tpu_torch.models.binning import QuantileBinner
 from ytk_mp4j_tpu_torch.obs import spans
 from ytk_mp4j_tpu_torch.operators import Operators
 from ytk_mp4j_tpu_torch.ops import collectives as coll
-from ytk_mp4j_tpu_torch.ops import hist_kernel
+from ytk_mp4j_tpu_torch.ops import hist_kernel, leaf_sums
 
 
 @dataclass(frozen=True)
@@ -311,17 +313,15 @@ def best_splits(hist_g, hist_h, reg_lambda: float, feat_mask=None,
             flat.gather(1, best[:, None])[:, 0], best_dir.to(torch.int32))
 
 
-def _segment_sum2(val_a, val_b, seg_ids, n_segments: int):
-    """Per-segment float64 sums of two f32 value vectors (the leaf G/H).
-    On the card the atomic adds land in a different order each run; in
-    float64 that order moves a sum by ~1e-16 relative, so two runs round
-    to the same f32 leaf sums unless one lies that close to an f32
-    rounding boundary."""
-    idx = seg_ids.long()
-    zeros = torch.zeros(n_segments, dtype=torch.float64,
-                        device=val_a.device)
-    return (zeros.index_add(0, idx, val_a.double()),
-            zeros.index_add(0, idx, val_b.double()))
+def _segment_sum2(val_a, val_b, node_ids, n_members: int, n_leaves: int):
+    """Per-(member, leaf) float64 sums of two f32 value vectors (the leaf
+    G/H), member m's leaf l at ``m * n_leaves + l``: ``node_ids`` are
+    member-local, member m holding the m-th of ``n_members`` equal blocks
+    of rows. ``ops.leaf_sums.leaf_sums``: the CUDA kernel on a CUDA
+    tensor, its plain version on the CPU. On the card each member's sums
+    are bitwise the same in every run and whichever call holds its rows
+    (packed, one a member, or a process's)."""
+    return leaf_sums.leaf_sums(val_a, val_b, node_ids, n_leaves, n_members)
 
 
 def _fold(x, n_members: int):
@@ -472,8 +472,7 @@ def _build_tree(bins, g, h, cfg: GBDTConfig, feat_mask=None,
 
     n_leaves = 2 ** cfg.depth
     with _phase("leaf_sums", tags):
-        leaf_g, leaf_h = fold2(*_segment_sum2(
-            g, h, member_ids(node_ids, n_leaves), n * n_leaves))
+        leaf_g, leaf_h = fold2(*_segment_sum2(g, h, node_ids, n, n_leaves))
     with _phase("margins", tags):
         leaf_val = -leaf_g.float() / (leaf_h.float() + cfg.reg_lambda)
         delta = cfg.learning_rate * leaf_val[node_ids.long()]
@@ -566,7 +565,7 @@ def _build_tree_members(bins, g, h, cfg: GBDTConfig, feat_mask=None,
 
     n_leaves = 2 ** cfg.depth
     with _phase("leaf_sums", tags):
-        sums = [_segment_sum2(g[m], h[m], node_ids[m], n_leaves)
+        sums = [_segment_sum2(g[m], h[m], node_ids[m], 1, n_leaves)
                 for m in members]
         leaf_g = coll.allreduce([s[0] for s in sums])
         leaf_h = coll.allreduce([s[1] for s in sums])
