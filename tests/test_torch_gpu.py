@@ -25,8 +25,12 @@ its launch counts, its refusals and calls made back to back with no
 synchronize between them, ``GpuCommCluster(mesh=)``
 (dense and map families) and GBDT over a list, bitwise the packed form,
 FFM on every gradient path and linear over a list against the packed
-form at rtol 1e-5, and ``entry.dryrun`` over a list. Every test skips
-where there is no CUDA device.
+form at rtol 1e-5, and ``entry.dryrun`` over a list; and wide,
+mostly-missing rows (the Bosch shape: 968 features, 81 % missing): the
+histogram kernel and its row-pass count, and a round with learned
+missing directions and the min-child mask against the plain reference
+``tests/torch_gbdt_reference.py``. Every test skips where there is no
+CUDA device.
 
 This file imports neither jax nor the JAX package and uses no fixture of
 tests/conftest.py, so it also runs where JAX is not installed:
@@ -1120,3 +1124,93 @@ def test_leaf_sums_one_launch_a_tree_in_the_packed_trainer(cuda):
     GBDTTrainer(cfg, mesh=make_mesh(4, devices=_cards(4))).train(
         bins, y, n_trees=2)
     assert ls.leaf_sums.launches == before + 2 * 4
+
+
+# ---- wide, mostly-missing rows (the Bosch production-line shape) ----------
+def _bosch_bins(dev, N, F=968, stations=52, present=0.19, seed=0):
+    """[N, F] int32 bins in station blocks of consecutive features, present
+    or missing (bin 0) together, as the Bosch data's are: ~81 % zeros."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    station = torch.arange(F, device=dev) * stations // F
+    seen = torch.rand((N, stations), generator=gen, device=dev) < present
+    vals = torch.randint(1, 256, (N, F), generator=gen, device=dev,
+                         dtype=torch.int32)
+    return vals * seen[:, station]
+
+
+@pytest.mark.parametrize("n_nodes", [1, 16, 64])
+def test_kernel_at_the_bosch_width(cuda, n_nodes):
+    """F = 968: one node's 247,808 cells in 31 groups of a block's 8,192,
+    81 % of the adds on each feature's bin 0. Against the plain version
+    (1e-5 of the plane's largest cell), bitwise run to run, and each
+    launch counts its 31 passes over the rows."""
+    N, F, B = 120_000, 968, 256
+    bins = _bosch_bins(cuda, N)
+    assert 0.8 < (bins == 0).float().mean().item() < 0.82
+    _, g, h, nid = _inputs(cuda, N, 1, B, 0, n_nodes + 1, seed=3)
+    before = (hk.histograms.launches, hk.histograms.row_passes)
+    _assert_kernel_ok(bins, g, h, nid, n_nodes, F, B)
+    assert (hk.histograms.launches, hk.histograms.row_passes) == (
+        before[0] + 2, before[1] + 2 * 31)
+
+
+def test_a_bosch_round_on_the_card_against_the_plain_reference(cuda):
+    """Two rounds at the Bosch width and reduced rows, missing_bin and
+    min_child_hessian 1 through make_mesh(4), against
+    tests/torch_gbdt_reference.py (on the CPU) as the CPU test
+    tests/test_torch_gbdt_missing_wide.py holds the plain path: round 0's
+    splits equal, round 1's first two levels equal and the rest within
+    1e-5 of the best gain; leaves within 2e-5 of the largest. Bitwise run
+    to run."""
+    import torch_gbdt_reference as R
+    from ytk_mp4j_tpu_torch.models import gbdt
+
+    N, F, B, depth = 60_001, 968, 256, 5
+    bins = _bosch_bins(cuda, N, seed=4)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.where(bins[:, :8] > 0, bins[:, :8] / 255 - 0.5, 0.0)
+    w = torch.tensor([4.0 * (-1) ** j / (j + 1) for j in range(8)],
+                     device=cuda)
+    y = (torch.rand(N, generator=gen, device=cuda)
+         < torch.sigmoid(4.0 * (x * w).sum(1) - 1.0)).float()
+    cfg = GBDTConfig(n_features=F, n_bins=B, depth=depth, loss="logistic",
+                     missing_bin=True, min_child_hessian=1.0, n_trees=2)
+    dbins, dy, zero, dw = GBDTTrainer(cfg, mesh=make_mesh(4)).shard_data(
+        bins, y)
+
+    def two_rounds():
+        preds, out = zero, []
+        for _ in range(2):
+            new, tree = gbdt.train_tree_shard(dbins, dy, preds, cfg,
+                                              weights=dw, n_members=4)
+            out.append((preds, new, tree))
+            preds = new
+        return out
+
+    first, again = two_rounds(), two_rounds()
+    for a, b in zip(first, again):
+        assert torch.equal(a[1], b[1])
+        assert all(torch.equal(a[2][k], b[2][k]) for k in range(4))
+    cb, cy, cw = dbins.cpu(), dy.cpu(), dw.cpu()
+    kw = dict(depth=depth, n_bins=B, learning_rate=cfg.learning_rate,
+              reg_lambda=cfg.reg_lambda,
+              min_child_hessian=cfg.min_child_hessian)
+    for r, (preds, new, tree) in enumerate(first):
+        preds, tree = preds.cpu(), tuple(t.cpu() for t in tree)
+        _, own, _ = R.boosting_round(cb, cy, preds, cw, **kw)
+        want, ref_tree, scores = R.boosting_round(
+            cb, cy, preds, cw, follow=tree, mask_slack=2e-5, **kw)
+        frozen = own[1] == B - 1
+        exact = len(frozen) if r == 0 else 3
+        for i in range(exact):
+            assert ((tree[0][i], tree[1][i], tree[2][i])
+                    == (own[0][i], own[1][i], own[2][i])
+                    or (frozen[i] and tree[1][i] == B - 1
+                        and tree[2][i] == 0)), i
+        assert float(R.regret(scores).max()) <= 1e-5
+        scale = ref_tree[3].abs().max().item()
+        torch.testing.assert_close(tree[3].double(), ref_tree[3], rtol=0,
+                                   atol=2e-5 * scale)
+        torch.testing.assert_close(new.cpu().double(), want, rtol=0,
+                                   atol=2e-5 * scale * cfg.learning_rate
+                                   + 1e-6 * want.abs().max().item())

@@ -72,6 +72,7 @@ from ytk_mp4j_tpu_torch.comm import progress as progress_mod
 from ytk_mp4j_tpu_torch.comm.context import CommSlave
 from ytk_mp4j_tpu_torch.device import Mesh, make_device
 from ytk_mp4j_tpu_torch.exceptions import Mp4jError
+from ytk_mp4j_tpu_torch.obs import spans
 from ytk_mp4j_tpu_torch.operands import (Operand, Operands, to_numpy,
                                          to_tensor)
 from ytk_mp4j_tpu_torch.operators import Operator, Operators
@@ -214,21 +215,26 @@ def _staged(t, backend: str):
 def all_gather_rows(t, group=None):
     """Every rank's ``t`` (the same shape and dtype on every rank) stacked
     in rank order, ``[world, *t.shape]``, on ``t``'s device. Any dtype:
-    the payload travels as bytes."""
+    the payload travels as bytes. One ``dist::all_gather_rows`` span
+    (``obs.spans.span``; args ``bytes``, this rank's, ``backend`` and
+    ``world``)."""
     world = dist.get_world_size(group)
     t = t.contiguous()
     if t.numel() == 0:
         return t.new_empty((world,) + tuple(t.shape))
     backend = dist.get_backend(group)
-    src = _staged(t, backend).reshape(-1).view(torch.uint8)
-    out = torch.empty(world * src.numel(), dtype=torch.uint8,
-                      device=src.device, pin_memory=src.is_pinned())
-    if backend == "nccl":
-        dist.all_gather_into_tensor(out, src, group=group)
-    else:
-        dist.all_gather(list(out.chunk(world)), src, group=group)
-    out = out.view(t.dtype).reshape((world,) + tuple(t.shape))
-    return out.to(t.device, non_blocking=True)
+    with spans.span("dist::all_gather_rows", "dist",
+                    bytes=t.numel() * t.element_size(), backend=backend,
+                    world=world):
+        src = _staged(t, backend).reshape(-1).view(torch.uint8)
+        out = torch.empty(world * src.numel(), dtype=torch.uint8,
+                          device=src.device, pin_memory=src.is_pinned())
+        if backend == "nccl":
+            dist.all_gather_into_tensor(out, src, group=group)
+        else:
+            dist.all_gather(list(out.chunk(world)), src, group=group)
+        out = out.view(t.dtype).reshape((world,) + tuple(t.shape))
+        return out.to(t.device, non_blocking=True)
 
 
 def exchange_counts(counts, group=None) -> list[int]:
@@ -279,14 +285,19 @@ def native_reduce(operator: Operator, dtype: torch.dtype) -> bool:
 
 def all_reduce_(t, operator: Operator = Operators.SUM, group=None):
     """In-place all-reduce of ``t`` by a builtin operator the backend
-    reduces (see :func:`native_reduce`); returns ``t``."""
+    reduces (see :func:`native_reduce`); returns ``t``. One
+    ``dist::all_reduce`` span (args as :func:`all_gather_rows`')."""
     if not native_reduce(operator, t.dtype):
         raise Mp4jError(f"no backend all-reduce for {operator.name} on "
                         f"{t.dtype}")
-    src = _staged(t, dist.get_backend(group))
-    dist.all_reduce(src, op=_reduce_op(operator), group=group)
-    if src is not t:
-        t.copy_(src)
+    backend = dist.get_backend(group)
+    with spans.span("dist::all_reduce", "dist",
+                    bytes=t.numel() * t.element_size(), backend=backend,
+                    world=dist.get_world_size(group)):
+        src = _staged(t, backend)
+        dist.all_reduce(src, op=_reduce_op(operator), group=group)
+        if src is not t:
+            t.copy_(src)
     return t
 
 

@@ -348,7 +348,9 @@ _fold_across = fold_across
 # tensors), ``gbdt::histograms`` (a level's left-child ids and histogram
 # call, and the job's scale), ``gbdt::fold`` (a level's fold),
 # ``gbdt::splits`` (sibling subtraction, best splits, freeze, the tree's
-# tables), ``gbdt::route``, ``gbdt::leaf_sums`` (the leaf sums and their
+# tables; its arg ``variants`` is the candidates scored a (feature, bin):
+# 2 under ``missing_bin``, missing left and right, else 1),
+# ``gbdt::route``, ``gbdt::leaf_sums`` (the leaf sums and their
 # fold) and ``gbdt::margins`` (leaf values and the margins' update).
 _round_ids = itertools.count(1)
 rounds_built = 0      # rounds begun in this process: the latest's id
@@ -408,6 +410,7 @@ def _build_tree(bins, g, h, cfg: GBDTConfig, feat_mask=None,
         return both[:, 0].contiguous(), both[:, 1].contiguous()
 
     cat_mask = cfg._cat_mask()
+    variants = 2 if cfg.missing_bin else 1
     absmax = None
     level_start = 0
     prev_hg = prev_hh = None
@@ -441,7 +444,7 @@ def _build_tree(bins, g, h, cfg: GBDTConfig, feat_mask=None,
                 parts = build_histograms(bins, g, h, ids, n * k, cfg, absmax)
             with _phase("fold", tags):
                 hl_g, hl_h = fold2(*parts)
-            with _phase("splits", tags):
+            with _phase("splits", tags, variants=variants):
                 if d == 0:
                     hg, hh = hl_g, hl_h
                 else:
@@ -499,6 +502,7 @@ def _build_tree_members(bins, g, h, cfg: GBDTConfig, feat_mask=None,
         tree_bin = torch.zeros(n_internal, dtype=torch.int32, device=dev0)
         tree_dir = torch.zeros(n_internal, dtype=torch.int32, device=dev0)
     cat_mask = cfg._cat_mask()
+    variants = 2 if cfg.missing_bin else 1
     fmask = feat_mask if feat_mask is not None else [None] * n
 
     absmax = [None] * n
@@ -532,7 +536,7 @@ def _build_tree_members(bins, g, h, cfg: GBDTConfig, feat_mask=None,
                 # member's copy of the sums on its own device
                 hl_g = coll.allreduce([p[0] for p in parts])
                 hl_h = coll.allreduce([p[1] for p in parts])
-            with _phase("splits", tags):
+            with _phase("splits", tags, variants=variants):
                 if d == 0:
                     hg, hh = hl_g, hl_h
                 else:

@@ -8,7 +8,9 @@ PyTorch version, with the same contract.
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
 it launches the kernel or raises. Each launch adds one to
-``histograms.launches``.
+``histograms.launches`` and its geometry's ``cell_groups`` (the passes
+its blocks make over their records) to ``histograms.row_passes``, on the
+host, with no wait for the card.
 
 What bounds the kernel on an H100: the bytes of every node id and of the
 in-range rows' bins, g and h -- at most N * (4F + 12), about 1.36 GB at
@@ -284,7 +286,9 @@ def histograms(bins, g, h, node_ids, n_nodes: int, F: int, B: int,
         raise Mp4jError(
             f"hist kernel launch failed: {lib.mp4j_error_string(rc).decode()}")
     histograms.launches += 1
+    histograms.row_passes += geo.cell_groups
     return out[0], out[1]
 
 
 histograms.launches = 0
+histograms.row_passes = 0
