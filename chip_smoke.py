@@ -115,8 +115,13 @@ Phases:
    plus uniform noise): the fit (host, 1M-row sample) and the transform
    (card) timed apart, the card's transform of the first 1M rows bitwise
    equal to the CPU's, ``predict_raw`` and ``save_model`` ->
-   ``load_model`` -> ``predict`` equal to the margins; ``entry.entry()``
-   and ``entry.dryrun(4)``;
+   ``load_model`` -> ``predict`` equal to the margins; the histogram
+   kernel at ``gbdt-bosch.dp4``'s width (one member's 295,937 rows x 968
+   features, ~81 % in bin 0: 31 cell groups a node, each loading only
+   its own features' quads of a row) at 4, 16 and 64 nodes: against its
+   plain version, two launches bitwise equal, the launch, row-pass and
+   row-quad counts set to 0 just before and read after, ms a call;
+   ``entry.entry()`` and ``entry.dryrun(4)``;
 5. both ring kernels against their plain versions, BITWISE (NaN as NaN):
    both directions x three modes x {SUM, PROD, MAX, MIN} x {f32, f64,
    i64, i32, i16, i8, bf16} x n in {1 (force_kernel), 2, 3, 5, 8} on the
@@ -369,6 +374,9 @@ ALLGATHER_POD16_LEN = 8 << 20      # f64 shards a member
 GLOBAL_PER_SM = (1, 2, 4)          # blocks an SM tried for the global plan
 HIST_PAYLOAD = 2 * 16 * F * B      # g and h planes of 16 nodes
 KERNEL_REL_TOL = 1e-5              # vs an f64 sum, relative to its max
+BOSCH_ROWS = 1_183_748 // MEMBERS  # gbdt-bosch.dp4's rows a member
+BOSCH_F = 968                      # its features: 31 cell groups a node
+BOSCH_NODES = (4, 16, 64)          # its levels' nodes a member's call sees
 HIST_KERNELS = ("absmax_kernel", "scan_kernel", "scatter_kernel",
                 "hist_kernel", "finalize_kernel")   # ops/csrc/hist_kernel.cu
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -942,6 +950,73 @@ def run_gbdt(dev, dbins, dy):
     }
     return line, dict(rec, rows=dbins.shape[0], levels=rows,
                        tree_profile=profile, one_bin_ms=one_bin_ms)
+
+
+def bosch_bins(dev, n, seed, stations=52, present=0.19):
+    """[n, BOSCH_F] int32 bins in station blocks of consecutive features,
+    present (bins 1 to B - 1) or missing (bin 0) together, as
+    ``gbdt-bosch.dp4``'s rows are: ~81 % zeros."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    station = torch.arange(BOSCH_F, device=dev) * stations // BOSCH_F
+    seen = torch.rand((n, stations), generator=gen, device=dev) < present
+    vals = torch.randint(1, B, (n, BOSCH_F), generator=gen, device=dev,
+                         dtype=torch.int32)
+    return vals * seen[:, station]
+
+
+def run_bosch_width(dev):
+    """The histogram kernel at ``gbdt-bosch.dp4``'s width, where one
+    node's 968 x 256 cells take 31 groups and each group loads only its
+    own features' quads of a row (8, the last 2: 242 a record over a
+    launch). At each of BOSCH_NODES (below the root the sentinel id on
+    about half the rows): two launches bitwise equal, against the plain
+    version at KERNEL_REL_TOL of the plane's largest cell, the counters
+    set to 0 just before them and read just after (2 launches, 62 row
+    passes, 484 row quads), and ms a call by CUDA events. Returns the
+    record the kernels line carries."""
+    n = BOSCH_ROWS
+    bins = bosch_bins(dev, n, 5)
+    zeros = (bins == 0).float().mean().item()
+    check(0.80 < zeros < 0.82, f"Bosch rows: {zeros:.4f} in bin 0")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    g = torch.randn(n, generator=gen, device=dev)
+    h = torch.rand(n, generator=gen, device=dev)
+    rec = {"rows": n, "F": BOSCH_F, "B": B, "bin0_share": zeros,
+           "levels": []}
+    for n_nodes in BOSCH_NODES:
+        ids = torch.randint(0, n_nodes, (n,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        if n_nodes > MEMBERS:
+            right = torch.rand(n, generator=gen, device=dev) < 0.5
+            ids = torch.where(right, n_nodes, ids).int()
+        hk.histograms.launches = 0
+        hk.histograms.row_passes = 0
+        hk.histograms.row_quads = 0
+        a = hk.histograms(bins, g, h, ids, n_nodes, BOSCH_F, B)
+        b = hk.histograms(bins, g, h, ids, n_nodes, BOSCH_F, B)
+        counts = {"launches": hk.histograms.launches,
+                  "row_passes": hk.histograms.row_passes,
+                  "row_quads": hk.histograms.row_quads}
+        plain = hk.histograms_reference(bins, g, h, ids, n_nodes, BOSCH_F, B)
+        bitwise = all(torch.equal(a[k], b[k]) for k in range(2))
+        rel = max(((a[k] - plain[k]).abs().max()
+                   / plain[k].abs().max()).item() for k in range(2))
+        del a, b, plain
+        ms = timed_ms(lambda: hk.histograms(bins, g, h, ids, n_nodes,
+                                            BOSCH_F, B), TIMING_REPS)
+        print(f"kernel Bosch width {n} x {BOSCH_F} ({zeros:.1%} bin 0), "
+              f"n_nodes={n_nodes}: rel err vs plain {rel:.3e}, bitwise "
+              f"repeat {bitwise}, counts {counts}, {ms:.3f} ms a call",
+              flush=True)
+        check(bitwise, f"Bosch width n_nodes={n_nodes}: two launches differ")
+        check(rel <= KERNEL_REL_TOL,
+              f"Bosch width n_nodes={n_nodes}: kernel vs plain {rel}")
+        check(counts == {"launches": 2, "row_passes": 2 * 31,
+                         "row_quads": 2 * 242},
+              f"Bosch width n_nodes={n_nodes}: counts {counts}")
+        rec["levels"].append(dict(counts, n_nodes=n_nodes, max_rel_err=rel,
+                                  bitwise_repeat=bitwise, ms=ms))
+    return rec
 
 
 # ----------------------------------------------------------------------
@@ -4310,6 +4385,8 @@ def main():
                                     dp_record["max_abs_err"])
     raw_record = run_train_raw(dev, dbins, dy)
     del dbins, dy
+    torch.cuda.empty_cache()
+    hist_entry["bosch_width"] = run_bosch_width(dev)
     torch.cuda.empty_cache()
     entry_record = run_entry()
     ring_entries, ring_record = run_ring(dev)

@@ -134,29 +134,36 @@ def test_the_mask_and_the_learned_direction_both_decide_splits():
 
 def test_the_histogram_kernel_re_reads_a_bosch_row_31_times():
     """At F = 968, B = 256 one node's 247,808 cells do not fit a block's
-    8,192: 31 groups, each a pass over the records, at every level. The
-    Higgs width (F = 28) fits one."""
+    8,192: 31 groups, each a pass over the records, at every level, and
+    each loading only its own 8 quads of the row (the last group 2): the
+    row's 242 quads once in all. The Higgs width (F = 28) fits one group,
+    which loads the row's 7 quads."""
     for n_nodes in (1, 4, 16, 64):
         geo = hk.launch_geometry(1_183_748, 968, 256, n_nodes, 227 * 1024,
                                  lambda cells: 132)
         assert (geo.nodes_per_list, geo.cells_per_block,
                 geo.cell_groups) == (1, 8192, 31)
         assert geo.lists == n_nodes
+        assert hk.group_quads(geo, 968, 256) == [
+            (8 * s, min(8 * s + 8, 242)) for s in range(31)]
         higgs = hk.launch_geometry(11_000_000, 28, 256, n_nodes, 227 * 1024,
                                    lambda cells: 132)
         assert higgs.cell_groups == 1
+        assert hk.group_quads(higgs, 28, 256) == [(0, 7)]
 
 
 def test_the_plain_version_counts_no_launch_and_no_row_pass():
-    """The counters count the kernel's launches and its passes over the
-    rows (checked on the card, tests/test_torch_gpu.py); a CPU tensor
-    takes the plain version, which launches nothing."""
+    """The counters count the kernel's launches, its passes over the rows
+    and the quads of a row they load (checked on the card,
+    tests/test_torch_gpu.py); a CPU tensor takes the plain version, which
+    launches nothing."""
     bins, y = _data(0, 256)
-    before = (hk.histograms.launches, hk.histograms.row_passes)
+    counters = ("launches", "row_passes", "row_quads")
+    before = [getattr(hk.histograms, c) for c in counters]
     g = torch.randn(N)
     hg, hh = hk.histograms(bins, g, g.abs(), torch.zeros(N, dtype=torch.int32),
                            1, bins.shape[1], 256)
-    assert (hk.histograms.launches, hk.histograms.row_passes) == before
+    assert [getattr(hk.histograms, c) for c in counters] == before
     want = R.histograms(bins, g, torch.zeros(N, dtype=torch.int64), 1, 256)
     torch.testing.assert_close(hg.double(), want, rtol=1e-6, atol=1e-6)
 

@@ -27,7 +27,9 @@ synchronize between them, ``GpuCommCluster(mesh=)``
 FFM on every gradient path and linear over a list against the packed
 form at rtol 1e-5, and ``entry.dryrun`` over a list; and wide,
 mostly-missing rows (the Bosch shape: 968 features, 81 % missing): the
-histogram kernel and its row-pass count, and a round with learned
+histogram kernel, its row-pass and row-quad counts, rows whose cell
+groups cut quads and features, the kernel's rule for the quads a group
+loads against the model the CPU tests walk, and a round with learned
 missing directions and the min-child mask against the plain reference
 ``tests/torch_gbdt_reference.py``. Every test skips where there is no
 CUDA device.
@@ -80,12 +82,14 @@ def test_kernel_matches_plain_and_is_deterministic(cuda, n_nodes):
     two differ only in the last f32 rounding of near-exact sums)."""
     N, F, B = 200_000, 28, 256
     bins, g, h, nid = _inputs(cuda, N, F, B, -1, n_nodes + 1)
-    before = hk.histograms.launches
+    before = (hk.histograms.launches, hk.histograms.row_quads)
     a = hk.histograms(bins, g, h, nid, n_nodes, F, B)
     b = hk.histograms(bins, g, h, nid, n_nodes, F, B)
     ref = hk.histograms_reference(bins, g, h, nid, n_nodes, F, B)
     torch.cuda.synchronize()
-    assert hk.histograms.launches == before + 2
+    # one group: each launch loads the row's 7 quads once
+    assert (hk.histograms.launches, hk.histograms.row_quads) == (
+        before[0] + 2, before[1] + 2 * 7)
     for k in range(2):
         assert torch.equal(a[k], b[k])
         torch.testing.assert_close(a[k], ref[k], rtol=1e-5, atol=1e-5)
@@ -1143,15 +1147,59 @@ def test_kernel_at_the_bosch_width(cuda, n_nodes):
     """F = 968: one node's 247,808 cells in 31 groups of a block's 8,192,
     81 % of the adds on each feature's bin 0. Against the plain version
     (1e-5 of the plane's largest cell), bitwise run to run, and each
-    launch counts its 31 passes over the rows."""
+    launch counts its 31 passes over the rows and, each pass loading
+    only its group's 8 quads (the last 2), the row's 242 quads."""
     N, F, B = 120_000, 968, 256
     bins = _bosch_bins(cuda, N)
     assert 0.8 < (bins == 0).float().mean().item() < 0.82
     _, g, h, nid = _inputs(cuda, N, 1, B, 0, n_nodes + 1, seed=3)
-    before = (hk.histograms.launches, hk.histograms.row_passes)
+    before = (hk.histograms.launches, hk.histograms.row_passes,
+              hk.histograms.row_quads)
     _assert_kernel_ok(bins, g, h, nid, n_nodes, F, B)
-    assert (hk.histograms.launches, hk.histograms.row_passes) == (
-        before[0] + 2, before[1] + 2 * 31)
+    assert (hk.histograms.launches, hk.histograms.row_passes,
+            hk.histograms.row_quads) == (
+        before[0] + 2, before[1] + 2 * 31, before[2] + 2 * 242)
+
+
+@pytest.mark.parametrize("n_nodes", [1, 16])
+@pytest.mark.parametrize("F,B,quads", [
+    (967, 256, 242),     # F * 4 not a multiple of 16: element loads
+    (1001, 255, 282),    # groups of 8,192 cells end inside a feature
+])
+def test_kernel_on_wide_rows_cut_inside_quads(cuda, F, B, quads, n_nodes):
+    """Wide rows whose groups do not fall on quad boundaries: the quads a
+    group shares with its neighbour are loaded by both, and the elements
+    outside each group dropped. Against the plain version (1e-5 of the
+    plane's largest cell) and bitwise run to run; each launch counts the
+    quads its groups load. At B = 255 the bins of 255 lie outside the
+    range and add nothing."""
+    N = 120_000
+    bins = _bosch_bins(cuda, N, F=F, seed=6)
+    _, g, h, nid = _inputs(cuda, N, 1, B, 0, n_nodes + 1, seed=7)
+    before = hk.histograms.row_quads
+    _assert_kernel_ok(bins, g, h, nid, n_nodes, F, B)
+    assert hk.histograms.row_quads == before + 2 * quads
+
+
+@pytest.mark.parametrize("N,F,B,n_nodes,smem", [
+    (11_000_000, 28, 256, 1, 227 * 1024),
+    (11_000_000, 28, 256, 16, 227 * 1024),     # lists of one node
+    (1_183_748, 968, 256, 4, 227 * 1024),      # the Bosch width
+    (100_000, 967, 256, 4, 227 * 1024),        # F * 4 not a multiple of 16
+    (100_000, 1001, 255, 2, 227 * 1024),       # groups end inside features
+    (400, 4, 40, 3, 16 * 60),                  # a node over three groups
+    (300, 13, 8, 2, 16 * 20),                  # groups cut features, quads
+    (700, 5, 7, 3, 16 * 36),
+    (500, 1, 4, 2, 16 * 3),                    # groups inside a feature
+    (300, 4, 8, 4, 16 * 64),                   # lists of two nodes
+])
+def test_kernel_quad_rule_is_the_model(cuda, N, F, B, n_nodes, smem):
+    """The quads the kernel loads in each group, by its own rule compiled
+    for the host (what ``histograms.row_quads`` counts), are those of
+    ``group_quads``, the model the CPU tests check and walk."""
+    geo = hk.launch_geometry(N, F, B, n_nodes, smem, lambda cells: 132)
+    assert list(hk.kernel_group_quads(geo, F, B)) == hk.group_quads(
+        geo, F, B)
 
 
 def test_a_bosch_round_on_the_card_against_the_plain_reference(cuda):

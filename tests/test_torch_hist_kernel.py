@@ -206,7 +206,7 @@ def _h100_resident(cells_per_block):
     return 132 * max(1, min(2, 233_472 // (smem + 1024)))
 
 
-@pytest.mark.parametrize("N,F,B,n_nodes", [
+GEOMETRY_SHAPES = [
     (11_000_000, 28, 256, 1), (11_000_000, 28, 256, 16),
     (5, 28, 256, 64), (300, 3, 16, 4), (1, 1, 1, 1),
     (2048, 8, 65536, 2), (10_000, 4, 256, 2 ** 12),
@@ -215,7 +215,10 @@ def _h100_resident(cells_per_block):
     (1000, 28, 256, 2),                   # N smaller than a chunk
     (1023, 28, 256, 1), (1025, 28, 256, 4),  # N = chunk -+ 1
     (50_000, 3, 4096, 8),                 # 4096 bins x 8 nodes
-])
+]
+
+
+@pytest.mark.parametrize("N,F,B,n_nodes", GEOMETRY_SHAPES)
 def test_launch_geometry_covers_every_shape(N, F, B, n_nodes):
     """The work split fits Hopper's limits and owns every (row, cell)
     exactly once: the lists partition the nodes, each list's cell groups
@@ -243,6 +246,31 @@ def test_launch_geometry_covers_every_shape(N, F, B, n_nodes):
     assert groups[0][0] == 0 and groups[-1][1] == npl * F * B
     assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(groups,
                                                             groups[1:]))
+
+
+@pytest.mark.parametrize("N,F,B,n_nodes", GEOMETRY_SHAPES + [
+    (1_183_748, 968, 256, 1), (1_183_748, 968, 256, 16),  # the Bosch width
+    (100_000, 967, 256, 4),      # F * 4 not a multiple of 16
+    (100_000, 1001, 255, 2),     # group boundaries inside a feature
+])
+def test_group_quads_cover_each_group(N, F, B, n_nodes):
+    """Each cell group loads exactly the quads (16-byte row pieces) that
+    hold its cells' features, no more; together the groups load every
+    quad of the row; and where the groups are whole quads (a multiple of
+    4 * B cells each) no quad is loaded twice, so a record's quads over
+    all passes are the row's."""
+    geo = hk.launch_geometry(N, F, B, n_nodes, SMEM_LIMIT, _h100_resident)
+    quads = -(-F // 4)
+    ranges = hk.group_quads(geo, F, B)
+    _, groups = hk.block_work(geo, 0, N)
+    assert len(ranges) == len(groups) == geo.cell_groups
+    for (q_lo, q_hi), (c_lo, c_hi) in zip(ranges, groups):
+        feats = np.arange(c_lo, c_hi) % (F * B) // B
+        assert (q_lo, q_hi) == (feats.min() // 4, feats.max() // 4 + 1)
+    assert set().union(*(range(*r) for r in ranges)) == set(range(quads))
+    if geo.cells_per_block % (4 * B) == 0:
+        assert all(a[1] <= b[0] for a, b in zip(ranges, ranges[1:]))
+        assert sum(hi - lo for lo, hi in ranges) == quads
 
 
 def test_launch_geometry_follows_what_the_card_holds():
@@ -340,7 +368,8 @@ def _model_kernel(bins, g, h, ids, n_nodes, F, B, smem_limit, resident,
     max|h|; records sorted into one run per list (each run shuffled: the
     scatter's order is free), or rows in place where one list holds every
     row; each block's share of the records, once per group of cells,
-    through the carry rule, its sums added at each list's end; the f32
+    through the carry rule, loading only the group's quads of each row
+    (:func:`hk.group_quads`), its sums added at each list's end; the f32
     scaling. Returns ([2, n_nodes, F, B] f32, geometry)."""
     N = bins.shape[0]
     geo = hk.launch_geometry(N, F, B, n_nodes, smem_limit, resident)
@@ -371,9 +400,11 @@ def _model_kernel(bins, g, h, ids, n_nodes, F, B, smem_limit, resident,
             np.array(r, dtype=np.int64).reshape(-1, 4)).tolist()]
     acc = np.zeros((2, total), np.int64)
     R = len(recs)
+    quads = hk.group_quads(geo, F, B)
     for b in range(geo.blocks):
         (share, groups) = hk.block_work(geo, b, R)
         for s, (c_lo, c_hi) in enumerate(groups):
+            loaded = range(4 * quads[s][0], min(F, 4 * quads[s][1]))
             for l in range(geo.lists):
                 lo_r = max(share.start, offsets[l])
                 hi_r = min(share.stop, offsets[l + 1])
@@ -384,7 +415,7 @@ def _model_kernel(bins, g, h, ids, n_nodes, F, B, smem_limit, resident,
                 words[:, 0] = BIAS
                 for row, node, *qs in recs[lo_r:hi_r]:
                     fc = (node - l * npl) * fb - c_lo
-                    for f in range(F):
+                    for f in loaded:
                         cell = fc + f * B + int(bins[row, f])
                         if not (0 <= bins[row, f] < B and 0 <= cell < ncell):
                             continue
@@ -409,6 +440,8 @@ def _model_kernel(bins, g, h, ids, n_nodes, F, B, smem_limit, resident,
     (700, 5, 7, 3, 0, 4, 16 * 36, 5),       # F * 4 not a multiple of 16
     (500, 1, 4, 2, 0, 3, 16 * 3, 2),        # F = 1, groups inside a node
     (400, 4, 40, 3, -1, 4, 16 * 60, 3),     # a node over three groups
+    (300, 13, 8, 2, 0, 3, 16 * 20, 3),      # groups cut features and quads
+    (300, 16, 8, 2, -1, 3, 16 * 64, 3),     # groups of two whole quads
 ])
 def test_kernel_model_equals_plain_version(rng, N, F, B, n_nodes, id_lo,
                                            id_hi, smem, blocks):

@@ -15,7 +15,10 @@
 // N * (4F + 12) bytes, about 1.36 GB at N = 11M, F = 28, or ~0.41 ms at
 // 3.35 TB/s; half that at the levels where the sibling subtraction gives
 // half the rows a sentinel id. The adds (two a row and feature) are
-// shared-memory atomics, whose rate is the second limit.
+// shared-memory atomics, whose rate is the second limit, and the first
+// where most values share a bin: at F = 968 with 81 % of values in bin 0
+// (1,183,748 rows, 4 nodes) a root level takes 8.47 ms, 2.98 ms when the
+// bin-0 values add nothing and 3.20 ms with bins spread evenly.
 //
 // Design, and the measurement behind each choice (H100 80GB HBM3 at
 // 700 W, N = 11M, F = 28, B = 256; PERF.md, section 6):
@@ -54,6 +57,15 @@
 //     ms). Where a block's share crosses from one list to the next, it adds
 //     its sums into the global accumulator and starts the next list's
 //     afresh.
+//   * Wide rows, whose node's F * B cells take several groups and so
+//     several passes over the records: a pass loads only the 16-byte
+//     pieces of a row that hold its group's features, so a record's bins
+//     are loaded about once over all the passes. At F = 968, B = 256 (31
+//     groups of 32 features; 1,183,748 rows, 4 to 64 nodes) a level took
+//     8.36 ms at the root and 4.65-4.96 ms below it, against 67.8 and
+//     35.7-37.2 ms when each pass loaded the whole 3,872-byte row; the
+//     sums are the same bits. With one group (F = 28) a pass loads the
+//     whole row, as before.
 //
 // Passes: absmax + rows per list, scan of the lists' counts, scatter of
 // the records (it returns at once where one list holds every row: the
@@ -283,6 +295,22 @@ __device__ __forceinline__ void add_cell(unsigned int* lo, unsigned int* hi,
   }
 }
 
+// The 16-byte pieces [.x, .y) of a row that group s of a list loads: those
+// that hold its cells' features. With one node a list, group s is the
+// node's cells [s * cpb, s * cpb + cpb), i.e. features [s * cpb / B,
+// ceil((s * cpb + cpb) / B)); a list of several nodes is one group of
+// whole rows. The kernel's rule, which mp4j_hist_group_quads hands the
+// wrapper for its counter.
+__host__ __device__ __forceinline__ int2 group_quad_range(int s, int F, int B,
+                                                          int nodes_per_list,
+                                                          int cpb) {
+  if (nodes_per_list > 1) return make_int2(0, (F + 3) >> 2);
+  const long long g0 = (long long)s * cpb, w = 4LL * B;
+  const long long fb = (long long)F * B;
+  const long long g1 = g0 + cpb < fb ? g0 + cpb : fb;
+  return make_int2((int)(g0 / w), (int)((g1 + w - 1) / w));
+}
+
 // Elements 4q .. 4q+3 of a row (past F: bin -1, dropped).
 __device__ __forceinline__ int4 load_quad(const int* __restrict__ row, int q,
                                           int F) {
@@ -330,10 +358,12 @@ __device__ __forceinline__ int4 fetch_record(
 // offsets[lists], or R = N and record i = row i where one list holds every
 // row (the scatter pass then wrote none) -- once for each of the list's
 // cell_groups groups of cells_per_block cells, and adds them into acc
-// [2, n_nodes * F * B]. A thread takes one record at a time, the next
-// one's already in flight, and loads up to kQuads 16-byte pieces of its
-// row before it adds any; no barrier stands between records, only
-// between lists.
+// [2, n_nodes * F * B]. In group s a record loads only the 16-byte pieces
+// of its row that group_quad_range gives, those that hold the group's
+// features; elements of a boundary piece that lie outside the group fail
+// the cell < ncell check. A thread takes one record at a time, the next
+// one's already in flight, and loads up to kQuads pieces of its row before
+// it adds any; no barrier stands between records, only between lists.
 __global__ void __launch_bounds__(kThreads, 1)
     hist_kernel(const int* __restrict__ bins, const float* __restrict__ g,
                 const float* __restrict__ h, const int* __restrict__ node_ids,
@@ -359,7 +389,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   const long long R = recs ? offsets[lists] : n;
   const long long begin = R * blockIdx.x / gridDim.x;
   const long long end = R * (blockIdx.x + 1) / gridDim.x;
-  const int quads = (F + 3) >> 2;
 
   for (int c = tid; c < 2 * cpb; c += kThreads) {
     smem[c] = kBias;
@@ -378,6 +407,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     first = lo;
   }
   for (int s = 0; s < cell_groups; ++s) {
+    const int2 qr = group_quad_range(s, F, B, nodes_per_list, cpb);
+    const int q_lo = qr.x, q_hi = qr.y;
     long long pos = begin;
     int l = first;
     while (pos < end) {
@@ -406,15 +437,15 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         const int fc = (int)fc64;  // > -F * B: every cell below fits an int
         const int* row = bins + (long long)r.x * F;
-        for (int q0 = 0; q0 < quads; q0 += kQuads) {
+        for (int q0 = q_lo; q0 < q_hi; q0 += kQuads) {
           int4 v[kQuads];
 #pragma unroll
           for (int j = 0; j < kQuads; ++j) {
-            if (q0 + j < quads) v[j] = load_quad(row, q0 + j, F);
+            if (q0 + j < q_hi) v[j] = load_quad(row, q0 + j, F);
           }
 #pragma unroll
           for (int j = 0; j < kQuads; ++j) {
-            if (q0 + j >= quads) break;
+            if (q0 + j >= q_hi) break;
             const int vals[4] = {v[j].x, v[j].y, v[j].z, v[j].w};
 #pragma unroll
             for (int k = 0; k < 4; ++k) {
@@ -539,6 +570,19 @@ int mp4j_hist_launch(const void* bins, const void* g, const void* h,
   finalize_kernel<<<grid_for(2 * total, 4096), kPassThreads, 0, s>>>(
       (const unsigned long long*)acc, total, fl, (float*)out);
   return (int)cudaGetLastError();
+}
+
+// Into out[2 s], out[2 s + 1], for each of the cell_groups groups: the
+// pieces of a row the kernel loads in group s (group_quad_range).
+int mp4j_hist_group_quads(int F, int B, int nodes_per_list,
+                          int cells_per_block, int cell_groups, int* out) {
+  for (int s = 0; s < cell_groups; ++s) {
+    const int2 r = group_quad_range(s, F, B, nodes_per_list,
+                                    cells_per_block);
+    out[2 * s] = r.x;
+    out[2 * s + 1] = r.y;
+  }
+  return 0;
 }
 
 const char* mp4j_error_string(int code) {

@@ -8,9 +8,17 @@ PyTorch version, with the same contract.
 
 On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
 it launches the kernel or raises. Each launch adds one to
-``histograms.launches`` and its geometry's ``cell_groups`` (the passes
-its blocks make over their records) to ``histograms.row_passes``, on the
+``histograms.launches``, its geometry's ``cell_groups`` (the passes its
+blocks make over their records) to ``histograms.row_passes``, and the
+16-byte pieces of a row (quads) that one record loads over all those
+passes (:func:`kernel_group_quads`) to ``histograms.row_quads``, on the
 host, with no wait for the card.
+
+Where one node's F * B cells take several groups (wide rows), each pass
+loads only the quads that hold its group's features, so a record's bins
+are read about once in all: at F = 968, B = 256, 31 groups of 32
+features load the row's 242 quads once. With one group, as at F = 28, a
+pass loads the whole row.
 
 What bounds the kernel on an H100: the bytes of every node id and of the
 in-range rows' bins, g and h -- at most N * (4F + 12), about 1.36 GB at
@@ -121,6 +129,22 @@ def launch_geometry(N: int, F: int, B: int, n_nodes: int, smem_limit: int,
                     n_nodes * fb, _CELL_BYTES * cpb)
 
 
+def group_quads(geo: Geometry, F: int, B: int):
+    """[(q_lo, q_hi)], one a cell group: the 16-byte pieces (quads, four
+    features each) of a row that the kernel loads in that group, those
+    holding the features its cells belong to. With one node a list, group
+    ``s`` is the node's cells ``[s * cpb, (s + 1) * cpb)``, features
+    ``[s * cpb // B, ceil((s + 1) * cpb / B))``; a list of several nodes
+    is one group of whole rows. A model of the kernel's rule
+    (:func:`kernel_group_quads`) for the tests, which hold the two
+    equal on the card."""
+    if geo.nodes_per_list > 1:
+        return [(0, -(-F // 4))]
+    cpb, w = geo.cells_per_block, 4 * B
+    return [(s * cpb // w, -(-min(F * B, (s + 1) * cpb) // w))
+            for s in range(geo.cell_groups)]
+
+
 def block_work(geo: Geometry, block: int, records: int):
     """(records, cell ranges) that block ``block`` owns when there are
     ``records`` records: the kernel's own rule, for the tests. The cell
@@ -142,9 +166,10 @@ def _library() -> ctypes.CDLL:
     pi = ctypes.POINTER(ctypes.c_int)
     lib.mp4j_hist_smem_limit.argtypes = [pi]
     lib.mp4j_hist_blocks_per_sm.argtypes = [i, pi]
+    lib.mp4j_hist_group_quads.argtypes = [i, i, i, i, i, pi]
     for fn in (lib.mp4j_hist_launch, lib.mp4j_hist_smem_limit,
                lib.mp4j_hist_blocks_per_sm, lib.mp4j_hist_threads,
-               lib.mp4j_hist_quant_bits):
+               lib.mp4j_hist_quant_bits, lib.mp4j_hist_group_quads):
         fn.restype = ctypes.c_int
     lib.mp4j_error_string.argtypes = [ctypes.c_int]
     lib.mp4j_error_string.restype = ctypes.c_char_p
@@ -182,6 +207,18 @@ def _resident(index: int, cells_per_block: int) -> int:
             f"no block of {cells_per_block} histogram cells fits an SM")
     return per_sm * torch.cuda.get_device_properties(
         index).multi_processor_count
+
+
+@functools.cache
+def kernel_group_quads(geo: Geometry, F: int, B: int) -> tuple:
+    """((q_lo, q_hi), ...), one a cell group: the quads of a row the kernel
+    loads in that group, by its own rule (``group_quad_range`` in the
+    source, compiled for the host). Needs the built library."""
+    out = (ctypes.c_int * (2 * geo.cell_groups))()
+    _library().mp4j_hist_group_quads(F, B, geo.nodes_per_list,
+                                     geo.cells_per_block, geo.cell_groups,
+                                     out)
+    return tuple(zip(out[0::2], out[1::2]))
 
 
 def _check_inputs(bins, g, h, node_ids, n_nodes: int, F: int, B: int):
@@ -287,8 +324,11 @@ def histograms(bins, g, h, node_ids, n_nodes: int, F: int, B: int,
             f"hist kernel launch failed: {lib.mp4j_error_string(rc).decode()}")
     histograms.launches += 1
     histograms.row_passes += geo.cell_groups
+    histograms.row_quads += sum(
+        hi - lo for lo, hi in kernel_group_quads(geo, F, B))
     return out[0], out[1]
 
 
 histograms.launches = 0
 histograms.row_passes = 0
+histograms.row_quads = 0
