@@ -463,6 +463,45 @@ def test_gbdt_list_equals_packed_and_the_reference(mesh, loss):
                                atol=ATOL)
 
 
+OPTIONS = {
+    "missing": dict(missing_bin=True, min_child_hessian=1.0),
+    "categorical": dict(categorical_features=(0, 1)),
+    "freeze": dict(min_split_gain=5.0),
+}
+
+
+@pytest.mark.parametrize("option", sorted(OPTIONS))
+@pytest.mark.parametrize("mesh", ["flat4", "hier2x2"])
+def test_gbdt_list_equals_packed_under_the_split_options(mesh, option):
+    """The list mesh runs the packed mesh's round: its trees and margins
+    are bitwise the packed mesh's under learned missing directions with a
+    minimum child hessian, equality splits, and a gain threshold that
+    freezes nodes -- each of which the data makes the trees use. The
+    squared loss: its gradients are exact in either form (on the CPU a
+    vectorised sigmoid or exp may round a row differently by its place in
+    the tensor, which the list form changes)."""
+    bins, y = _data("squared", seed=SEED, N=N)
+    kw = _cfg_kwargs("squared", **OPTIONS[option])
+    lead = bins[:, :2]                   # the features the labels follow
+    if option == "categorical":
+        lead[:] = np.minimum(lead, kw["n_bins"] - 2)
+    if option == "missing":              # their high values go missing
+        lead[lead >= 12] = 0
+    lst, packed = {
+        "flat4": (make_mesh(4, devices=cpus(4)), make_mesh(4, "cpu")),
+        "hier2x2": (make_hier_mesh(2, 2, devices=cpus(4)),
+                    make_hier_mesh(2, 2, "cpu"))}[mesh]
+    lt, lm = GBDTTrainer(GBDTConfig(**kw), mesh=lst).train(bins, y)
+    pt, pm = GBDTTrainer(GBDTConfig(**kw), mesh=packed).train(bins, y)
+    assert torch.equal(lm, pm)
+    _trees_equal(lt, pt, "squared")
+    feat, bin_, dir_ = (torch.cat([t[k] for t in pt]) for k in range(3))
+    split = bin_ != kw["n_bins"] - 1
+    used = {"missing": (dir_ == 1) & split, "categorical": (feat < 2) & split,
+            "freeze": ~split}[option]
+    assert used.any() and split.any()
+
+
 def test_gbdt_list_subsampled_draws_the_packed_masks():
     bins, y = _data("squared", seed=SEED, N=N)
     kw = _cfg_kwargs("squared", n_trees=4, subsample=0.7, colsample=0.6)

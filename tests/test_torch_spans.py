@@ -55,7 +55,8 @@ def _prepared(mesh, loss, subsample=1.0):
     per = N // 4
     b, y, p, w = ([t[m * per:(m + 1) * per] for m in range(4)]
                   for t in (bins, y, preds, w))
-    return lambda: gbdt.train_tree_members(b, y, p, cfg, w, generators=gens)
+    return lambda: gbdt.train_tree_shard(b, y, p, cfg, weights=w,
+                                         generators=gens, n_members=4)
 
 
 def _round(mesh, loss, subsample=1.0):
@@ -105,10 +106,13 @@ def test_every_op_of_a_round_lies_in_exactly_one_phase(mesh, loss,
         assert sum(_inside(s, o) for o in phases) == 1, s.name
 
 
+@pytest.mark.parametrize("mesh,hists", [("packed", "h"), ("list", "hhhh")])
 def test_the_histogram_and_fold_calls_are_the_ones_a_round_makes(
-        monkeypatch):
-    """Per round, depth histogram calls and 2 * depth + 2 folds, in that
-    order per level (a level's two folds after its histogram call)."""
+        monkeypatch, mesh, hists):
+    """Per round, one histogram call a level a block (the packed mesh's
+    one block, or each of the list mesh's 4 members) and 2 * depth + 2
+    folds, in that order per level (a level's two folds after its
+    histogram calls)."""
     calls = []
     real_hist, real_fold = gbdt.build_histograms, gbdt._fold
 
@@ -122,8 +126,8 @@ def test_the_histogram_and_fold_calls_are_the_ones_a_round_makes(
 
     monkeypatch.setattr(gbdt, "build_histograms", hist)
     monkeypatch.setattr(gbdt, "_fold", fold)
-    _round("packed", "logistic")
-    assert "".join(calls) == "hff" * DEPTH + "ff"
+    _round(mesh, "logistic")
+    assert "".join(calls) == (hists + "ff") * DEPTH + "ff"
 
 
 def test_rounds_built_counts_rounds_and_their_spans_carry_it():

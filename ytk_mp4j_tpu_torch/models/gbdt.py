@@ -36,17 +36,22 @@ first would group the sums differently).
 
 Over a list mesh (``device.make_mesh(n, devices=...)``, the reference's
 one member a device) member m's rows are a tensor of their own on
-``devices[m]`` (:func:`train_tree_members`, :func:`_build_tree_members`).
-Each level makes one histogram call a member, on its device, with the
-mesh's fixed-point scale (a MAX of the members' :func:`hist_kernel.
+``devices[m]``, and the same round (:func:`train_tree_shard`,
+:func:`_build_tree`) runs over them: it works over blocks, a block being
+one device's rows of consecutive members -- the packed mesh one block of
+every member, the list mesh one block a member. Each level makes one
+histogram call a block, with the job's fixed-point scale where several
+calls make the partials (a MAX of the blocks' :func:`hist_kernel.
 absmax_bits`, so each partial is bitwise the packed call's slice of
 it); the members' histograms and leaf sums are folded in rank order by
 the list form of ``ops.collectives`` (on member 0's device, the result
-copied back to every member); every member chooses the splits on the
-folded sums and routes its own rows, as after the reference's ``psum``.
-Trees and margins are bitwise the packed ``make_mesh(n)``'s. Nothing in
-the level loop waits on the host: each member's work is queued on its
-device's stream, and only the folds' copies join them.
+copied back to every member); every block chooses the splits on its copy
+of the folded sums and routes its own rows, as after the reference's
+``psum``. Trees and margins are bitwise the packed ``make_mesh(n)``'s
+(on the CPU only where the gradients are exact, as the squared loss's:
+ATen's vectorised sigmoid and exp round a row by its place in the
+tensor). Nothing in the level loop waits on the host: each member's work
+is queued on its device's stream, and only the folds' copies join them.
 
 Functions take tensors on an explicit device; :class:`GBDTTrainer` runs
 on ``cuda:0`` unless given a mesh or ``device="cpu"``. Trees are tuples
@@ -328,7 +333,12 @@ def _fold(x, n_members: int):
     """The members' partial sums ``[n_members * k, ...]`` (member m's at
     rows ``[m * k, (m + 1) * k)``) -> their ``[k, ...]`` sum, folded in
     rank order: the histogram and leaf-sum allreduce, the reference's
-    ``lax.psum``. Every member holds the result."""
+    ``lax.psum``. Every member holds the result. ``x`` may instead be a
+    member list, member m's ``[k, ...]`` partials on its own device: the
+    same adds on member 0's device, and a list of every member's copy of
+    the sum on its device."""
+    if coll.is_list(x):
+        return coll.allreduce(x)
     return coll.reduce_all(x.reshape((n_members, -1) + tuple(x.shape[1:])))
 
 
@@ -368,50 +378,62 @@ def _phase(name: str, tags: dict, **args):
     return spans.span("gbdt::" + name, "gbdt", **tags, **args)
 
 
-def _build_tree(bins, g, h, cfg: GBDTConfig, feat_mask=None,
-                n_members: int = 1, group=None, tags=None):
-    """Grow one tree from per-sample gradients/hessians over ``n_members``
-    members, member m holding rows ``[m * per, (m + 1) * per)`` (N =
-    n_members * per). Each level makes one histogram call for every
-    member, member m's node k as id ``m * n_nodes + k``, and folds the
-    members in rank order (:func:`_fold`); the leaf sums likewise. With a
-    process ``group`` these are this rank's members, and the folds cross
-    the ranks. ``tags``: args of the tree's spans. Returns (delta [N] --
-    the learning-rate-scaled leaf value each sample receives -- and the
-    tree)."""
-    N = bins.shape[0]
-    dev = bins.device
+def _build_tree(bins, g, h, cfg: GBDTConfig, feat_mask, n_members: int = 1,
+                group=None, tags=None):
+    """Grow one tree from per-sample gradients/hessians over blocks of
+    members. ``bins``, ``g``, ``h`` and ``feat_mask`` ([F] bool or None)
+    are lists, one entry a block: a block is one device's rows of
+    ``n_members`` consecutive members, member m holding its rows ``[m *
+    per, (m + 1) * per)``. The packed mesh is one block of every member
+    (with a process ``group``, this rank's members, and the folds cross
+    the ranks); the list mesh is one block a member. Each level makes one
+    histogram call a block, member m's node k as id ``m * n_nodes + k``,
+    and folds the members in rank order (:func:`_fold`); the leaf sums
+    likewise. Every block chooses the splits on its own copy of the
+    folded sums and routes its own rows; the tree's tables are block 0's.
+    ``tags``: args of the tree's spans. Returns (delta, one [rows] tensor
+    a block -- the learning-rate-scaled leaf value each sample receives
+    -- and the tree)."""
     F, B = cfg.n_features, cfg.n_bins
     n = n_members
     tags = tags or {}
-    if N % n:
-        raise Mp4jError(f"{N} rows do not split into {n} equal shards")
+    for x in bins:
+        if x.shape[0] % n:
+            raise Mp4jError(f"{x.shape[0]} rows do not split into {n} "
+                            "equal shards")
+    blocks = range(len(bins))
+    dev0 = bins[0].device
     n_internal = 2 ** cfg.depth - 1
     with _phase("gradients", tags):
-        # member of every row; None for one member, whose ids need no
-        # offset
-        member = (torch.arange(N, dtype=torch.int32, device=dev) // (N // n)
-                  if n > 1 else None)
-        node_ids = torch.zeros(N, dtype=torch.int32, device=dev)
-        tree_feat = torch.zeros(n_internal, dtype=torch.int32, device=dev)
-        tree_bin = torch.zeros(n_internal, dtype=torch.int32, device=dev)
-        tree_dir = torch.zeros(n_internal, dtype=torch.int32, device=dev)
+        # member of every row; None for one member a block, whose ids need
+        # no offset
+        member = [torch.arange(x.shape[0], dtype=torch.int32,
+                               device=x.device) // (x.shape[0] // n)
+                  if n > 1 else None for x in bins]
+        node_ids = [torch.zeros(x.shape[0], dtype=torch.int32,
+                                device=x.device) for x in bins]
+        tree_feat, tree_bin, tree_dir = (
+            torch.zeros(n_internal, dtype=torch.int32, device=dev0)
+            for _ in range(3))
 
-    def member_ids(local, k):
-        """Member-local node ids in [0, k) -> ids in [0, n * k)."""
-        return local if member is None else local + member * k
+    def member_ids(b, local, k):
+        """Block b's member-local node ids in [0, k) -> ids in [0, n * k)."""
+        return local if member[b] is None else local + member[b] * k
 
     def fold2(a, b):
-        """Fold the g and h planes of partials; across processes both ride
-        one gather (the same element-wise adds, one host round trip)."""
-        if group is None:
+        """Fold the blocks' g and h partials: each block's copy of the
+        sums. Across processes both planes ride one gather (the same
+        element-wise adds, one host round trip)."""
+        if group is not None:
+            both = _fold_across(torch.stack([a[0], b[0]], dim=1), n, group)
+            return [both[:, 0].contiguous()], [both[:, 1].contiguous()]
+        if len(a) > 1:
             return _fold(a, n), _fold(b, n)
-        both = _fold_across(torch.stack([a, b], dim=1), n, group)
-        return both[:, 0].contiguous(), both[:, 1].contiguous()
+        return [_fold(a[0], n)], [_fold(b[0], n)]
 
     cat_mask = cfg._cat_mask()
     variants = 2 if cfg.missing_bin else 1
-    absmax = None
+    absmax = [None] * len(bins)
     level_start = 0
     prev_hg = prev_hh = None
     for d in range(cfg.depth):
@@ -419,15 +441,23 @@ def _build_tree(bins, g, h, cfg: GBDTConfig, feat_mask=None,
         with _phase("level", tags, level=d, nodes=n_nodes):
             with _phase("histograms", tags):
                 if d == 0:
-                    # over processes the kernel's fixed-point scale is the
+                    # where several calls make the job's partials (blocks
+                    # or processes) the kernel's fixed-point scale is the
                     # job's, so that each member's partial is the one a
                     # single call over every row gives (the plain version
-                    # on the CPU has no scale)
-                    if (group is not None and cfg.hist_mode == "pallas"
-                            and dev.type == "cuda"):
-                        absmax = all_reduce_(hist_kernel.absmax_bits(g, h),
-                                             Operators.MAX, group)
-                    k, ids = 1, member_ids(node_ids, 1)
+                    # on the CPU has no scale); a list of one block is
+                    # folded without a launch
+                    if ((len(bins) > 1 or group is not None)
+                            and cfg.hist_mode == "pallas"
+                            and dev0.type == "cuda"):
+                        absmax = coll.allreduce(
+                            [hist_kernel.absmax_bits(g[b], h[b])
+                             for b in blocks], Operators.MAX)
+                        if group is not None:
+                            absmax = [all_reduce_(a, Operators.MAX, group)
+                                      for a in absmax]
+                    k = 1
+                    ids = [member_ids(b, node_ids[b], 1) for b in blocks]
                 else:
                     # sibling subtraction, hist(parent) = hist(left) +
                     # hist(right): build only the LEFT children -- samples
@@ -439,146 +469,59 @@ def _build_tree(bins, g, h, cfg: GBDTConfig, feat_mask=None,
                     # producing negative hessian sums. The sentinel is
                     # n * k: any smaller id is some member's left child.
                     k = n_nodes // 2
-                    ids = torch.where(node_ids % 2 == 0,
-                                      member_ids(node_ids // 2, k), n * k)
-                parts = build_histograms(bins, g, h, ids, n * k, cfg, absmax)
+                    ids = [torch.where(node_ids[b] % 2 == 0,
+                                       member_ids(b, node_ids[b] // 2, k),
+                                       n * k) for b in blocks]
+                parts = [build_histograms(bins[b], g[b], h[b], ids[b], n * k,
+                                          cfg, absmax[b]) for b in blocks]
             with _phase("fold", tags):
-                hl_g, hl_h = fold2(*parts)
+                hl_g, hl_h = fold2([p[0] for p in parts],
+                                   [p[1] for p in parts])
             with _phase("splits", tags, variants=variants):
                 if d == 0:
                     hg, hh = hl_g, hl_h
                 else:
-                    hg = torch.stack([hl_g, prev_hg - hl_g],
-                                     dim=1).reshape(n_nodes, F, B)
-                    hh = torch.stack(
-                        [hl_h, torch.clamp(prev_hh - hl_h, min=0.0)],
-                        dim=1).reshape(n_nodes, F, B)
-                prev_hg, prev_hh = hg, hh
-                feat, bin_, gain, dir_ = best_splits(
-                    hg, hh, cfg.reg_lambda, feat_mask, cfg.min_child_hessian,
-                    cat_mask, cfg.missing_bin)
-                # freeze any node whose best gain does not clear the
-                # threshold: bin B-1 routes every sample left, keeping the
-                # node whole. The ~(gain > thr) form also freezes gain ==
-                # 0, gain == -inf and NaN.
-                freeze = ~(gain > cfg.min_split_gain)
-                bin_ = torch.where(freeze, cfg.n_bins - 1, bin_)
-                dir_ = torch.where(freeze, 0, dir_)  # frozen: missing left
-                tree_feat[level_start:level_start + n_nodes] = feat
-                tree_bin[level_start:level_start + n_nodes] = bin_
-                tree_dir[level_start:level_start + n_nodes] = dir_
-            with _phase("route", tags):
-                node_ids = _route_samples(bins, node_ids, feat, bin_, dir_,
-                                          cat_mask, cfg.missing_bin,
-                                          cfg.n_bins)
-        level_start += n_nodes
-
-    n_leaves = 2 ** cfg.depth
-    with _phase("leaf_sums", tags):
-        leaf_g, leaf_h = fold2(*_segment_sum2(g, h, node_ids, n, n_leaves))
-    with _phase("margins", tags):
-        leaf_val = -leaf_g.float() / (leaf_h.float() + cfg.reg_lambda)
-        delta = cfg.learning_rate * leaf_val[node_ids.long()]
-    return delta, (tree_feat, tree_bin, tree_dir, leaf_val)
-
-
-def _build_tree_members(bins, g, h, cfg: GBDTConfig, feat_mask=None,
-                        tags=None):
-    """:func:`_build_tree` over a member list: ``bins``, ``g``, ``h`` are
-    lists, member m's rows on its own device. Returns (delta, a list of
-    each member's [per] deltas, and the tree, member 0's, on its
-    device). ``feat_mask``: a list, one per member, or None. The spans
-    are :func:`_build_tree`'s."""
-    n = len(bins)
-    F, B = cfg.n_features, cfg.n_bins
-    members = range(n)
-    tags = tags or {}
-    n_internal = 2 ** cfg.depth - 1
-    dev0 = bins[0].device
-    with _phase("gradients", tags):
-        node_ids = [torch.zeros(b.shape[0], dtype=torch.int32,
-                                device=b.device) for b in bins]
-        tree_feat = torch.zeros(n_internal, dtype=torch.int32, device=dev0)
-        tree_bin = torch.zeros(n_internal, dtype=torch.int32, device=dev0)
-        tree_dir = torch.zeros(n_internal, dtype=torch.int32, device=dev0)
-    cat_mask = cfg._cat_mask()
-    variants = 2 if cfg.missing_bin else 1
-    fmask = feat_mask if feat_mask is not None else [None] * n
-
-    absmax = [None] * n
-    level_start = 0
-    prev_hg = prev_hh = None
-    for d in range(cfg.depth):
-        n_nodes = 2 ** d
-        with _phase("level", tags, level=d, nodes=n_nodes):
-            with _phase("histograms", tags):
-                if d == 0:
-                    # the mesh's fixed-point scale: each member's partial
-                    # is then the packed call's slice of it (the plain
-                    # version on the CPU has no scale)
-                    if (cfg.hist_mode == "pallas"
-                            and bins[0].device.type == "cuda"):
-                        absmax = coll.allreduce(
-                            [hist_kernel.absmax_bits(g[m], h[m])
-                             for m in members], Operators.MAX)
-                    k, ids = 1, node_ids
-                else:
-                    # sibling subtraction as in _build_tree; each member's
-                    # right children go to the sentinel id k, outside its
-                    # call
-                    k = n_nodes // 2
-                    ids = [torch.where(i % 2 == 0, i // 2, k)
-                           for i in node_ids]
-                parts = [build_histograms(bins[m], g[m], h[m], ids[m], k,
-                                          cfg, absmax[m]) for m in members]
-            with _phase("fold", tags):
-                # the list form of _fold: the same adds in rank order, each
-                # member's copy of the sums on its own device
-                hl_g = coll.allreduce([p[0] for p in parts])
-                hl_h = coll.allreduce([p[1] for p in parts])
-            with _phase("splits", tags, variants=variants):
-                if d == 0:
-                    hg, hh = hl_g, hl_h
-                else:
-                    hg = [torch.stack([hl_g[m], prev_hg[m] - hl_g[m]],
+                    hg = [torch.stack([lg, pg - lg],
                                       dim=1).reshape(n_nodes, F, B)
-                          for m in members]
+                          for lg, pg in zip(hl_g, prev_hg)]
                     hh = [torch.stack(
-                        [hl_h[m], torch.clamp(prev_hh[m] - hl_h[m], min=0.0)],
-                        dim=1).reshape(n_nodes, F, B) for m in members]
+                        [lh, torch.clamp(ph - lh, min=0.0)],
+                        dim=1).reshape(n_nodes, F, B)
+                        for lh, ph in zip(hl_h, prev_hh)]
                 prev_hg, prev_hh = hg, hh
                 splits = []
-                for m in members:
+                for b in blocks:
                     feat, bin_, gain, dir_ = best_splits(
-                        hg[m], hh[m], cfg.reg_lambda, fmask[m],
+                        hg[b], hh[b], cfg.reg_lambda, feat_mask[b],
                         cfg.min_child_hessian, cat_mask, cfg.missing_bin)
+                    # freeze any node whose best gain does not clear the
+                    # threshold: bin B-1 routes every sample left, keeping
+                    # the node whole. The ~(gain > thr) form also freezes
+                    # gain == 0, gain == -inf and NaN; a frozen node sends
+                    # missing left.
                     freeze = ~(gain > cfg.min_split_gain)
-                    bin_ = torch.where(freeze, cfg.n_bins - 1, bin_)
-                    dir_ = torch.where(freeze, 0, dir_)
-                    splits.append((feat, bin_, dir_))
-                feat, bin_, dir_ = splits[0]
-                tree_feat[level_start:level_start + n_nodes] = feat
-                tree_bin[level_start:level_start + n_nodes] = bin_
-                tree_dir[level_start:level_start + n_nodes] = dir_
+                    splits.append((feat,
+                                   torch.where(freeze, cfg.n_bins - 1, bin_),
+                                   torch.where(freeze, 0, dir_)))
+                for table, col in zip((tree_feat, tree_bin, tree_dir),
+                                      splits[0]):
+                    table[level_start:level_start + n_nodes] = col
             with _phase("route", tags):
-                for m in members:
-                    node_ids[m] = _route_samples(
-                        bins[m], node_ids[m], *splits[m], cat_mask,
-                        cfg.missing_bin, cfg.n_bins)
+                node_ids = [_route_samples(bins[b], node_ids[b], *splits[b],
+                                           cat_mask, cfg.missing_bin,
+                                           cfg.n_bins) for b in blocks]
         level_start += n_nodes
 
     n_leaves = 2 ** cfg.depth
     with _phase("leaf_sums", tags):
-        sums = [_segment_sum2(g[m], h[m], node_ids[m], 1, n_leaves)
-                for m in members]
-        leaf_g = coll.allreduce([s[0] for s in sums])
-        leaf_h = coll.allreduce([s[1] for s in sums])
+        sums = [_segment_sum2(g[b], h[b], node_ids[b], n, n_leaves)
+                for b in blocks]
+        leaf_g, leaf_h = fold2([s[0] for s in sums], [s[1] for s in sums])
     with _phase("margins", tags):
-        leaf_val = [-leaf_g[m].float() / (leaf_h[m].float()
-                                          + cfg.reg_lambda)
-                    for m in members]
-        delta = [cfg.learning_rate * leaf_val[m][node_ids[m].long()]
-                 for m in members]
+        leaf_val = [-lg.float() / (lh.float() + cfg.reg_lambda)
+                    for lg, lh in zip(leaf_g, leaf_h)]
+        delta = [cfg.learning_rate * lv[ids.long()]
+                 for lv, ids in zip(leaf_val, node_ids)]
     return delta, (tree_feat, tree_bin, tree_dir, leaf_val[0])
 
 
@@ -617,13 +560,16 @@ def _feature_mask(gen, cfg: GBDTConfig, device):
 def _sampling_masks(generators, cfg: GBDTConfig, N: int, device,
                     lead=None):
     """Per-tree stochastic-boosting masks. ``generators``: a sequence of
-    ``torch.Generator`` on ``device``, one per member (one member: a list
-    of one), member m's rows being the m-th of ``len`` equal blocks of N;
-    None -> no masks.
+    ``torch.Generator``, one per member (one member: a list of one),
+    member m's rows being the m-th of ``len`` equal blocks of N; None ->
+    no masks. ``device``: the members' device, or a list of the blocks'
+    devices (a list mesh: one block a member, each generator on its
+    block's device).
 
-    Returns (sample_scale [N] f32 | None, feat_mask [F] bool | None). The
-    feature mask comes from member 0's generator alone, so it is the same
-    on every member; each member draws its rows' keeps from its own.
+    Returns (sample_scale [N] f32 | None, feat_mask [F] bool | None); for
+    a list of devices, each a list of one a block on its device, or None.
+    The feature mask comes from member 0's generator alone, so it is the
+    same on every member; each member draws its rows' keeps from its own.
     Member 0 is the first generator, or ``lead`` where this process holds
     other members (a mesh over processes) and a feature mask is drawn:
     ``lead`` draws the feature mask, then as many row keeps as member 0
@@ -631,96 +577,50 @@ def _sampling_masks(generators, cfg: GBDTConfig, N: int, device,
     Kept samples are scaled 1/subsample to keep gradient sums unbiased;
     at least one feature always survives (an all-dropped draw keeps one
     uniformly random feature)."""
-    sample_scale = None
-    feat_mask = None
     if generators is None:
-        return sample_scale, feat_mask
-    gen0 = generators[0] if lead is None else lead
+        return None, None
+    devs = device if isinstance(device, (list, tuple)) else [device]
     per = N // len(generators)
+    at = len(generators) // len(devs)         # members a block
+    sample_scale = feat_mask = None
     if cfg.colsample < 1.0:
-        feat_mask = _feature_mask(gen0, cfg, device)
+        mask = _feature_mask(generators[0] if lead is None else lead, cfg,
+                             devs[0])
+        feat_mask = [mask.to(d, non_blocking=True) for d in devs]
     if cfg.subsample < 1.0:
         if lead is not None:
-            torch.rand(per, generator=lead, device=device)
-        keep = torch.cat([torch.rand(per, generator=gen, device=device)
-                          for gen in generators]) < cfg.subsample
-        sample_scale = keep.to(torch.float32) / cfg.subsample
+            torch.rand(per, generator=lead, device=devs[0])
+        sample_scale = [
+            (torch.cat([torch.rand(per, generator=gen, device=d)
+                        for gen in generators[b * at:(b + 1) * at]])
+             < cfg.subsample).to(torch.float32) / cfg.subsample
+            for b, d in enumerate(devs)]
+    if devs is not device:
+        return tuple(None if m is None else m[0]
+                     for m in (sample_scale, feat_mask))
     return sample_scale, feat_mask
 
 
-def _sampling_masks_members(generators, cfg: GBDTConfig, per: int):
-    """:func:`_sampling_masks` over a member list: generator m on member
-    m's device. The feature mask is drawn from member 0's generator, as
-    in the packed form, and copied to every member; each member draws
-    its rows' keeps from its own. Returns (sample scales, feature masks),
-    lists of one per member, or Nones."""
-    if generators is None:
-        return None, None
-    devs = [gen.device for gen in generators]
-    feat_mask = None
-    if cfg.colsample < 1.0:
-        mask = _feature_mask(generators[0], cfg, devs[0])
-        feat_mask = [mask.to(d, non_blocking=True) for d in devs]
-    scale = None
-    if cfg.subsample < 1.0:
-        scale = [(torch.rand(per, generator=gen, device=gen.device)
-                  < cfg.subsample).to(torch.float32) / cfg.subsample
-                 for gen in generators]
-    return scale, feat_mask
-
-
-def train_tree_members(bins, y, preds, cfg: GBDTConfig, weights,
-                       generators=None):
-    """:func:`train_tree_shard` over a member list (a list mesh): every
-    argument but ``cfg`` is a list, member m's on its own device
-    (``generators`` one per member, or None). Returns (the members' new
-    preds, the tree on member 0's device); trees and preds are bitwise
-    those of :func:`train_tree_shard` on the stacked members."""
-    n = len(bins)
-    per = bins[0].shape[0]
-    r = _next_round()
-    with spans.span("gbdt::round", "gbdt", id=r, round=r, members=n,
-                    rows=n * per):
-        with _phase("gradients", {}):
-            sample_scale, feat_mask = _sampling_masks_members(generators,
-                                                              cfg, per)
-            if sample_scale is not None:
-                weights = [weights[m] * sample_scale[m] for m in range(n)]
-        if cfg.loss == "softmax":
-            with _phase("gradients", {}):
-                p = [torch.softmax(pr, dim=1) for pr in preds]
-            trees, deltas = [], []
-            for c in range(cfg.n_classes):
-                tags = {"class": c}
-                with _phase("gradients", tags):
-                    g, h = [], []
-                    for m in range(n):
-                        onehot_y = (y[m].to(torch.int32) == c).to(
-                            torch.float32)
-                        g.append((p[m][:, c] - onehot_y) * weights[m])
-                        h.append(p[m][:, c] * (1.0 - p[m][:, c])
-                                 * weights[m])
-                delta, tree = _build_tree_members(bins, g, h, cfg, feat_mask,
-                                                  tags)
-                deltas.append(delta)
-                trees.append(tree)
-            with _phase("margins", {}):
-                return ([preds[m] + torch.stack([dl[m] for dl in deltas],
-                                                dim=1)
-                         for m in range(n)], tuple(trees))
-        with _phase("gradients", {}):
-            g, h = [], []
-            for m in range(n):
-                if cfg.loss == "logistic":
-                    pm = torch.sigmoid(preds[m])
-                    gm, hm = pm - y[m], pm * (1.0 - pm)
-                else:
-                    gm, hm = preds[m] - y[m], torch.ones_like(preds[m])
-                g.append(gm * weights[m])
-                h.append(hm * weights[m])
-        delta, tree = _build_tree_members(bins, g, h, cfg, feat_mask)
-        with _phase("margins", {}):
-            return [preds[m] + delta[m] for m in range(n)], tree
+def _gradients(preds, y, weights, cfg: GBDTConfig, c=None):
+    """One block's per-sample gradient and hessian: of class ``c`` under
+    "softmax" (``preds`` then the softmax probabilities [N, C], ``y``
+    integer labels: g_c = p_c - 1[y=c], h_c = p_c (1 - p_c)), else of the
+    margins [N]; each scaled by ``weights`` where given."""
+    if cfg.loss == "softmax":
+        onehot_y = (y.to(torch.int32) == c).to(torch.float32)
+        g = preds[:, c] - onehot_y
+        h = preds[:, c] * (1.0 - preds[:, c])
+    elif cfg.loss == "logistic":
+        p = torch.sigmoid(preds)
+        g = p - y
+        h = p * (1.0 - p)
+    else:  # squared error: g = pred - y, h = 1
+        g = preds - y
+        h = torch.ones_like(preds)
+    if weights is not None:
+        g = g * weights
+        h = h * weights
+    return g, h
 
 
 def train_tree_shard(bins, y, preds, cfg: GBDTConfig, weights=None,
@@ -740,65 +640,69 @@ def train_tree_shard(bins, y, preds, cfg: GBDTConfig, weights=None,
     member 0's generator where this rank does not hold member 0 and
     cfg.colsample < 1 (see :func:`_sampling_masks`).
 
+    Over a list mesh ``bins``, ``y``, ``preds`` and ``weights`` are lists
+    of the ``n_members`` members' tensors, each on its member's device
+    (``generators`` and ready-made ``masks`` likewise, one a member); the
+    new preds are then a list, and the tree is on member 0's device. The
+    trees and preds are bitwise those of the packed call on the stacked
+    members.
+
     Scalar objectives ("squared", "logistic"): preds/y are [N]; one tree
     is grown; tree = (feat, bin, dir, leaf) in level-order heap layout.
     "softmax": preds are margins [N, C], y is integer class labels [N];
     one tree is grown PER CLASS against the diagonal softmax g/h
-    (g_c = p_c - 1[y=c], h_c = p_c (1 - p_c)); tree = a C-tuple, and the
-    spans of class c's tree carry ``class=c``.
+    (:func:`_gradients`); tree = a C-tuple, and the spans of class c's
+    tree carry ``class=c``.
 
     The round is one ``gbdt::round`` span, its id the round's number
     (:data:`rounds_built`), each of its launches inside one phase span
     (the names above :func:`_next_round`).
     """
+    listed = coll.is_list(bins)
+    if not listed:
+        bins, y, preds, weights = [bins], [y], [preds], [weights]
+        if masks is not None:
+            masks = tuple(None if m is None else [m] for m in masks)
+    elif len(bins) != n_members:
+        raise Mp4jError(f"a list of {len(bins)} members needs n_members="
+                        f"{len(bins)}, got {n_members}")
+    rows = sum(x.shape[0] for x in bins)
     r = _next_round()
-    with spans.span("gbdt::round", "gbdt", id=r, round=r,
-                    members=n_members, rows=bins.shape[0]):
+    with spans.span("gbdt::round", "gbdt", id=r, round=r, members=n_members,
+                    rows=rows):
         with _phase("gradients", {}):
             if masks is None:
-                masks = _sampling_masks(generators, cfg, bins.shape[0],
-                                        bins.device, lead)
-            sample_scale, feat_mask = masks
-            if sample_scale is not None:
-                weights = (sample_scale if weights is None
-                           else weights * sample_scale)
+                masks = _sampling_masks(generators, cfg, rows,
+                                        [x.device for x in bins], lead)
+            sample_scale, feat_mask = (
+                [None] * len(bins) if m is None else m for m in masks)
+            weights = [w if s is None else s if w is None else w * s
+                       for w, s in zip(weights or [None] * len(bins),
+                                       sample_scale)]
 
-        if cfg.loss == "softmax":
+        softmax = cfg.loss == "softmax"
+        if softmax:
             with _phase("gradients", {}):
-                p = torch.softmax(preds, dim=1)            # [N, C]
-            trees = []
-            deltas = []
-            for c in range(cfg.n_classes):
-                tags = {"class": c}
-                with _phase("gradients", tags):
-                    onehot_y = (y.to(torch.int32) == c).to(torch.float32)
-                    g = p[:, c] - onehot_y
-                    h = p[:, c] * (1.0 - p[:, c])
-                    if weights is not None:
-                        g = g * weights
-                        h = h * weights
-                delta, tree = _build_tree(bins, g, h, cfg, feat_mask,
-                                          n_members, group, tags)
-                deltas.append(delta)
-                trees.append(tree)
-            with _phase("margins", {}):
-                return preds + torch.stack(deltas, dim=1), tuple(trees)
-
-        with _phase("gradients", {}):
-            if cfg.loss == "logistic":
-                p = torch.sigmoid(preds)
-                g = p - y
-                h = p * (1.0 - p)
-            else:  # squared error: g = pred - y, h = 1
-                g = preds - y
-                h = torch.ones_like(preds)
-            if weights is not None:
-                g = g * weights
-                h = h * weights
-        delta, tree = _build_tree(bins, g, h, cfg, feat_mask, n_members,
-                                  group)
+                preds_in, preds = preds, [torch.softmax(p, dim=1)
+                                          for p in preds]
+        trees, deltas = [], []
+        for c in range(cfg.n_classes) if softmax else (None,):
+            tags = {"class": c} if softmax else {}
+            with _phase("gradients", tags):
+                g, h = zip(*(_gradients(p, yb, w, cfg, c)
+                             for p, yb, w in zip(preds, y, weights)))
+            delta, tree = _build_tree(bins, g, h, cfg, feat_mask,
+                                      1 if listed else n_members, group, tags)
+            deltas.append(delta)
+            trees.append(tree)
         with _phase("margins", {}):
-            return preds + delta, tree
+            if softmax:
+                new = [p + torch.stack([dl[b] for dl in deltas], dim=1)
+                       for b, p in enumerate(preds_in)]
+            else:
+                new = [p + dl for p, dl in zip(preds, deltas[0])]
+        return (new if listed else new[0],
+                tuple(trees) if softmax else trees[0])
 
 
 def predict_tree(bins, tree, cfg: GBDTConfig):
@@ -938,14 +842,9 @@ class GBDTTrainer(DataParallelTrainer):
         exchanger = StepStatsExchanger(comm)
         trees = []
         for i in range(n_trees if n_trees is not None else cfg.n_trees):
-            if mesh.is_list:
-                dpreds, tree = train_tree_members(dbins, dy, dpreds, cfg, dw,
-                                                  generators)
-            else:
-                dpreds, tree = train_tree_shard(
-                    dbins, dy, dpreds, cfg, weights=dw,
-                    generators=generators, n_members=mesh.n_local,
-                    group=mesh.group, lead=lead)
+            dpreds, tree = train_tree_shard(
+                dbins, dy, dpreds, cfg, weights=dw, generators=generators,
+                n_members=mesh.n_local, group=mesh.group, lead=lead)
             trees.append(tree)
             metric = None
             if va is not None:
