@@ -102,7 +102,8 @@ Phases:
    ``gbdt._segment_sum2``, CPU and CUDA activity);
 4. the data-parallel slice on the same data: 1 warm-up tree, 3 timed
    trees between the counts (18 histogram launches: one a level; 3
-   leaf-sum launches: one a tree over every member), trees/s
+   leaf-sum launches: one a tree over every member; 18 route launches,
+   ``ops/csrc/route_kernel.cu``: one a level, as in slice 3), trees/s
    and GB/s, ``predict`` == the margins, trees/s in 10 pairs of 3 trees
    against one member (order alternating), the profiled tree's split beside
    the one-member tree's, kernel tree == plain tree on 200,000 rows, the
@@ -121,6 +122,16 @@ Phases:
    its own features' quads of a row) at 4, 16 and 64 nodes: against its
    plain version, two launches bitwise equal, the launch, row-pass and
    row-quad counts set to 0 just before and read after, ms a call;
+   the route kernel (``ops/csrc/route_kernel.cu``) at the Higgs shape
+   (the slice's 11M x 28 rows) and at ``gbdt-bosch.dp4``'s (1,183,748 x
+   968, ~81 % in bin 0), for 1 and 4 members, numeric splits and learned
+   missing directions with a categorical mask, a quarter of the
+   ROUTE_NODES nodes frozen: both outputs (next node ids, next level's
+   histogram ids) bitwise the plain version's, one launch counted
+   between counts set to 0 and read, and kernel, plain and one-column
+   copy (ATen reading the same sectors) ms by CUDA events beside the
+   bound (each row's node id, one 32-byte sector of its bins, two ids
+   written);
    ``entry.entry()`` and ``entry.dryrun(4)``;
 5. both ring kernels against their plain versions, BITWISE (NaN as NaN):
    both directions x three modes x {SUM, PROD, MAX, MIN} x {f32, f64,
@@ -344,6 +355,7 @@ from ytk_mp4j_tpu_torch.ops import collectives as coll
 from ytk_mp4j_tpu_torch.ops import hist_kernel as hk
 from ytk_mp4j_tpu_torch.ops import leaf_sums as ls
 from ytk_mp4j_tpu_torch.ops import ring_kernel as rk
+from ytk_mp4j_tpu_torch.ops import route_kernel as rt
 from ytk_mp4j_tpu_torch.ops import sparse as sparse_ops
 from ytk_mp4j_tpu_torch.utils import trace as collective_trace
 
@@ -377,6 +389,7 @@ KERNEL_REL_TOL = 1e-5              # vs an f64 sum, relative to its max
 BOSCH_ROWS = 1_183_748 // MEMBERS  # gbdt-bosch.dp4's rows a member
 BOSCH_F = 968                      # its features: 31 cell groups a node
 BOSCH_NODES = (4, 16, 64)          # its levels' nodes a member's call sees
+ROUTE_NODES = 2 ** (DEPTH - 1)     # a depth-6 tree's last routed level
 HIST_KERNELS = ("absmax_kernel", "scan_kernel", "scatter_kernel",
                 "hist_kernel", "finalize_kernel")   # ops/csrc/hist_kernel.cu
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -858,6 +871,8 @@ def timed_trees(trainer, dbins, dy, what):
           f"{launches} kernel launches, want {DEPTH * TIMED_TREES}")
     check(leaf_launches == TIMED_TREES,
           f"{leaf_launches} leaf-sum launches, want {TIMED_TREES}")
+    check(counts["route"] == DEPTH * TIMED_TREES,
+          f"{counts['route']} route launches, want {DEPTH * TIMED_TREES}")
     check(margins.shape == (n,) and bool(torch.isfinite(margins).all()),
           "margins not finite [N]")
     mse0 = float(dy.double().pow(2).mean())
@@ -869,7 +884,8 @@ def timed_trees(trainer, dbins, dy, what):
           flush=True)
     return trees, margins, {"trees_per_s": 1 / tree_s, "gb_per_s": gbs,
                             "host_s": host_s, "launches": launches,
-                            "leaf_sums_launches": leaf_launches}
+                            "leaf_sums_launches": leaf_launches,
+                            "route_launches": counts["route"]}
 
 
 def in_turns(one, many, dbins, dy, names=None):
@@ -1019,6 +1035,82 @@ def run_bosch_width(dev):
     return rec
 
 
+def route_row(shape, bins, members, kind, seed):
+    """The route kernel on random tables at ROUTE_NODES nodes, a quarter
+    of them frozen (bin B - 1, dir 0), ``kind`` "numeric" or
+    "missing+categorical" (learned directions and every third feature
+    categorical), both outputs asked for: bitwise the plain version's,
+    one launch between the count set to 0 and read, and kernel (as the
+    trainer calls it, without the range check's wait), plain and
+    one-column copy ms beside the bound."""
+    n, width = bins.shape
+    dev = bins.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def ints(lo, hi, k):
+        return torch.randint(lo, hi, (k,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    nid, feat = ints(0, ROUTE_NODES, n), ints(0, width, ROUTE_NODES)
+    bin_, dir_ = ints(0, B - 1, ROUTE_NODES), ints(0, 2, ROUTE_NODES)
+    frozen = torch.arange(ROUTE_NODES, device=dev) % 4 == 3
+    bin_ = torch.where(frozen, B - 1, bin_)
+    dir_ = torch.where(frozen, 0, dir_)
+    missing = kind != "numeric"
+    cat = torch.arange(width, device=dev) % 3 == 0 if missing else None
+    args = (bins, nid, feat, bin_, dir_, cat, missing, B, members)
+    rt.route.launches = 0
+    got = rt.route(*args)
+    launches = rt.route.launches
+    want = rt.route_reference(*args)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    check(same, f"route {shape} {members} member(s) {kind}: kernel != "
+          "plain")
+    check(launches == 1, f"route: {launches} launches for one call")
+    del got, want
+    kern = timed_ms(lambda: rt.route(*args, check=False), 20)
+    plain = timed_ms(lambda: rt.route_reference(*args), 5)
+    col = bins[:, 0]
+    lib = timed_ms(col.clone, 20)
+    bound = n * (4 + min(32, 4 * width) + 8) / HBM_BYTES_PER_S * 1e3
+    row = dict(shape=shape, rows=n, F=width, members=members, kind=kind,
+               n_nodes=ROUTE_NODES, bitwise=same, launches=launches,
+               ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bound)
+    print(f"route {shape} {n} x {width}, {members} member(s), {kind}, "
+          f"{ROUTE_NODES} nodes: bitwise the plain version, {launches} "
+          f"launch; kernel {kern:.4f} ms, plain {plain:.4f} ms, one-column "
+          f"copy {lib:.4f} ms, bound {bound:.4f} ms (bytes; "
+          f"{bound / kern:.0%} of it)", flush=True)
+    return row
+
+
+def run_route(dev, dbins, launches):
+    """The route kernel at the Higgs shape (the slice's rows) and at
+    ``gbdt-bosch.dp4``'s, for 1 and MEMBERS members, numeric and
+    missing+categorical (:func:`route_row`). Returns the kernels line's
+    ``route_kernel`` entry: the Higgs main path's case (MEMBERS members,
+    numeric) and every case under ``cases``; ``launches``: the timed
+    trees' route launches."""
+    rows = []
+    for shape in ("higgs", "bosch"):
+        bins = (dbins if shape == "higgs"
+                else bosch_bins(dev, MEMBERS * BOSCH_ROWS, 7))
+        for members in (1, MEMBERS):
+            for kind in ("numeric", "missing+categorical"):
+                rows.append(route_row(shape, bins, members, kind,
+                                      len(rows) + 11))
+        del bins
+        torch.cuda.empty_cache()
+    main = rows[2]
+    return {"name": "route_kernel", "route": "cuda",
+            "source": "ytk_mp4j_tpu_torch/ops/csrc/route_kernel.cu",
+            "replaces": "none (ytk_mp4j_tpu/models/gbdt.py:348 is XLA)",
+            "launches": launches, "max_abs_err": 0,
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": "bytes",
+            "library_ms": main["library_ms"], "cases": rows}
+
+
 # ----------------------------------------------------------------------
 # slice 5: data-parallel GBDT over members on the card
 # ----------------------------------------------------------------------
@@ -1158,7 +1250,7 @@ def run_entry():
 # slice 2: the ring kernels
 # ----------------------------------------------------------------------
 COUNTERS = {"hist_kernel": hk.histograms, "leaf_sums": ls.leaf_sums,
-            "ring_kernel": rk.ring_kernel,
+            "route": rt.route, "ring_kernel": rk.ring_kernel,
             "ring_kernel_bidir": rk.ring_kernel_bidir}
 
 
@@ -4384,6 +4476,7 @@ def main():
     hist_entry["max_abs_err"] = max(hist_entry["max_abs_err"],
                                     dp_record["max_abs_err"])
     raw_record = run_train_raw(dev, dbins, dy)
+    route_entry = run_route(dev, dbins, dp_record["route_launches"])
     del dbins, dy
     torch.cuda.empty_cache()
     hist_entry["bosch_width"] = run_bosch_width(dev)
@@ -4403,7 +4496,7 @@ def main():
         "library_ms": leaf["library_ms"],
         "one_member": gbdt_record["leaf_sums"],
     }
-    kernels = [hist_entry, leaf_entry] + ring_entries
+    kernels = [hist_entry, leaf_entry, route_entry] + ring_entries
     ffm_rec, ffm_params = run_ffm_criteo(dev)
     slice6 = {"ffm_criteo": ffm_rec, "ffm_config4": run_ffm_config4(dev),
               "maps": run_maps(dev)}

@@ -31,8 +31,13 @@ histogram kernel, its row-pass and row-quad counts, rows whose cell
 groups cut quads and features, the kernel's rule for the quads a group
 loads against the model the CPU tests walk, and a round with learned
 missing directions and the min-child mask against the plain reference
-``tests/torch_gbdt_reference.py``. Every test skips where there is no
-CUDA device.
+``tests/torch_gbdt_reference.py``; and the route kernel
+(``ops/csrc/route_kernel.cu``) bitwise its plain version at the Higgs
+and Bosch shapes, for one and four members, numeric, missing and
+categorical splits, over a list mesh's blocks, on odd rows and row
+views, with 4,096 nodes, refusing out-of-range rows, and through the
+trainer and ``predict_tree`` (its launches counted). Every
+test skips where there is no CUDA device.
 
 This file imports neither jax nor the JAX package and uses no fixture of
 tests/conftest.py, so it also runs where JAX is not installed:
@@ -40,6 +45,7 @@ tests/conftest.py, so it also runs where JAX is not installed:
     python -m pytest --noconftest -q tests/test_torch_gpu.py
 """
 
+import dataclasses
 import time
 
 import numpy as np
@@ -1262,3 +1268,191 @@ def test_a_bosch_round_on_the_card_against_the_plain_reference(cuda):
         torch.testing.assert_close(new.cpu().double(), want, rtol=0,
                                    atol=2e-5 * scale * cfg.learning_rate
                                    + 1e-6 * want.abs().max().item())
+
+
+# ---- the route kernel (ops/csrc/route_kernel.cu) ------------------------
+_ROUTE_ROWS = {}
+
+
+def _route_rows(dev, shape):
+    """The Higgs rows (11M x 28, uniform bins) or the Bosch rows
+    (1,183,748 x 968, 81 % bin 0), made once for the route tests."""
+    if shape not in _ROUTE_ROWS:
+        _ROUTE_ROWS.clear()
+        torch.cuda.empty_cache()
+        if shape == "higgs":
+            gen = torch.Generator(device=dev).manual_seed(8)
+            _ROUTE_ROWS[shape] = torch.randint(
+                0, 256, (11_000_000, 28), generator=gen, device=dev,
+                dtype=torch.int32)
+        else:
+            _ROUTE_ROWS[shape] = _bosch_bins(dev, 1_183_748, seed=8)
+    return _ROUTE_ROWS[shape]
+
+
+def _route_tables(dev, N, F, n_nodes, kind, seed):
+    """Random node ids and split tables, a quarter of the nodes frozen
+    (bin B - 1, dir 0), and the [F] categorical mask where asked for."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def ints(lo, hi, n):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    nid, feat, bin_, dir_ = (ints(0, n_nodes, N), ints(0, F, n_nodes),
+                             ints(0, 255, n_nodes), ints(0, 2, n_nodes))
+    frozen = torch.arange(n_nodes, device=dev) % 4 == 3
+    bin_ = torch.where(frozen, 255, bin_)
+    dir_ = torch.where(frozen, 0, dir_)
+    cat = (torch.arange(F, device=dev) % 3 == 0 if kind == "categorical"
+           else None)
+    return nid, feat, bin_, dir_, cat, kind == "missing"
+
+
+def _assert_route_equals_plain(bins, args, members):
+    """Both outputs of the kernel bitwise the plain version's, with and
+    without histogram ids; two launches."""
+    from ytk_mp4j_tpu_torch.ops import route_kernel as rt
+
+    before = rt.route.launches
+    nxt, ids = rt.route(bins, *args, members)
+    alone = rt.route(bins, *args)
+    assert rt.route.launches == before + 2
+    want_nxt, want_ids = rt.route_reference(bins, *args, members)
+    assert torch.equal(nxt, want_nxt) and torch.equal(alone, want_nxt)
+    assert torch.equal(ids, want_ids)
+    return nxt, ids
+
+
+@pytest.mark.parametrize("shape", ["higgs", "bosch"])
+@pytest.mark.parametrize("members", [1, 4])
+@pytest.mark.parametrize("kind", ["numeric", "missing", "categorical"])
+@pytest.mark.parametrize("n_nodes", [1, 32])
+def test_route_kernel_equals_plain_at_full_size(cuda, shape, members, kind,
+                                                n_nodes):
+    """At the Higgs and the Bosch shapes, numeric splits, learned missing
+    directions and a categorical mask, a quarter of the nodes frozen: the
+    next node ids and the next level's histogram ids (member-offset left
+    children, the sentinel for right ones) bitwise the plain version's."""
+    bins = _route_rows(cuda, shape)
+    N, F = bins.shape
+    nid, feat, bin_, dir_, cat, missing = _route_tables(
+        cuda, N, F, n_nodes, kind, seed=n_nodes + members)
+    _assert_route_equals_plain(
+        bins, (nid, feat, bin_, dir_, cat, missing, 256), members)
+
+
+@pytest.mark.parametrize("shape", ["higgs", "bosch"])
+def test_route_kernel_list_mesh_blocks(cuda, shape):
+    """The list mesh routes each member's rows in a call of its own, with
+    no member offset: each call bitwise the plain version, and its left
+    children's ids the packed call's less the member's offset."""
+    bins = _route_rows(cuda, shape)
+    N, F = bins.shape
+    nid, feat, bin_, dir_, cat, _ = _route_tables(cuda, N, F, 16, "missing",
+                                                  seed=3)
+    args = (feat, bin_, dir_, cat, True, 256)
+    packed = _assert_route_equals_plain(bins, (nid, *args), 4)
+    per = N // 4
+    for m in range(4):
+        rows = slice(m * per, (m + 1) * per)
+        nxt, ids = _assert_route_equals_plain(bins[rows], (nid[rows], *args),
+                                              1)
+        assert torch.equal(nxt, packed[0][rows])
+        left = nxt % 2 == 0
+        assert torch.equal(ids[left] + m * 16, packed[1][rows][left])
+        assert (ids[~left] == 16).all()
+
+
+@pytest.mark.parametrize("N", [1, 255, 1_025, 70_001])
+def test_route_kernel_odd_rows_and_a_row_view(cuda, N):
+    """Rows that fill no whole step of a block, from a view of a wider
+    table (row stride 40, 28 columns)."""
+    wide = torch.randint(0, 256, (N, 40), device=cuda, dtype=torch.int32)
+    bins = wide[:, 3:31]
+    nid, feat, bin_, dir_, cat, _ = _route_tables(cuda, N, 28, 8,
+                                                  "categorical", seed=N)
+    _assert_route_equals_plain(bins, (nid, feat, bin_, dir_, cat, True,
+                                      256), 1)
+
+
+def test_route_kernel_tables_past_shared_memory(cuda):
+    """4,096 nodes, a deep level's tables (16,384 bytes of feature and bin
+    ids each)."""
+    N = 1_000_003
+    bins = torch.randint(0, 256, (N, 28), device=cuda, dtype=torch.int32)
+    nid, feat, bin_, dir_, cat, _ = _route_tables(cuda, N, 28, 4096,
+                                                  "categorical", seed=1)
+    _assert_route_equals_plain(bins, (nid, feat, bin_, dir_, cat, True,
+                                      256), 1)
+
+
+def test_route_kernel_zero_rows_and_out_of_range_rows(cuda):
+    """No launch for zero rows. A row whose node id, or whose node's
+    feature, is out of range is refused, as the plain version refuses it;
+    without the check (a caller whose tables are in range by
+    construction) it goes nowhere: next id -1, histogram id the sentinel.
+    ``predict_tree`` refuses a tree whose features the bins lack."""
+    from ytk_mp4j_tpu_torch.models import gbdt
+    from ytk_mp4j_tpu_torch.ops import route_kernel as rt
+
+    feat = torch.tensor([0, 1, 9], device=cuda, dtype=torch.int32)
+    bin_ = torch.tensor([5, 5, 5], device=cuda, dtype=torch.int32)
+    before = rt.route.launches
+    e = rt.route(torch.zeros(0, 4, device=cuda, dtype=torch.int32),
+                 torch.zeros(0, device=cuda, dtype=torch.int32), feat, bin_,
+                 n_members=2)
+    assert rt.route.launches == before and e[0].shape == e[1].shape == (0,)
+    bins = torch.full((6, 4), 7, device=cuda, dtype=torch.int32)
+    for bad in ([0, 1, 2, 0, 0, 1], [0, 1, 0, -1, 3, 1]):
+        nid = torch.tensor(bad, device=cuda, dtype=torch.int32)
+        with pytest.raises(Mp4jError, match="out of range"):
+            rt.route(bins, nid, feat, bin_, n_members=2)
+    nid = torch.tensor([0, 1, 2, -1, 3, 1], device=cuda, dtype=torch.int32)
+    nxt, ids = rt.route(bins, nid, feat, bin_, n_members=2, check=False)
+    assert nxt.tolist() == [1, 3, -1, -1, -1, 3]
+    assert ids.tolist() == [6] * 6
+    bins[5, 1] = 2
+    nid = torch.tensor([0, 1, 0, 1, 0, 1], device=cuda, dtype=torch.int32)
+    nxt, ids = rt.route(bins, nid, feat, bin_, n_members=2)
+    assert nxt[5].item() == 2 and ids[5].item() == 3 + 1
+    cfg = GBDTConfig(n_features=4, n_bins=16, depth=2)
+    tree = (torch.tensor([1, 2, 5], device=cuda, dtype=torch.int32),
+            torch.full((3,), 3, device=cuda, dtype=torch.int32),
+            torch.zeros(3, device=cuda, dtype=torch.int32),
+            torch.arange(4, device=cuda, dtype=torch.float32))
+    with pytest.raises(Mp4jError, match="out of range"):
+        gbdt.predict_tree(bins, tree, cfg)
+    fine = (torch.tensor([1, 2, 3], device=cuda, dtype=torch.int32),
+            *tree[1:])
+    assert gbdt.predict_tree(bins, fine, cfg).shape == (6,)
+
+
+@pytest.mark.parametrize("mesh", ["packed", "list"])
+def test_route_launches_depth_a_round_and_predict(cuda, mesh):
+    """The trainer routes with one launch a level a block (depth a round
+    packed, depth a member a round over a list), and its trees'
+    ``predict_tree`` through the kernel is bitwise the plain version's
+    (with depth more launches), with missing directions and a
+    categorical feature."""
+    from ytk_mp4j_tpu_torch.models import gbdt
+    from ytk_mp4j_tpu_torch.ops import route_kernel as rt
+
+    bins, y = _gbdt_data(100_000)
+    bins[::3, 2] = 0
+    cfg = GBDTConfig(n_features=28, n_bins=256, depth=6, missing_bin=True,
+                     categorical_features=(5,))
+    blocks = 4 if mesh == "list" else 1
+    m = make_mesh(4, devices=_cards(4) if mesh == "list" else None)
+    before = rt.route.launches
+    trees, _ = GBDTTrainer(cfg, mesh=m).train(bins, y, n_trees=3)
+    assert rt.route.launches == before + 3 * cfg.depth * blocks
+    dbins = bins.to(cuda)
+    for tree in trees:
+        before = rt.route.launches
+        got = gbdt.predict_tree(dbins, tree, cfg)
+        assert rt.route.launches == before + cfg.depth
+        plain = gbdt.predict_tree(dbins, tree,
+                                  dataclasses.replace(cfg, hist_mode="flat"))
+        assert rt.route.launches == before + cfg.depth
+        assert torch.equal(got, plain)

@@ -7,7 +7,9 @@ gradient/hessian histograms over its own rows (:func:`build_histograms`,
 which reaches the hand-written CUDA kernel behind
 ``ops.hist_kernel.histograms``), the members' histograms are allreduced,
 the best split per node is chosen on the sums (:func:`best_splits`) and
-every row is routed to its child node (:func:`_route_samples`). After
+every row is routed to its child node (:func:`_route_samples`, the
+hand-written CUDA kernel behind ``ops.route_kernel.route``, which also
+writes each row's id in the next level's histogram call). After
 the last level the leaf sums (:func:`_segment_sum2`, the hand-written
 CUDA kernel behind ``ops.leaf_sums.leaf_sums``) are allreduced the same
 way.
@@ -97,7 +99,7 @@ from ytk_mp4j_tpu_torch.models.binning import QuantileBinner
 from ytk_mp4j_tpu_torch.obs import spans
 from ytk_mp4j_tpu_torch.operators import Operators
 from ytk_mp4j_tpu_torch.ops import collectives as coll
-from ytk_mp4j_tpu_torch.ops import hist_kernel, leaf_sums
+from ytk_mp4j_tpu_torch.ops import hist_kernel, leaf_sums, route_kernel
 
 
 @dataclass(frozen=True)
@@ -214,27 +216,31 @@ def build_histograms(bins, g, h, node_ids, n_nodes: int, cfg: GBDTConfig,
 
 
 def _route_samples(bins, node_ids, feat, bin_, dir_=None, cat_mask=None,
-                   missing_bin: bool = False, n_bins: int | None = None):
+                   missing_bin: bool = False, n_bins: int | None = None,
+                   n_members: int | None = None, plain: bool = False,
+                   check: bool = True):
     """One level of sample routing: ``node_ids*2 + go_right``, where
     ``go_right`` is ``bins[i, feat[n]] > bin_[n]`` for numeric features,
     ``== bin_[n]`` for categorical ones (never at the freeze sentinel
     B-1), and the node's learned default direction ``dir_`` for the
     missing bucket (bin 0) under ``missing_bin``. node_ids must lie in
-    [0, len(feat)). The gathers are exact, and a non-finite table entry
-    reaches only the rows that select it."""
-    idx = node_ids.long()
-    nf = feat[idx]
-    nb = bin_[idx]
-    v = bins.gather(1, nf.long().unsqueeze(1)).squeeze(1)
-    go_right = v > nb
-    if missing_bin:
-        go_right = torch.where(v == 0, dir_[idx] > 0, go_right)
-    if cat_mask is not None:
-        # is this sample's node split on a categorical feature?
-        node_cat = torch.as_tensor(cat_mask, device=bins.device)[feat.long()]
-        go_right = torch.where(node_cat[idx], (v == nb) & (nb != n_bins - 1),
-                               go_right)
-    return node_ids * 2 + go_right.to(torch.int32)
+    [0, len(feat)). With ``n_members`` also the next level's histogram
+    ids, ``(next ids, ids)``: a left child's member-offset id, the
+    sentinel for a right child.
+
+    The one routing call of :func:`_build_tree` and :func:`predict_tree`
+    (and the seam the tests patch). ``plain`` (what ``hist_mode !=
+    "pallas"`` asks for: the reference mode runs no hand-written kernel)
+    takes ``ops.route_kernel.route_reference`` on any device; else
+    ``ops.route_kernel.route``, the CUDA kernel on a CUDA tensor and the
+    plain version on the CPU, which refuses out-of-range rows unless
+    ``check=False``."""
+    if plain:
+        return route_kernel.route_reference(bins, node_ids, feat, bin_, dir_,
+                                            cat_mask, missing_bin, n_bins,
+                                            n_members)
+    return route_kernel.route(bins, node_ids, feat, bin_, dir_, cat_mask,
+                              missing_bin, n_bins, n_members, check)
 
 
 def split_gains(hist_g, hist_h, reg_lambda: float, feat_mask=None,
@@ -355,13 +361,15 @@ _fold_across = fold_across
 # its number in this process (:data:`rounds_built`); each level of a tree
 # a ``gbdt::level``. Every launch of a round falls inside exactly one of
 # the phase spans ``gbdt::gradients`` (g/h and the round's set-up
-# tensors), ``gbdt::histograms`` (a level's left-child ids and histogram
-# call, and the job's scale), ``gbdt::fold`` (a level's fold),
+# tensors), ``gbdt::histograms`` (a level's histogram call; the root's
+# ids and the job's scale), ``gbdt::fold`` (a level's fold),
 # ``gbdt::splits`` (sibling subtraction, best splits, freeze, the tree's
 # tables; its arg ``variants`` is the candidates scored a (feature, bin):
 # 2 under ``missing_bin``, missing left and right, else 1),
-# ``gbdt::route``, ``gbdt::leaf_sums`` (the leaf sums and their
-# fold) and ``gbdt::margins`` (leaf values and the margins' update).
+# ``gbdt::route`` (each row's next node id and, below the last level, its
+# id in the next level's histogram call), ``gbdt::leaf_sums`` (the leaf
+# sums and their fold) and ``gbdt::margins`` (leaf values and the
+# margins' update).
 _round_ids = itertools.count(1)
 rounds_built = 0      # rounds begun in this process: the latest's id
 
@@ -405,20 +413,17 @@ def _build_tree(bins, g, h, cfg: GBDTConfig, feat_mask, n_members: int = 1,
     dev0 = bins[0].device
     n_internal = 2 ** cfg.depth - 1
     with _phase("gradients", tags):
-        # member of every row; None for one member a block, whose ids need
-        # no offset
-        member = [torch.arange(x.shape[0], dtype=torch.int32,
-                               device=x.device) // (x.shape[0] // n)
-                  if n > 1 else None for x in bins]
         node_ids = [torch.zeros(x.shape[0], dtype=torch.int32,
                                 device=x.device) for x in bins]
         tree_feat, tree_bin, tree_dir = (
             torch.zeros(n_internal, dtype=torch.int32, device=dev0)
             for _ in range(3))
-
-    def member_ids(b, local, k):
-        """Block b's member-local node ids in [0, k) -> ids in [0, n * k)."""
-        return local if member[b] is None else local + member[b] * k
+        # the categorical mask, and a copy on each block's device for
+        # routing
+        cat_mask = cfg._cat_mask()
+        cat_dev = [None if cat_mask is None
+                   else torch.as_tensor(cat_mask, device=x.device)
+                   for x in bins]
 
     def fold2(a, b):
         """Fold the blocks' g and h partials: each block's copy of the
@@ -431,7 +436,7 @@ def _build_tree(bins, g, h, cfg: GBDTConfig, feat_mask, n_members: int = 1,
             return _fold(a, n), _fold(b, n)
         return [_fold(a[0], n)], [_fold(b[0], n)]
 
-    cat_mask = cfg._cat_mask()
+    plain = cfg.hist_mode != "pallas"
     variants = 2 if cfg.missing_bin else 1
     absmax = [None] * len(bins)
     level_start = 0
@@ -456,8 +461,12 @@ def _build_tree(bins, g, h, cfg: GBDTConfig, feat_mask, n_members: int = 1,
                         if group is not None:
                             absmax = [all_reduce_(a, Operators.MAX, group)
                                       for a in absmax]
+                    # the root's id of a row is its member
                     k = 1
-                    ids = [member_ids(b, node_ids[b], 1) for b in blocks]
+                    ids = [torch.arange(x.shape[0], dtype=torch.int32,
+                                        device=x.device) // (x.shape[0] // n)
+                           if n > 1 else node_ids[b]
+                           for b, x in enumerate(bins)]
                 else:
                     # sibling subtraction, hist(parent) = hist(left) +
                     # hist(right): build only the LEFT children -- samples
@@ -468,10 +477,9 @@ def _build_tree(bins, g, h, cfg: GBDTConfig, feat_mask, n_members: int = 1,
                     # magnitude; the hessian clamp keeps that noise from
                     # producing negative hessian sums. The sentinel is
                     # n * k: any smaller id is some member's left child.
+                    # The level above routed its rows to these ids.
                     k = n_nodes // 2
-                    ids = [torch.where(node_ids[b] % 2 == 0,
-                                       member_ids(b, node_ids[b] // 2, k),
-                                       n * k) for b in blocks]
+                    ids = hist_ids
                 parts = [build_histograms(bins[b], g[b], h[b], ids[b], n * k,
                                           cfg, absmax[b]) for b in blocks]
             with _phase("fold", tags):
@@ -507,9 +515,20 @@ def _build_tree(bins, g, h, cfg: GBDTConfig, feat_mask, n_members: int = 1,
                                       splits[0]):
                     table[level_start:level_start + n_nodes] = col
             with _phase("route", tags):
-                node_ids = [_route_samples(bins[b], node_ids[b], *splits[b],
-                                           cat_mask, cfg.missing_bin,
-                                           cfg.n_bins) for b in blocks]
+                # each row's next node id and, below the last level, its
+                # id in the next level's histogram call; no wait for the
+                # card: the tables are best_splits' (features in [0, F))
+                # and the node ids the route's own
+                last = d == cfg.depth - 1
+                routed = [_route_samples(bins[b], node_ids[b], *splits[b],
+                                         cat_dev[b], cfg.missing_bin,
+                                         cfg.n_bins, None if last else n,
+                                         plain, check=False)
+                          for b in blocks]
+                if last:
+                    node_ids = routed
+                else:
+                    node_ids, hist_ids = (list(x) for x in zip(*routed))
         level_start += n_nodes
 
     n_leaves = 2 ** cfg.depth
@@ -707,7 +726,9 @@ def train_tree_shard(bins, y, preds, cfg: GBDTConfig, weights=None,
 
 def predict_tree(bins, tree, cfg: GBDTConfig):
     """Route samples through one tree (level-order heap layout); returns
-    each sample's leaf value."""
+    each sample's leaf value. A tree whose features lie outside the bins'
+    columns raises Mp4jError (on the card, checked once, at the last
+    level)."""
     tree_feat, tree_bin, tree_dir, leaf_val = tree
     cat_mask = cfg._cat_mask()
     node = torch.zeros(bins.shape[0], dtype=torch.int32, device=bins.device)
@@ -716,7 +737,8 @@ def predict_tree(bins, tree, cfg: GBDTConfig):
         level = slice(level_start, level_start + 2 ** d)
         node = _route_samples(bins, node, tree_feat[level], tree_bin[level],
                               tree_dir[level], cat_mask, cfg.missing_bin,
-                              cfg.n_bins)
+                              cfg.n_bins, plain=cfg.hist_mode != "pallas",
+                              check=d == cfg.depth - 1)
         level_start += 2 ** d
     return leaf_val[node.long()]
 
